@@ -7,9 +7,13 @@ for Hopper (sm_90a), built from asm_tpu_torch/csrc at first use; each has
 a plain PyTorch version beside it, which its wrapper runs for tensors
 that lie on the CPU.
 
-This first slice is the greedy headline path: corpus -> difficulty sort
--> tile-major 2-bit planes -> the greedy kernel
-(`python -m asm_tpu_torch.headline`).
+Ported paths:
+  * the greedy headline: corpus -> difficulty sort -> tile-major 2-bit
+    planes -> the greedy kernel (`python -m asm_tpu_torch.headline`);
+  * the exact NW oracle: measured bands -> band-major plan -> the band
+    kernel, with the full kernel for the band-0 residue
+    (`python -m asm_tpu_torch.nw_headline`), and NW with traceback for the
+    coverage metric (`metrics.coverage_device.coverage_counts`).
 """
 
 from asm_tpu_torch.config import (

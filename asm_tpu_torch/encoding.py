@@ -12,6 +12,7 @@ true length, so a comparison that touches padding always mismatches.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 CODE_A = 0
 CODE_C = 1
@@ -73,3 +74,23 @@ def encode_batch(
         read_len[i] = m
         ref_len[i] = n
     return read_codes, read_len, ref_codes, ref_len
+
+
+def pack_planes_t(codes: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(bit0, bit1, valid) planes, WORD-MAJOR [L/32, B], from int8 codes
+    [B, L] (port of `asm_tpu.encoding.pack_planes_t`). Bit p of word w
+    holds that bit of code 32w + p; valid is set iff the code is a real
+    base (< 4: every sentinel has bit 2 set). Words are int32 tensors
+    holding the uint32 bit patterns, on the codes' device."""
+    B, L = codes.shape
+    if L % 32:
+        raise ValueError(f"bitplane packing requires L % 32 == 0, got {L}")
+    c = (codes.to(torch.int64) & 0xFFFFFFFF).reshape(B, L // 32, 32)
+    weights = torch.ones(32, dtype=torch.int64, device=codes.device) \
+        << torch.arange(32, device=codes.device)
+
+    def pack(bits):
+        w = (bits * weights).sum(dim=2).T  # [W, B], < 2**32
+        return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+    return pack(c & 1), pack((c >> 1) & 1), pack((~c >> 2) & 1)

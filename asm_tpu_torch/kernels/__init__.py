@@ -1,1 +1,2 @@
-"""Greedy alignment: the plain PyTorch version and the CUDA kernel wrapper."""
+"""The aligners: plain PyTorch versions and the wrappers of their CUDA
+kernels (greedy; exact NW: full, trace and band)."""

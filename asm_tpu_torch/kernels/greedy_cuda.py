@@ -22,8 +22,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 
 import numpy as np
 import torch
@@ -38,7 +36,7 @@ from asm_tpu_torch.kernels.greedy import (
     rec_dtype,
 )
 from asm_tpu_torch.native import load_native
-from asm_tpu_torch.utils.build import BUILD_DIR, PKG_DIR, build_once, source_hash
+from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
@@ -156,37 +154,16 @@ def codes_from_planes_tiled(planes: torch.Tensor, lengths: torch.Tensor,
 
 # ---- build and bind -------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
 def ptxas_report() -> str:
     """Path of the ptxas report (registers, spills) of the current build."""
-    return os.path.join(BUILD_DIR, f"libgreedy_{source_hash([SOURCE])}.ptxas.txt")
+    return ptxas_report_path("greedy", SOURCE)
 
 
 def build_kernel() -> tuple[str, bool]:
     """nvcc csrc/greedy.cu -> build/libgreedy_<hash>.so for sm_90a; the
     ptxas report (registers, spills) lands beside it as .ptxas.txt.
     Returns (library path, built_now)."""
-    name = f"libgreedy_{source_hash([SOURCE])}.so"
-
-    def nvcc(out):
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", out, SOURCE]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        with open(ptxas_report(), "w") as f:
-            f.write(res.stdout + res.stderr)
-
-    return build_once(name, nvcc)
+    return nvcc_library("greedy", SOURCE)
 
 
 def _load():
@@ -205,7 +182,9 @@ def _load():
 
 # ---- the wrapper ----------------------------------------------------------
 
-def _check(t, name, dtypes, shape, device):
+def check_tensor(t, name, dtypes, shape, device):
+    """Raise unless `t` lies on `device` with one of `dtypes`, `shape`
+    and a contiguous layout (what a kernel's raw pointer needs)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
@@ -286,10 +265,10 @@ def greedy_align_cuda(read, read_len, ref, ref_len, cfg: AlignConfig, *,
     else:
         code_dtypes = (torch.int8,)
         code_shape = (B, L)
-    _check(read, "read", code_dtypes, code_shape, device)
-    _check(ref, "ref", code_dtypes, code_shape, device)
-    _check(read_len, "read_len", (torch.int32,), (B,), device)
-    _check(ref_len, "ref_len", (torch.int32,), (B,), device)
+    check_tensor(read, "read", code_dtypes, code_shape, device)
+    check_tensor(ref, "ref", code_dtypes, code_shape, device)
+    check_tensor(read_len, "read_len", (torch.int32,), (B,), device)
+    check_tensor(ref_len, "ref_len", (torch.int32,), (B,), device)
 
     if device.type == "cpu":
         if pre_staged == "planes_tiled":

@@ -1,5 +1,5 @@
-"""ctypes bindings for the native host runtime (the symbols the greedy
-slice calls).
+"""ctypes bindings for the native host runtime (the symbols the ported
+paths call).
 
 The port builds its own copy of the library from the repo's native/
 sources (`make -C native LIB=<build dir>/...`), because a committed
@@ -67,6 +67,12 @@ def _configure(lib):
     ]
     lib.asm_write_from.restype = c.c_int64
     lib.asm_write_from.argtypes = [c.c_char_p, c.c_int64, c.c_void_p, c.c_int64]
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.asm_coverage_batch.restype = c.c_int64
+    lib.asm_coverage_batch.argtypes = [
+        c.c_int64, c.c_int32, i8p, i32p, i8p, i32p, c.c_int32, i8p,
+        c.c_int32, c.c_int32, c.c_int32, u8p,
+    ]
     return lib
 
 
@@ -100,3 +106,26 @@ def load_native(required: bool = False):
         if required:
             raise RuntimeError(f"native library unavailable: {exc}") from exc
         return None
+
+
+def coverage_batch_native(read_codes, read_len, g_ops, g_runs, nw_cols,
+                          threshold1=1, threshold2=3) -> np.ndarray:
+    """Batched LCM-coverage check (benchmark_coverage.h semantics) in C++.
+
+    g_ops/g_runs: greedy (op, run) slot buffers [n, C]; nw_cols: NW
+    traceback per-column ops [n, 2L] in reverse order (the kernels'
+    layout). Returns bool[n]."""
+    lib = load_native(required=True)
+    n = read_codes.shape[0]
+    covered = np.empty(n, np.uint8)
+    lib.asm_coverage_batch(
+        n, read_codes.shape[1],
+        np.ascontiguousarray(read_codes, np.int8),
+        np.ascontiguousarray(read_len, np.int32),
+        np.ascontiguousarray(g_ops, np.int8),
+        np.ascontiguousarray(g_runs, np.int32),
+        g_ops.shape[1],
+        np.ascontiguousarray(nw_cols, np.int8),
+        nw_cols.shape[1], threshold1, threshold2, covered,
+    )
+    return covered.astype(bool)

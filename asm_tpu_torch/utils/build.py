@@ -1,4 +1,4 @@
-"""Build-once helper for the port's compiled artifacts.
+"""Build-once helpers for the port's compiled artifacts.
 
 Both the host runtime (native/libasm_native.so, built from the repo's
 native/ sources) and the CUDA kernels are compiled at first use into
@@ -12,6 +12,8 @@ from __future__ import annotations
 import fcntl
 import hashlib
 import os
+import shutil
+import subprocess
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -45,3 +47,36 @@ def build_once(name: str, build) -> tuple[str, bool]:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return path, True
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def ptxas_report_path(stem: str, source: str) -> str:
+    """Path of the ptxas report (registers, spills) of `source`'s build."""
+    return os.path.join(BUILD_DIR, f"lib{stem}_{source_hash([source])}"
+                                    ".ptxas.txt")
+
+
+def nvcc_library(stem: str, source: str) -> tuple[str, bool]:
+    """nvcc `source` (a .cu with a plain C interface) ->
+    BUILD_DIR/lib<stem>_<hash>.so for sm_90a; the ptxas report lands
+    beside it (`ptxas_report_path`). Returns (library path, built_now)."""
+
+    def nvcc(out):
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", out, source]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        with open(ptxas_report_path(stem, source), "w") as f:
+            f.write(res.stdout + res.stderr)
+
+    return build_once(f"lib{stem}_{source_hash([source])}.so", nvcc)

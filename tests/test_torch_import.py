@@ -34,6 +34,14 @@ _PORT_MODULES = [
     "asm_tpu_torch.kernels.greedy",
     "asm_tpu_torch.kernels.greedy_cuda",
     "asm_tpu_torch.headline",
+    "asm_tpu_torch.kernels.nw",
+    "asm_tpu_torch.kernels.nw_cuda",
+    "asm_tpu_torch.kernels.nw_band",
+    "asm_tpu_torch.kernels.nw_dispatch",
+    "asm_tpu_torch.ops.cigar",
+    "asm_tpu_torch.metrics.coverage",
+    "asm_tpu_torch.metrics.coverage_device",
+    "asm_tpu_torch.nw_headline",
 ]
 
 
