@@ -1,0 +1,517 @@
+// LEAP / Landau-Vishkin energy wavefront, one pair per thread (sm_90a).
+//
+// Replaces the Pallas TPU kernel asm_tpu/kernels/leap_pallas.py
+// _leap_kernel (wrapper leap_align_pallas) in its three modes: the
+// penalty pass, the SHD-gated SIMD_ED filter and the fused CIGAR
+// backtrack. Per pair: unpack the 2-bit planes (or pack int8 codes), build
+// the 2k+1 interior hurdle lane rows of LEAP's 2k+3 lanes (funnel shift +
+// XOR/OR, validity from the lengths), optionally run the SHD gate, then
+// advance the energy wavefront one level at a time until the pair
+// converges or e passes af, answering count_ID_length (LV_BAG.cpp:9-23)
+// with ctz word queries.
+//
+// What bounds it on Hopper: integer issue. A pair reads 2 * L/4 bytes of
+// planes and writes 3 (or 3 + 4(E+1)) words; per energy level each thread
+// spends ~15 integer ops per lane on the recurrence and ~6 per lane and
+// word on count_ID. State lives in registers, templated on K, W = L/32 and
+// the penalties, so every lane/word loop unrolls and indexes registers
+// statically. The TPU kernel's e-ring (R = max(o, e, x) + 1 slots indexed
+// by e % R) becomes shift registers here: `endh` holds the end rows of
+// levels e-1 .. e-max(o, x), `ih` / `dh` the I / D rows of e-1 .. e-e, so
+// every read is a static slot and the rows of levels below 0 start
+// UNREACHED, which is exactly the reference's `e >= o` reachability test
+// (no peeled levels). Each thread stops at its own level; the host's
+// measured-energy order keeps a warp's pairs at similar energies.
+//
+// Semantics (SEM, a kernel parameter: 0 lv_bag, 1 simd_ed_lev, 2
+// simd_ed_affine) and the lane-order quirks: SIMD_ED's scan order is
+// mirrored against this lane axis, so its "first" lane is our last;
+// simd_ed_lev stops at the last converged lane, passed or not;
+// simd_ed_affine keeps corrected ties with <=, lv_bag with <; at e = 0
+// lv_bag takes the first converged lane and the SIMD_ED semantics the last.
+//
+// The SHD gate (simd_ed_lev only): AND of the interior lanes over planes
+// whose bits past each string's length are cleared (padding compares as
+// 'A', the reference's zero-padded buffer), bits below k and past the
+// buffer length cleared, bit 255 cleared at L = 256 (the error==0 lane's
+// out-of-bounds BEG row); then per nibble the 1-run starts plus one for
+// nibble 0b0110; a count above k stops the pair before e = 0 with passed
+// 0, penalty 0.
+//
+// CIGAR mode (lv_bag): every level e <= E parks its interior cells
+// (start, end, I, D), +2 biased, in a per-launch global scratch laid out
+// pair-minor ([(E+1) * (2k+1) * CW, n] words, so a warp's writes at one
+// level coalesce): 8 bits x 4 in one word when L <= 253, 16 bits x 2 in two
+// words beyond. After the wavefront the thread walks its own history down
+// from (final lane, penalty) as LV::backtrack does (LV_BAG.cpp:250-354)
+// and writes one packed record per energy row: op in bits 0-1 (0 none,
+// 1 M, 2 I, 3 D), is_open in bit 2, the match run in bits 3 and up; row 0
+// holds the terminal match run. A pair passing above E is not walked (its
+// records stay 0); the caller checks max(penalty * passed) <= E.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr uint32_t kFull = 0xFFFFFFFFu;
+constexpr int kUnr = -2;
+constexpr int kBig = 1 << 29;
+constexpr int kLvBag = 0, kSimdLev = 1, kSimdAffine = 2;
+constexpr int kModeLocal = 0, kModeGlobal = 1, kModeSemiFreeBegin = 2;
+
+// bits of word w at positions >= c (c may lie outside the row)
+__device__ __forceinline__ uint32_t mask_ge(int c, int w) {
+    int low = c - 32 * w;
+    low = low < 0 ? 0 : (low > 32 ? 32 : low);
+    return low >= 32 ? 0u : (kFull << low);
+}
+
+__device__ __forceinline__ int ctz32(uint32_t v) { return __clz(__brev(v)); }
+
+__device__ __forceinline__ int iabs(int v) { return v < 0 ? -v : v; }
+
+// bit p of the result = bit p - s of the row (the sequence displaced s
+// positions forward), zeros shifted in; 0 <= s < 32
+template <int W>
+__device__ __forceinline__ uint32_t shl(const uint32_t (&v)[W], int s, int w) {
+    if (s == 0) return v[w];
+    const uint32_t lo = w > 0 ? v[w - 1] >> (32 - s) : 0u;
+    return (v[w] << s) | lo;
+}
+
+// int8 codes as uint32 words -> two bit-planes (bit p of word w = bit 0 or
+// 1 of the code at 32w + p); the carry-free multiply by 0x01020408
+// gathers the four byte bits of a word at bits 24..27
+template <int W>
+__device__ __forceinline__ void pack_row(const uint32_t* __restrict__ row,
+                                         uint32_t (&p0)[W], uint32_t (&p1)[W]) {
+#pragma unroll
+    for (int w = 0; w < W; w++) {
+        uint32_t a0 = 0, a1 = 0;
+#pragma unroll
+        for (int jj = 0; jj < 8; jj++) {
+            const uint32_t v = row[8 * w + jj];
+            a0 |= (((v & 0x01010101u) * 0x01020408u) >> 24) << (4 * jj);
+            a1 |= ((((v >> 1) & 0x01010101u) * 0x01020408u) >> 24) << (4 * jj);
+        }
+        p0[w] = a0;
+        p1[w] = a1;
+    }
+}
+
+// count_ID_length: the match-run end from `start` on one lane row
+template <int W>
+__device__ __forceinline__ int count_id(const uint32_t (&row)[W], int start,
+                                        int buflen) {
+    const int c = start > 0 ? start : 0;
+    int first = 32 * W;
+#pragma unroll
+    for (int w = W - 1; w >= 0; w--) {
+        const uint32_t mk = row[w] & mask_ge(c, w);
+        if (mk) first = 32 * w + ctz32(mk);
+    }
+    return start >= buflen ? start : min(first, buflen);
+}
+
+struct Params {
+    int n;       // pairs in this launch
+    int p0;      // batch index of the launch's first pair
+    int B;       // pairs in the batch (row stride of the records)
+    int tile;    // tile of the tile-major planes
+    int planes;  // 1: tile-major planes, 0: int8 codes [B, L]
+    int sem;     // kLvBag / kSimdLev / kSimdAffine
+    int gate;    // SHD gate (kSimdLev only)
+    int mode;    // LeapMode
+    int af;      // energy threshold
+    int E;       // record rows - 1 (CIGAR)
+};
+
+template <int CW>
+struct Cell {
+    int s, e, i, d;
+};
+
+// packed history cell of level ev, interior lane index j, this thread
+template <int CW>
+__device__ __forceinline__ Cell<CW> load_cell(const uint32_t* __restrict__ hist,
+                                              int NI, int ev, int j, int64_t n,
+                                              int64_t t) {
+    Cell<CW> c{kUnr, kUnr, kUnr, kUnr};
+    if (j < 0 || j >= NI) return c;  // border lanes are UNREACHED
+    const int64_t row = ((int64_t)ev * NI + j) * CW;
+    if (CW == 1) {
+        const uint32_t w = hist[row * n + t];
+        c.s = (int)(w & 0xFF) - 2;
+        c.e = (int)((w >> 8) & 0xFF) - 2;
+        c.i = (int)((w >> 16) & 0xFF) - 2;
+        c.d = (int)(w >> 24) - 2;
+    } else {
+        const uint32_t a = hist[row * n + t];
+        const uint32_t b = hist[(row + 1) * n + t];
+        c.s = (int)(a & 0xFFFF) - 2;
+        c.e = (int)(a >> 16) - 2;
+        c.i = (int)(b & 0xFFFF) - 2;
+        c.d = (int)(b >> 16) - 2;
+    }
+    return c;
+}
+
+template <int CW>
+__device__ __forceinline__ void park_cell(uint32_t* __restrict__ hist, int NI,
+                                          int ev, int j, int64_t n, int64_t t,
+                                          int s, int e, int i, int d) {
+    const int64_t row = ((int64_t)ev * NI + j) * CW;
+    if (CW == 1) {
+        hist[row * n + t] = (uint32_t)(s + 2) | ((uint32_t)(e + 2) << 8) |
+                            ((uint32_t)(i + 2) << 16) | ((uint32_t)(d + 2) << 24);
+    } else {
+        hist[row * n + t] = (uint32_t)(s + 2) | ((uint32_t)(e + 2) << 16);
+        hist[(row + 1) * n + t] = (uint32_t)(i + 2) | ((uint32_t)(d + 2) << 16);
+    }
+}
+
+// K: band half-width; W: words per row (L = 32W); X, O, G: mismatch,
+// gap-open and gap-extension penalties; CIGAR: park + backtrack
+template <int K, int W, int X, int O, int G, bool CIGAR>
+__global__ void __launch_bounds__(128)
+leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
+            const int* __restrict__ rl, const int* __restrict__ fl,
+            const Params P, uint8_t* __restrict__ passed_out,
+            int* __restrict__ pen_out, int* __restrict__ shift_out,
+            int* __restrict__ rec, uint32_t* __restrict__ hist) {
+    constexpr int NI = 2 * K + 1;  // interior lanes l = 1..2K+1, j = l - 1
+    constexpr int MID = K + 1;
+    constexpr int L = 32 * W;
+    constexpr int DE = X > O ? X : O;  // end rows kept: levels e-1..e-DE
+    constexpr int CW = L > 253 ? 2 : 1;
+    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= P.n) return;
+    const int64_t p = P.p0 + t;
+    const int64_t n_launch = P.n;
+    const int m = min(rl[p], L);
+    const int n = min(fl[p], L);
+    const int buflen = max(m, n);  // benchmark_utils.h:162
+    const int af = P.af;
+    const bool corrected = P.mode == kModeGlobal || P.mode == kModeSemiFreeBegin;
+
+    // ---- the pair's bit-planes ----
+    uint32_t r0[W], r1[W], f0[W], f1[W];
+    if (P.planes) {
+        // tile-major planes [NBT, 2W, tile]: row w plane 0, row W+w plane 1
+        const int64_t tile = P.tile;
+        const int64_t base = (p / tile) * (2 * W) * tile + (p % tile);
+#pragma unroll
+        for (int w = 0; w < W; w++) {
+            r0[w] = rc[base + w * tile];
+            r1[w] = rc[base + (W + w) * tile];
+            f0[w] = fc[base + w * tile];
+            f1[w] = fc[base + (W + w) * tile];
+        }
+    } else {
+        pack_row<W>(rc + p * (L / 4), r0, r1);
+        pack_row<W>(fc + p * (L / 4), f0, f1);
+    }
+
+    // The SHD gate reads the planes alone, so it runs before the lane rows
+    // are built: the planes and the lane rows are never live together.
+    bool gated = false;
+    if (P.sem == kSimdLev && P.gate) {
+        // SHD gate on planes whose bits past each length read as 'A'
+        uint32_t a0[W], a1[W], b0[W], b1[W];
+#pragma unroll
+        for (int w = 0; w < W; w++) {
+            a0[w] = r0[w] & ~mask_ge(m, w);
+            a1[w] = r1[w] & ~mask_ge(m, w);
+            b0[w] = f0[w] & ~mask_ge(n, w);
+            b1[w] = f1[w] & ~mask_ge(n, w);
+        }
+        int count = 0;
+#pragma unroll
+        for (int w = 0; w < W; w++) {
+            uint32_t dw = kFull;
+#pragma unroll
+            for (int j = 0; j < NI; j++) {
+                const int l = j + 1;
+                const int a_off = MID - l > 0 ? MID - l : 0;
+                const int b_off = l - MID > 0 ? l - MID : 0;
+                dw &= (shl<W>(a0, a_off, w) ^ shl<W>(b0, b_off, w)) |
+                      (shl<W>(a1, a_off, w) ^ shl<W>(b1, b_off, w)) |
+                      ~mask_ge(a_off + b_off, w);
+            }
+            dw &= ~mask_ge(buflen, w) & mask_ge(K, w);
+            if (L == 256 && w == W - 1) dw &= 0x7FFFFFFFu;
+            const uint32_t starts = dw & ~((dw << 1) & 0xEEEEEEEEu);
+            uint32_t t6 = dw ^ 0x66666666u;
+            t6 |= t6 >> 1;
+            t6 |= t6 >> 2;
+            count += __popc(starts) + __popc(~t6 & 0x11111111u);
+        }
+        gated = count > K;
+    }
+
+    // ---- interior hurdle rows (build_leap_lanes semantics) ----
+    // lane l < MID compares A[p - (MID-l)] vs B[p], l > MID A[p] vs
+    // B[p - (l-MID)]; a position is a hurdle where the planes differ, where
+    // a shifted index lies past its string's length, or before index 0
+    uint32_t lane[NI][W];
+#pragma unroll
+    for (int j = 0; j < NI; j++) {
+        const int l = j + 1;
+        const int a_off = MID - l > 0 ? MID - l : 0;
+        const int b_off = l - MID > 0 ? l - MID : 0;
+#pragma unroll
+        for (int w = 0; w < W; w++) {
+            lane[j][w] = (shl<W>(r0, a_off, w) ^ shl<W>(f0, b_off, w)) |
+                         (shl<W>(r1, a_off, w) ^ shl<W>(f1, b_off, w)) |
+                         mask_ge(m + a_off, w) | mask_ge(n + b_off, w) |
+                         ~mask_ge(a_off + b_off, w);
+        }
+    }
+
+    // ---- e = 0 row (LV::init + the first run step) ----
+    int endh[DE][NI], ih[G][NI], dh[G][NI];
+    bool conv_any = false;
+    int lane0 = MID;
+#pragma unroll
+    for (int j = 0; j < NI; j++) {
+        const int ld = iabs(j + 1 - MID);
+        const bool free_begin =
+            P.mode == kModeLocal || P.mode == kModeSemiFreeBegin;
+        const int s0 = free_begin ? ld : (ld == 0 ? 0 : kUnr);
+        const int e0 = s0 >= 0 ? count_id<W>(lane[j], s0, buflen) : kUnr;
+        endh[0][j] = e0;
+#pragma unroll
+        for (int d = 1; d < DE; d++) endh[d][j] = kUnr;
+#pragma unroll
+        for (int d = 0; d < G; d++) ih[d][j] = dh[d][j] = kUnr;
+        const bool c0 = e0 == buflen && s0 >= 0;
+        // lv_bag takes the first converged lane, SIMD_ED (mirrored) the last
+        if (c0 && (P.sem != kLvBag || !conv_any)) lane0 = j + 1;
+        conv_any = conv_any || c0;
+        if (CIGAR) park_cell<CW>(hist, NI, 0, j, n_launch, t, s0, e0, kUnr, kUnr);
+    }
+    int pen0, default_pen;
+    if (P.sem == kSimdAffine && corrected) {
+        pen0 = default_pen = 1000000;  // reset_affine converge_ED
+    } else if (corrected || P.sem == kLvBag) {
+        pen0 = 0;
+        default_pen = af + 1;
+    } else {
+        pen0 = default_pen = 0;
+    }
+    bool stop = conv_any, passed = conv_any;
+    int pen = conv_any ? pen0 : default_pen;
+    const int flane0 = conv_any ? lane0 : MID;
+    int flane = flane0;
+    if (gated) {  // the reference stops a gated pair before e = 0
+        stop = true;
+        passed = false;
+        pen = 0;
+    }
+
+    // ---- the energy loop ----
+    int e = 1;
+    for (; e <= af && !stop; e++) {
+        int ns[NI], ne[NI], ni[NI], nd[NI];
+        bool conv[NI];
+#pragma unroll
+        for (int j = 0; j < NI; j++) {
+            const int l = j + 1;
+            const int top = l >= MID ? 1 : 0;  // LV_BAG.cpp:153-157
+            const int bot = l <= MID ? 1 : 0;
+            // the max form of the reference's I/D choice: equal on the
+            // value domain {UNREACHED} u [0, inf)
+            const int end_up = j > 0 ? endh[O - 1][j - 1] : kUnr;
+            const int i_up = j > 0 ? ih[G - 1][j - 1] : kUnr;
+            const int ic = max(end_up, i_up);
+            const int iv = ic >= 0 ? ic + top : kUnr;
+            const int end_dn = j < NI - 1 ? endh[O - 1][j + 1] : kUnr;
+            const int d_dn = j < NI - 1 ? dh[G - 1][j + 1] : kUnr;
+            const int dc = max(end_dn, d_dn);
+            const int dv = dc >= 0 ? dc + bot : kUnr;
+            const int em = endh[X - 1][j];
+            const int sm = em >= 0 ? em + 1 : kUnr;
+            const int s = max(sm, max(iv, dv));
+            const int en = s >= 0 ? count_id<W>(lane[j], s, buflen) : kUnr;
+            ns[j] = s;
+            ne[j] = en;
+            ni[j] = iv;
+            nd[j] = dv;
+            conv[j] = en == buflen && s >= 0;
+        }
+
+        bool stop_now = false, pass_now = false;
+        int lane_now = 0, pen_now = e;
+        if (P.sem == kSimdLev) {
+            // run_levenshtein stops at its first converged lane (our last)
+            // whether or not the converge correction passes it
+#pragma unroll
+            for (int j = 0; j < NI; j++) {
+                if (conv[j]) {
+                    stop_now = true;
+                    lane_now = j + 1;
+                }
+            }
+            if (corrected) pen_now = e + iabs(lane_now - MID);
+            pass_now = stop_now && (!corrected || pen_now <= af);
+        } else if (corrected) {
+            int tmin = kBig;
+#pragma unroll
+            for (int j = 0; j < NI; j++) {
+                const int ld = iabs(j + 1 - MID);
+                const int tc = e + (ld == 0 ? 0 : O + (ld - 1) * G);
+                const int tt = conv[j] && tc <= af ? tc : kBig;
+                const bool better =
+                    P.sem == kSimdAffine ? tt <= tmin : tt < tmin;
+                if (better) {
+                    tmin = tt;
+                    lane_now = j + 1;
+                }
+            }
+            pass_now = stop_now = tmin < kBig;
+            if (P.sem == kSimdAffine) pen_now = tmin;
+        } else {
+            // the last converged lane wins (LV_BAG.cpp:233-237)
+#pragma unroll
+            for (int j = 0; j < NI; j++) {
+                if (conv[j]) {
+                    pass_now = true;
+                    lane_now = j + 1;
+                }
+            }
+            stop_now = pass_now;
+        }
+        if (stop_now) {
+            stop = true;
+            passed = pass_now;
+            pen = pen_now;
+            flane = lane_now;
+        }
+
+#pragma unroll
+        for (int j = 0; j < NI; j++) {
+#pragma unroll
+            for (int d = DE - 1; d > 0; d--) endh[d][j] = endh[d - 1][j];
+            endh[0][j] = ne[j];
+#pragma unroll
+            for (int d = G - 1; d > 0; d--) {
+                ih[d][j] = ih[d - 1][j];
+                dh[d][j] = dh[d - 1][j];
+            }
+            ih[0][j] = ni[j];
+            dh[0][j] = nd[j];
+            if (CIGAR && e <= P.E)
+                park_cell<CW>(hist, NI, e, j, n_launch, t, ns[j], ne[j], ni[j],
+                              nd[j]);
+        }
+    }
+
+    passed_out[p] = passed ? 1 : 0;
+    pen_out[p] = pen;
+    shift_out[p] = flane - MID;
+
+    if (!CIGAR) return;
+    // ---- the backtrack walk (LV::backtrack, LV_BAG.cpp:250-354) ----
+    // cm: 0 a fresh arrival, 1 inside an insertion chain, 2 a deletion chain
+    const int64_t B = P.B;
+    int row_hi = P.E;  // rows above row_hi are written
+    int term = 0;
+    if (passed && pen <= P.E) {
+        int cur = pen, ln = flane, cm = 0;
+        for (int guard = 0; cur > 0 && guard <= P.E; guard++) {
+            const int ev = cur;
+            const Cell<CW> c = load_cell<CW>(hist, NI, ev, ln - 1, n_launch, t);
+            const bool ok_ge = ev - G >= 0;
+            const int evg = ok_ge ? ev - G : 0;
+            const int i_prev =
+                load_cell<CW>(hist, NI, evg, ln - 2, n_launch, t).i;
+            const int d_prev = load_cell<CW>(hist, NI, evg, ln, n_launch, t).d;
+            const bool fresh = cm == 0;
+            const int run = fresh ? c.e - c.s : 0;
+            const bool is_i = fresh ? c.s == c.i : cm == 1;
+            const bool is_d = fresh ? (c.s != c.i && c.s == c.d) : cm == 2;
+            const int top = ln >= MID ? 1 : 0;
+            const int bot = ln <= MID ? 1 : 0;
+            const bool ext_i = ok_ge && i_prev != kUnr && i_prev + top == c.i;
+            const bool ext_d = ok_ge && d_prev != kUnr && d_prev + bot == c.d;
+            const int op = is_i ? 2 : (is_d ? 3 : 1);
+            const bool is_open = (is_i && !ext_i) || (is_d && !ext_d);
+            for (int r = row_hi; r > ev; r--) rec[r * B + p] = 0;
+            rec[ev * B + p] = op | ((is_open ? 1 : 0) << 2) | (run << 3);
+            row_hi = ev - 1;
+            const int de = is_i ? (ext_i ? G : O) : (is_d ? (ext_d ? G : O) : X);
+            cur = max(ev - de, 0);
+            ln += is_i ? -1 : (is_d ? 1 : 0);
+            cm = (is_i && ext_i) ? 1 : ((is_d && ext_d) ? 2 : 0);
+        }
+        // the terminal match run at energy 0 on the walk's final lane
+        const Cell<CW> c0 = load_cell<CW>(hist, NI, 0, ln - 1, n_launch, t);
+        term = c0.e - c0.s;
+    }
+    for (int r = row_hi; r >= 1; r--) rec[r * B + p] = 0;
+    rec[p] = term;
+}
+
+template <int K, int W, int X, int O, int G, bool CIGAR>
+cudaError_t launch(const void* rc, const void* fc, const void* rl,
+                   const void* fl, const Params& P, void* passed, void* pen,
+                   void* shift, void* rec, void* hist, cudaStream_t stream) {
+    constexpr int kThreads = 128;
+    const int blocks = (P.n + kThreads - 1) / kThreads;
+    leap_kernel<K, W, X, O, G, CIGAR><<<blocks, kThreads, 0, stream>>>(
+        (const uint32_t*)rc, (const uint32_t*)fc, (const int*)rl,
+        (const int*)fl, P, (uint8_t*)passed, (int*)pen, (int*)shift,
+        (int*)rec, (uint32_t*)hist);
+    return cudaGetLastError();
+}
+
+// penalties: 0 = unit (x = o = e = 1), 1 = affine (x = 2, o = 3, e = 1)
+template <int K, int W>
+cudaError_t by_penalty(int pens, int cigar, const void* rc, const void* fc,
+                       const void* rl, const void* fl, const Params& P,
+                       void* passed, void* pen, void* shift, void* rec,
+                       void* hist, cudaStream_t s) {
+    if (pens == 0 && !cigar)
+        return launch<K, W, 1, 1, 1, false>(rc, fc, rl, fl, P, passed, pen, shift, rec, hist, s);
+    if (pens == 0 && cigar)
+        return launch<K, W, 1, 1, 1, true>(rc, fc, rl, fl, P, passed, pen, shift, rec, hist, s);
+    if (pens == 1 && !cigar)
+        return launch<K, W, 2, 3, 1, false>(rc, fc, rl, fl, P, passed, pen, shift, rec, hist, s);
+    if (pens == 1 && cigar)
+        return launch<K, W, 2, 3, 1, true>(rc, fc, rl, fl, P, passed, pen, shift, rec, hist, s);
+    return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// rc/fc: tile-major planes uint32[NBT, 2W, tile] (planes != 0) or int8
+// codes [B, 32W] (rows read as uint32 words); rl/fl: int32[B]. The launch
+// covers pairs p0 .. p0+n-1 of the batch. Outputs: passed uint8[B],
+// penalty / lane_shift int32[B]; with cigar, rec int32[E+1, B] and the
+// scratch hist uint32[(E+1) * (2k+1) * CW, n]. Returns the launch's
+// cudaError_t (0 on success); does not synchronise.
+extern "C" int asm_leap_launch(const void* rc, const void* fc, const void* rl,
+                               const void* fl, int n, int p0, int B, int tile,
+                               int planes, int k, int W, int pens, int sem,
+                               int gate, int mode, int af, int E, int cigar,
+                               void* passed, void* pen, void* shift, void* rec,
+                               void* hist, int device, void* stream) {
+    if (n <= 0) return 0;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const Params P{n, p0, B, tile, planes, sem, gate, mode, af, E};
+    cudaStream_t s = (cudaStream_t)stream;
+#define ASM_LEAP_CASE(KK, WW)                                                  \
+    if (k == KK && W == WW)                                                    \
+        return (int)by_penalty<KK, WW>(pens, cigar, rc, fc, rl, fl, P, passed, \
+                                       pen, shift, rec, hist, s);
+    ASM_LEAP_CASE(2, 4)
+    ASM_LEAP_CASE(2, 8)
+    ASM_LEAP_CASE(3, 4)
+    ASM_LEAP_CASE(3, 8)
+    ASM_LEAP_CASE(4, 4)
+    ASM_LEAP_CASE(4, 8)
+#undef ASM_LEAP_CASE
+    return (int)cudaErrorInvalidValue;
+}

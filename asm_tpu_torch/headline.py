@@ -20,7 +20,9 @@ reference (benchmark_utils.h:185-201 times only the aligner).
 
     python -m asm_tpu_torch.headline [--pairs N] [--chunk N] [--reps N]
 
-prints one JSON line {"metric": "greedy_alignments_per_sec", ...}. With
+prints one JSON line {"metric": "greedy_alignments_per_sec", ...}, with
+the best rep's per-dispatch ms and enqueue ms and the kernel's bound
+(`bound_ms`, `bound_by`: utils.bounds). With
 the defaults (67,108,864 pairs) the checksum is 256177757 and the
 per-chunk max steps are [1, 27].
 """
@@ -31,7 +33,6 @@ import argparse
 import dataclasses
 import json
 import os
-import sys
 import time
 
 import numpy as np
@@ -46,14 +47,12 @@ from asm_tpu_torch.parallel.schedule import (
     quantized_step_bounds,
 )
 from asm_tpu_torch.utils.build import REPO_DIR
+from asm_tpu_torch.utils.bounds import bound_entry, greedy_work
 from asm_tpu_torch.utils.hostmem import take_rows
+from asm_tpu_torch.utils.timing import log, time_reps
 
 # reference: 1M pairs in 0.85 s on one CPU core (README.md:14, BASELINE.md)
 BASELINE_ALIGNS_PER_SEC = 1_000_000 / 0.85
-
-
-def _log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
 
 
 def headline_config(max_steps: int = 32) -> AlignConfig:
@@ -84,6 +83,21 @@ def native_corpus(n_pairs: int, err: float, seed: int = 42,
     return got
 
 
+def stage_chunks(corpus, perm, chunk: int, tile: int, device) -> list:
+    """(read planes, read lengths, ref planes, ref lengths) of each chunk of
+    `perm` (corpus rows), staged tile-major and uploaded to `device`."""
+    rc, rl, fc, fl = corpus
+    chunks = []
+    for lo in range(0, perm.shape[0], chunk):
+        p = perm[lo:lo + chunk]
+        arrays = (stage_planes_tiled_t(rc, perm=p, tile=tile).view(np.int32),
+                  take_rows(rl, p),
+                  stage_planes_tiled_t(fc, perm=p, tile=tile).view(np.int32),
+                  take_rows(fl, p))
+        chunks.append(tuple(torch.from_numpy(a).to(device) for a in arrays))
+    return chunks
+
+
 def run_pass(corpus, perm, bounds, cfg: AlignConfig, chunk: int, tile: int,
              device, impl: str = "cuda", reps: int = 1) -> dict:
     """Stage, upload and align the corpus in `perm` order, chunk by chunk
@@ -92,53 +106,29 @@ def run_pass(corpus, perm, bounds, cfg: AlignConfig, chunk: int, tile: int,
     Returns checksum (total cost), chunk_max (max steps per chunk),
     cost and steps (int32 per pair, in `perm` order) and, on a CUDA
     device, the CUDA-event seconds of each timed rep over all chunks
-    (`rep_s`).
+    (`rep_s`) and the fastest rep's dispatch_ms and enqueue_ms (`best`).
     """
-    rc, rl, fc, fl = corpus
     device = torch.device(device)
     n = perm.shape[0]
     n_chunks = -(-n // chunk)
     if len(bounds) != n_chunks:
         raise ValueError(f"{len(bounds)} bounds for {n_chunks} chunks")
     t0 = time.perf_counter()
-    chunks = []
-    for i in range(n_chunks):
-        p = perm[i * chunk:(i + 1) * chunk]
-        arrays = (stage_planes_tiled_t(rc, perm=p, tile=tile).view(np.int32),
-                  take_rows(rl, p),
-                  stage_planes_tiled_t(fc, perm=p, tile=tile).view(np.int32),
-                  take_rows(fl, p))
-        chunks.append(tuple(torch.from_numpy(a).to(device) for a in arrays))
-    _log(f"staging + upload: {time.perf_counter() - t0:.1f}s")
+    chunks = stage_chunks(corpus, perm, chunk, tile, device)
+    log(f"staging + upload: {time.perf_counter() - t0:.1f}s")
     steps_fns = [
         make_greedy_step(dataclasses.replace(cfg, max_steps=b), device,
                          impl=impl, pre_staged="planes_tiled", tile=tile)
         for b in bounds]
-
-    def one_rep():
-        return [f(*c) for f, c in zip(steps_fns, chunks)]
-
-    outs = one_rep()  # warm-up (first launch loads the kernel)
-    rep_s = []
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        for r in range(reps):
-            outs = None
-            start.record()
-            outs = one_rep()
-            end.record()
-            end.synchronize()
-            rep_s.append(start.elapsed_time(end) / 1e3)
-            _log(f"rep {r}: {rep_s[-1]:.6f}s  "
-                 f"{n / rep_s[-1] / 1e6:.2f}M aligns/s")
+    fns = [lambda f=f, c=c: f(*c) for f, c in zip(steps_fns, chunks)]
+    rep_s, best, outs = time_reps(fns, reps, device)
     return dict(
         checksum=sum(int(o["cost"].sum(dtype=torch.int64)) for o in outs),
         chunk_max=[int(o["steps"].max()) for o in outs],
         cost=np.concatenate([o["cost"].cpu().numpy() for o in outs]),
         steps=np.concatenate([o["steps"].cpu().numpy() for o in outs]),
         rep_s=rep_s,
+        best=best,
     )
 
 
@@ -147,19 +137,20 @@ def run(n_pairs: int = 1 << 26, chunk: int = 1 << 25, err: float = 0.05,
         device="cuda", impl: str = "cuda", reps: int = 5,
         cache: bool = False) -> dict:
     """The headline flow; returns the measured-order pass's checksum,
-    chunk_max, bounds, rep_s, per-pair cost and steps, and its perm, the
-    corpus, and the heuristic pass's results (`first`). Raises if the two
+    chunk_max, bounds, rep_s, best, per-pair cost and steps, and its perm,
+    the corpus, the heuristic pass's results (`first`) and the kernel's
+    bound for one rep (`bound`: utils.bounds.greedy_work). Raises if the two
     passes disagree or a bound truncated a walk."""
     cfg = headline_config(max_steps)
     n_pairs = max(chunk, (n_pairs // chunk) * chunk)
     n_chunks = n_pairs // chunk
     t0 = time.perf_counter()
     corpus = native_corpus(n_pairs, err, seed, cfg.max_len, cache=cache)
-    _log(f"corpus: {n_pairs} pairs err={err} "
-         f"({time.perf_counter() - t0:.1f}s)")
+    log(f"corpus: {n_pairs} pairs err={err} "
+        f"({time.perf_counter() - t0:.1f}s)")
     t0 = time.perf_counter()
     perm = difficulty_order(*corpus)
-    _log(f"difficulty sort: {time.perf_counter() - t0:.1f}s")
+    log(f"difficulty sort: {time.perf_counter() - t0:.1f}s")
 
     bounds = [cfg.steps_bound] * n_chunks
     first = run_pass(corpus, perm, bounds, cfg, chunk, tile, device, impl,
@@ -170,7 +161,7 @@ def run(n_pairs: int = 1 << 26, chunk: int = 1 << 25, err: float = 0.05,
     order = np.argsort(first["steps"], kind="stable")
     perm = perm[order]
     bounds = quantized_step_bounds(first["steps"][order], chunk)
-    _log(f"measured-steps order: per-chunk bounds {bounds}")
+    log(f"measured-steps order: per-chunk bounds {bounds}")
     second = run_pass(corpus, perm, bounds, cfg, chunk, tile, device, impl,
                       reps)
     _check_bounds(second["chunk_max"], bounds)
@@ -178,11 +169,13 @@ def run(n_pairs: int = 1 << 26, chunk: int = 1 << 25, err: float = 0.05,
         raise AssertionError(
             f"checksum changed with the order: {first['checksum']} -> "
             f"{second['checksum']}")
-    _log(f"total-cost checksum: {second['checksum']}")
-    _log(f"max greedy steps per chunk: {second['chunk_max']} "
-         f"(bounds {bounds})")
+    log(f"total-cost checksum: {second['checksum']}")
+    log(f"max greedy steps per chunk: {second['chunk_max']} "
+        f"(bounds {bounds})")
     return dict(second, n_pairs=n_pairs, bounds=bounds, perm=perm,
-                corpus=corpus, first=first)
+                corpus=corpus, first=first,
+                bound=bound_entry(*greedy_work(second["steps"], bounds, chunk,
+                                               cfg.k, cfg.max_len)))
 
 
 def _check_bounds(chunk_max, bounds) -> None:
@@ -207,8 +200,7 @@ def main(argv=None) -> None:
         raise SystemExit("the headline measures the GPU; no CUDA device")
     res = run(args.pairs, args.chunk, args.err, max_steps=args.max_steps,
               tile=args.tile, reps=args.reps, cache=args.cache)
-    best = min(res["rep_s"])
-    rate = res["n_pairs"] / best
+    rate = res["n_pairs"] / min(res["rep_s"])
     print(json.dumps({
         "metric": "greedy_alignments_per_sec",
         "value": round(rate, 1),
@@ -217,6 +209,9 @@ def main(argv=None) -> None:
         "device": torch.cuda.get_device_name(0),
         "checksum": res["checksum"],
         "chunk_max_steps": res["chunk_max"],
+        **res["best"],
+        "bound_ms": res["bound"]["bound_ms"],
+        "bound_by": res["bound"]["bound_by"],
     }))
 
 

@@ -31,6 +31,7 @@ from asm_tpu_torch.kernels.nw_band import (
     nw_penalty_banded,
 )
 from asm_tpu_torch.kernels.nw_cuda import nw_penalty_cuda
+from asm_tpu_torch.utils.timing import time_dispatches
 
 
 @dataclasses.dataclass
@@ -133,35 +134,13 @@ def nw_partition_execute(plan: NWPlan) -> np.ndarray:
     `last_*` fields. Raises ValueError if a band chunk fails its
     certificate."""
     dev = plan.chunks[0][0].device if plan.chunks else torch.device("cpu")
-    on_card = dev.type == "cuda"
-
-    def mark():  # a timestamp in the region's clock
-        if not on_card:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def span(a, b):  # seconds between two marks
-        return a.elapsed_time(b) / 1e3 if on_card else b - a
-
-    t0 = time.perf_counter()
-    marks = [mark()]
-    outs = []
-    for bw, args in zip(plan.widths, plan.chunks):
-        outs.append(_run_chunk(plan, bw, args))
-        marks.append(mark())
-    barrier = sum(s + ok.to(torch.int64) for _, s, ok in outs)
-    end = mark()
-    plan.last_enqueue_seconds = time.perf_counter() - t0
-    if on_card:
-        end.synchronize()
-    else:
-        int(barrier)
-        end = time.perf_counter()
-    plan.last_exec_seconds = span(marks[0], end)
-    plan.last_dispatch_seconds = [span(a, b)
-                                  for a, b in zip(marks, marks[1:])]
+    outs, timing = time_dispatches(
+        [lambda bw=bw, args=args: _run_chunk(plan, bw, args)
+         for bw, args in zip(plan.widths, plan.chunks)], dev,
+        after=lambda outs: sum(s + ok.to(torch.int64) for _, s, ok in outs))
+    plan.last_exec_seconds = timing["seconds"]
+    plan.last_dispatch_seconds = [ms / 1e3 for ms in timing["dispatch_ms"]]
+    plan.last_enqueue_seconds = timing["enqueue_ms"] / 1e3
 
     for _, _, ok in outs:
         if not bool(ok):

@@ -24,7 +24,8 @@ times only the aligner).
 prints one JSON line {"metric": "nw_alignments_per_sec", ...}, with the
 best rep's breakdown: each dispatch's band width, pairs and ms (CUDA
 events), the host's enqueue time (a bound on the device's idle time in
-the rep) and the pull of the penalties after it. With the
+the rep), the pull of the penalties after it and the kernels' bound
+(`bound_ms`, `bound_by`: utils.bounds). With the
 defaults (67,108,864 pairs, err 0.05) the checksum is 249930000 with
 partitions {8: 25367126, 16: 41741738}; at --err 0.20 it is 924929469
 with {8: 41, 16: 94414, 32: 53645952, 64: 13368457}.
@@ -34,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import sys
 import time
 
 import numpy as np
@@ -52,7 +52,9 @@ from asm_tpu_torch.kernels.nw_dispatch import (
     nw_partition_plan,
 )
 from asm_tpu_torch.parallel.schedule import difficulty_order
+from asm_tpu_torch.utils.bounds import bound_entry, nw_band_work, nw_full_work
 from asm_tpu_torch.utils.hostmem import take_rows
+from asm_tpu_torch.utils.timing import best_of_reps, log, nearest_rate
 
 BWS = (8, 16, 32, 64)
 # reference single-core seconds per 1M NW alignments at each simulated
@@ -60,13 +62,8 @@ BWS = (8, 16, 32, 64)
 REF_SECONDS = {0.05: 36.22, 0.10: 34.26, 0.15: 32.33, 0.20: 31.55}
 
 
-def _log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
-
-
 def baseline_rate(err: float) -> float:
-    key = min(REF_SECONDS, key=lambda r: abs(r - err))
-    return 1e6 / REF_SECONDS[key]
+    return nearest_rate(REF_SECONDS, err)
 
 
 def _planes(codes, perm, device):
@@ -88,14 +85,14 @@ def run(n_pairs: int = 1 << 26, chunk: int = 1 << 25, err: float = 0.05,
     if corpus is None:
         t0 = time.perf_counter()
         corpus = native_corpus(n_pairs, err, seed, 128)
-        _log(f"corpus: {n_pairs} pairs err={err} "
-             f"({time.perf_counter() - t0:.1f}s)")
+        log(f"corpus: {n_pairs} pairs err={err} "
+            f"({time.perf_counter() - t0:.1f}s)")
     rc, rl, fc, fl = corpus
     n_pairs = rl.shape[0]
     t0 = time.perf_counter()
     perm = difficulty_order(*corpus)
     rl_p, fl_p = take_rows(rl, perm), take_rows(fl, perm)
-    _log(f"difficulty sort: {time.perf_counter() - t0:.1f}s")
+    log(f"difficulty sort: {time.perf_counter() - t0:.1f}s")
 
     # measuring pass (untimed): exact penalties -> each pair's band
     t0 = time.perf_counter()
@@ -110,8 +107,8 @@ def run(n_pairs: int = 1 << 26, chunk: int = 1 << 25, err: float = 0.05,
             0, np.int32)
     del rp, fp, rl_d, fl_d
     bands = required_band(pen0, bws=BWS)
-    _log(f"measuring pass: {time.perf_counter() - t0:.1f}s, bands "
-         f"{dict(zip(*[v.tolist() for v in np.unique(bands, return_counts=True)]))}")
+    log(f"measuring pass: {time.perf_counter() - t0:.1f}s, bands "
+        f"{dict(zip(*[v.tolist() for v in np.unique(bands, return_counts=True)]))}")
 
     # band-major restage (stable: the difficulty order within a band)
     t0 = time.perf_counter()
@@ -122,30 +119,38 @@ def run(n_pairs: int = 1 << 26, chunk: int = 1 << 25, err: float = 0.05,
         stage_planes_t(fc, perm=perm2), fl_p[order], bands[order],
         bws=BWS, max_chunk=chunk, pre_staged=True, already_sorted=True,
         device=device)
-    _log(f"band restage + upload: {time.perf_counter() - t0:.1f}s; "
-         f"partitions {plan.partitions} -> {len(plan.chunks)} dispatches")
+    log(f"band restage + upload: {time.perf_counter() - t0:.1f}s; "
+        f"partitions {plan.partitions} -> {len(plan.chunks)} dispatches")
 
-    pen = nw_partition_execute(plan)  # warm-up (first launch loads kernels)
-    rep_s, best = [], {}
-    for r in range(reps if device.type == "cuda" else 0):
+    def rep():
         pen = nw_partition_execute(plan)
-        rep_s.append(plan.last_exec_seconds)
-        _log(f"rep {r}: {rep_s[-1]:.6f}s  "
-             f"{n_pairs / rep_s[-1] / 1e6:.2f}M aligns/s")
-        if rep_s[-1] == min(rep_s):
-            best = dict(
-                dispatch_ms=[s * 1e3 for s in plan.last_dispatch_seconds],
-                enqueue_ms=plan.last_enqueue_seconds * 1e3,
-                pull_ms=plan.last_pull_seconds * 1e3)
+        return pen, dict(
+            seconds=plan.last_exec_seconds,
+            dispatch_ms=[s * 1e3 for s in plan.last_dispatch_seconds],
+            enqueue_ms=plan.last_enqueue_seconds * 1e3,
+            pull_ms=plan.last_pull_seconds * 1e3)
+
+    rep_s, best, pen = best_of_reps(rep, reps, device)
     if not np.array_equal(pen, pen0[order]):
         raise AssertionError("partitioned NW disagrees with the measuring "
                              "pass")
     checksum = int(pen.sum(dtype=np.int64))
-    _log(f"total-penalty checksum: {checksum}")
+    log(f"total-penalty checksum: {checksum}")
     return dict(checksum=checksum, partitions=plan.partitions,
                 dispatches=len(plan.chunks), rep_s=rep_s, best=best, pen=pen0,
                 perm=perm, order=order, plan=plan, corpus=corpus,
-                n_pairs=n_pairs)
+                n_pairs=n_pairs, bound=kernel_bound(rl_p, fl_p, bands))
+
+
+def kernel_bound(read_len, ref_len, bands) -> dict:
+    """bound_ms / bound_by of one rep (utils.bounds): the band cells of
+    every band pair and the full DP of the band-0 residue."""
+    m, n = np.minimum(read_len, 128), np.minimum(ref_len, 128)
+    ops, nbytes = nw_band_work(m + n, bands)
+    res = bands == 0
+    if res.any():
+        ops += nw_full_work(m[res], n[res])[0]
+    return bound_entry(ops, nbytes)
 
 
 def main(argv=None) -> None:
@@ -173,6 +178,8 @@ def main(argv=None) -> None:
         "dispatch_widths": res["plan"].widths,
         "dispatch_pairs": [c[1].shape[0] for c in res["plan"].chunks],
         **res["best"],
+        "bound_ms": res["bound"]["bound_ms"],
+        "bound_by": res["bound"]["bound_by"],
     }))
 
 

@@ -1,5 +1,5 @@
 """Hurdle-lane construction and lane geometry (port of
-`asm_tpu.ops.hurdles`' greedy half).
+`asm_tpu.ops.hurdles`).
 
 A lane is a diagonal of the alignment matrix; per lane, bit p says
 whether the read and ref characters on that diagonal at column p differ
@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from asm_tpu_torch.encoding import PAD_SHIFT
-from asm_tpu_torch.ops.bitops import shift_toward_0
+from asm_tpu_torch.ops.bitops import shift_away_0, shift_toward_0
 
 
 def switch_lane_penalty(l1, l2, o: int, e: int):
@@ -60,5 +60,26 @@ def build_greedy_lanes(read_codes: torch.Tensor, ref_codes: torch.Tensor,
         else:
             a = read_codes
             b = shift_toward_0(ref_codes, lane, fill=PAD_SHIFT)
+        rows.append((a != b).to(torch.int8))
+    return torch.stack(rows, dim=-2)
+
+
+def build_leap_lanes(read_codes: torch.Tensor, ref_codes: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """Hurdle rows for LEAP's 2k+3 lanes: int8[B, 2k+3, L].
+
+    LEAP's coordinate (LV_BAG.cpp:9-23) is pos = max(read idx, ref idx):
+    lane l < mid compares A[pos - (mid-l)] vs B[pos], lane l > mid
+    compares A[pos] vs B[pos - (l-mid)], with mid = k+1. Border lanes 0
+    and 2k+2 are sentinels (never walked, LV_BAG.cpp:131), all hurdles;
+    positions before index 0 mismatch through the PAD_SHIFT fill."""
+    mid = k + 1
+    rows = []
+    for lane in range(2 * k + 3):
+        if lane == 0 or lane == 2 * k + 2:
+            rows.append(torch.ones_like(read_codes, dtype=torch.int8))
+            continue
+        a = shift_away_0(read_codes, max(mid - lane, 0), fill=PAD_SHIFT)
+        b = shift_away_0(ref_codes, max(lane - mid, 0), fill=PAD_SHIFT)
         rows.append((a != b).to(torch.int8))
     return torch.stack(rows, dim=-2)

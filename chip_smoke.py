@@ -4,8 +4,8 @@
 
 Needs one CUDA card, nvcc and g++. Phases, each printing one line:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the greedy, NW and NW band kernels (nvcc, sm_90a) and the
-     native host runtime, all at once, from this checkout's sources;
+  2. build: the greedy, NW, NW band and LEAP kernels (nvcc, sm_90a) and
+     the native host runtime, all at once, from this checkout's sources;
   3. kernel vs plain: greedy_align_cuda on CUDA tensors against the plain
      PyTorch greedy_align on the same device, on the corpora of the
      kernel's conformance tests, both input forms — cost, steps, raw step
@@ -32,8 +32,26 @@ Needs one CUDA card, nvcc and g++. Phases, each printing one line:
      positional certificate + native fallback) on 65,536 native pairs at
      err 0.10; both counts must equal the pinned values and the trace
      kernel must have launched.
-Prints a JSON line of per-kernel results, the card line, and last
-{"ok": true, "device": {...}}. Any failure raises (exit code != 0).
+  8. LEAP kernel vs plain: leap_align_cuda in both input forms against the
+     plain PyTorch leap_align on the card — passed, penalty, lane_shift
+     and, in CIGAR mode, the raw edit records and decoded CIGARs exactly
+     equal — on the LEAP conformance corpora (three error profiles,
+     unequal lengths, edge pairs, L = 256 with full-length buffers), every
+     LeapMode, unit and affine penalties, lv_bag / simd_ed_lev with and
+     without the SHD gate / simd_ed_affine, k = 2 and 4, a tight
+     threshold, odd batch sizes;
+  9. LEAP main path: the LEAP headline flow (leap_headline.run: penalty
+     pass, measured-energy order, leap / leap_cigar / leap_gated) on the
+     1,000,000-pair headline corpus; the checksums, the passed count, the
+     CIGAR pass's per-chunk energy bounds and the CIGAR digest must equal
+     the pinned values, the kernel must have launched, and the plain
+     version must agree pair by pair;
+ 10. the LEAP filter CLI (apps.leap_filter) on a 20,000-pair file written
+     to a temporary directory, levenshtein + SHD gate and affine: both
+     pass counts must equal the pinned values.
+Prints a JSON line of per-kernel results (time, plain version's time,
+bound, launches), the card line, and last {"ok": true, "device": {...}}.
+Any failure raises (exit code != 0).
 """
 
 from __future__ import annotations
@@ -73,6 +91,28 @@ MIXED_PAIRS = 262_144
 COV_PAIRS = 65_536
 COV_COVERED = 61833
 COV_GREEDY_EQ_NW = 51290
+# LEAP on the same 1,000,000-pair headline corpus, computed with the JAX
+# reference on the CPU: asm_tpu.kernels.leap.leap_align (XLA) in 65,536-pair
+# chunks — lv_bag, x=o=e=1, k=3, af=200, GLOBAL: penalty total 3722582 and
+# 1000000 pairs passed (max passed energy 24); simd_ed_lev, af=k=3, SHD
+# gate: penalty total 3559819 + 327984 passed. The CIGAR pass's bounds are
+# the largest passed energy of each 500,000-pair chunk of the stable
+# energy order, rounded up to 16 (the penalties sorted, chunked: 16, 32).
+# The digest is sha256 of the newline-joined CIGARs of all passed pairs in
+# corpus order, from leap_align(want_history=True) + leap_backtrack_batch
+# in 8,192-pair chunks.
+LEAP_CHECKSUM_1M = 3722582
+LEAP_PASSED_1M = 1_000_000
+LEAP_GATED_CHECKSUM_1M = 3887803
+LEAP_CIGAR_BOUNDS_1M = [16, 32]
+LEAP_CIGAR_DIGEST_1M = (
+    "d361c472d57fe024a6e13afec9a51a31808a43156afdf50dedc459acaf521872",
+    1_000_000)
+# The filter CLI's pass counts on write_pair_file's pairs, computed with
+# the JAX package's CLI on the CPU (python -m asm_tpu.apps.leap_filter 3
+# --file ..., and with "3 0 0": affine, no gate).
+FILTER_PAIRS = 20_000
+FILTER_PASSED = {"levenshtein+shd": 12358, "affine": 14820}
 
 
 def phase(msg: str) -> None:
@@ -98,6 +138,11 @@ def _instance_name(ln: str) -> str | None:
     m = re.search(r"nw_kernelILi(\d+)ELb(\d)", ln)
     if m:
         return f"{'nw_trace' if m[2] == '1' else 'nw'} W{m[1]}"
+    m = re.search(r"leap_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)",
+                  ln)
+    if m:
+        return (f"leap k{m[1]}/W{m[2]}/x{m[3]}o{m[4]}e{m[5]}"
+                f"{'/cigar' if m[6] == '1' else ''}")
     return None
 
 
@@ -186,6 +231,24 @@ def mixed_corpus():
                   (71_680, 0.02, 0.96), (71_680, 0.10, 0.96),
                   (71_680, 0.20, 0.96), (47_104, 0.45, 0.10)])]
     return tuple(np.concatenate([b[i] for b in blocks]) for i in range(4))
+
+
+def write_pair_file(path: str) -> None:
+    """The filter CLI's input: FILTER_PAIRS read/ref line pairs from the
+    native generator (mismatch rate 0.9, max_len 256), half with 150-base
+    reads at err 0.01 (seed 77), half with 230-base reads at err 0.02
+    (seed 78)."""
+    from asm_tpu_torch.data.generator import generate_dataset_native
+    from asm_tpu_torch.encoding import decode_string
+
+    half = FILTER_PAIRS // 2
+    with open(path, "w") as f:
+        for length, err, seed in ((150, 0.01, 77), (230, 0.02, 78)):
+            rc, rl, fc, fl = generate_dataset_native(
+                half, length, err, mismatch_rate=0.9, seed=seed, max_len=256)
+            for i in range(half):
+                f.write(f"{decode_string(rc[i], rl[i])}\n"
+                        f"{decode_string(fc[i], fl[i])}\n")
 
 
 def cuda_ms(fn, reps: int) -> tuple[float, object]:
@@ -301,7 +364,7 @@ def greedy_phases(dev, name, card) -> dict:
                 source="asm_tpu_torch/csrc/greedy.cu",
                 replaces="asm_tpu/kernels/greedy_pallas.py:91",
                 launches=launches, max_abs_err=float(max_err),
-                ms=kernel_ms, plain_ms=plain_ms)
+                ms=kernel_ms, plain_ms=plain_ms, **res["bound"])
 
 
 def nw_conformance(dev, name) -> dict:
@@ -350,6 +413,7 @@ def nw_main_path(dev, card, err) -> list[dict]:
     from asm_tpu_torch import nw_headline
     from asm_tpu_torch.kernels import nw, nw_band, nw_cuda
     from asm_tpu_torch.kernels.nw_band import banded_plain, codes_from_planes
+    from asm_tpu_torch.utils.bounds import bound_entry, nw_full_work
 
     nw_band.LAUNCHES = 0
     nw_cuda.LAUNCHES.update(nw=0, nw_trace=0)
@@ -365,6 +429,7 @@ def nw_main_path(dev, card, err) -> list[dict]:
         raise AssertionError(f"NW partitions {res['partitions']} != pinned "
                              f"{NW_PARTITIONS_1M}")
     band_ms = min(res["rep_s"]) * 1e3
+    band_bound = res["bound"]
     plan = res["plan"]
 
     def plain_chunks():
@@ -403,6 +468,8 @@ def nw_main_path(dev, card, err) -> list[dict]:
     a, b, c, d = plan.chunks[plan.widths.index(0)]
     rc, fc = codes_from_planes(a, b), codes_from_planes(c, d)
     full_ms, got = cuda_ms(lambda: nw_cuda.nw_penalty_cuda(rc, b, fc, d), 5)
+    full_bound = bound_entry(*nw_full_work(b.clamp(max=128).cpu().numpy(),
+                                           d.clamp(max=128).cpu().numpy()))
     full_plain_ms, want = cuda_ms(lambda: nw.nw_penalty(rc, b, fc, d), 2)
     err["nw"] = max(err["nw"], max_diff(got, want, "band-0 residue: pen"))
     phase(f"[6b NW mixed corpus] {res['n_pairs']} pairs: partitions "
@@ -415,11 +482,11 @@ def nw_main_path(dev, card, err) -> list[dict]:
              source="asm_tpu_torch/csrc/nw_band.cu",
              replaces="asm_tpu/kernels/nw_band.py:174",
              launches=band_launches, max_abs_err=float(err["nw_band"]),
-             ms=band_ms, plain_ms=band_plain_ms),
+             ms=band_ms, plain_ms=band_plain_ms, **band_bound),
         dict(name="nw", route="cuda", source="asm_tpu_torch/csrc/nw.cu",
              replaces="asm_tpu/kernels/nw_pallas.py:88",
              launches=full_launches, max_abs_err=float(err["nw"]),
-             ms=full_ms, plain_ms=full_plain_ms),
+             ms=full_ms, plain_ms=full_plain_ms, **full_bound),
     ]
 
 
@@ -429,6 +496,7 @@ def coverage_path(dev, card, err) -> dict:
     from asm_tpu_torch.config import AlignConfig
     from asm_tpu_torch.kernels import greedy_cuda, nw, nw_cuda
     from asm_tpu_torch.metrics.coverage_device import coverage_counts
+    from asm_tpu_torch.utils.bounds import bound_entry, nw_full_work
 
     corpus = headline.native_corpus(COV_PAIRS, 0.10)
     greedy_cuda.LAUNCHES = 0
@@ -464,7 +532,237 @@ def coverage_path(dev, card, err) -> dict:
                 source="asm_tpu_torch/csrc/nw.cu",
                 replaces="asm_tpu/kernels/nw_pallas.py:218",
                 launches=trace_launches, max_abs_err=float(err["nw_trace"]),
-                ms=trace_ms, plain_ms=plain_ms)
+                ms=trace_ms, plain_ms=plain_ms,
+                **bound_entry(*nw_full_work(
+                    args[1].clamp(max=128).cpu().numpy(),
+                    args[3].clamp(max=128).cpu().numpy(), trace=True)))
+
+
+def leap_conformance_cases():
+    """(label, corpus) pairs of the LEAP kernel's conformance check; odd
+    sizes, so every launch's last block is partly empty."""
+    from asm_tpu_torch.data.generator import generate_dataset_arrays
+    from asm_tpu_torch.encoding import encode_batch
+
+    # empty, one-base and full-length (128) sequences on both sides
+    reads = ["A", "ACGT" * 32, "ACGTACGT", "", "ACGT" * 25, "AC", ""]
+    refs = ["ACGT" * 32, "A", "ACGTACGT", "ACG", "ACGT" * 25, "TGCA" * 20, ""]
+    return [
+        ("err0.05", generate_dataset_arrays(3001, 100, 0.05, 0.96, seed=21)),
+        ("err0.2", generate_dataset_arrays(2001, 100, 0.2, 0.96, seed=22)),
+        ("err0.4/mr0.5", generate_dataset_arrays(2001, 100, 0.4, 0.5,
+                                                 seed=23)),
+        ("length_range60-120", generate_dataset_arrays(
+            2001, 100, 0.12, 0.8, seed=95, length_range=(60, 120))),
+        ("edges", encode_batch(reads, refs, 128)),
+        ("max_len256", generate_dataset_arrays(1001, 200, 0.1, 0.9, seed=3,
+                                               max_len=256)),
+        ("max_len256/full", generate_dataset_arrays(501, 256, 0.01, 0.9,
+                                                    seed=4, max_len=256)),
+    ]
+
+
+# (semantics, use_shd_gate, (x, o, e)); simd_ed_lev is unit-cost, af == k
+LEAP_VARIANTS = [
+    ("lv_bag", False, (1, 1, 1)),
+    ("lv_bag", False, (2, 3, 1)),
+    ("simd_ed_lev", False, (1, 1, 1)),
+    ("simd_ed_lev", True, (1, 1, 1)),
+    ("simd_ed_affine", False, (1, 1, 1)),
+    ("simd_ed_affine", False, (2, 3, 1)),
+]
+
+
+def leap_cfg(sem, pens, mode, max_len, k=3, af=40):
+    from asm_tpu_torch.config import AlignConfig, LeapMode
+
+    if sem == "simd_ed_lev":
+        return AlignConfig(k=k, leap_af_threshold=k, max_len=max_len,
+                           leap_mode=LeapMode(mode))
+    return AlignConfig(x=pens[0], o=pens[1], e=pens[2], k=k,
+                       leap_af_threshold=af, leap_max_energy=min(af, 40),
+                       max_len=max_len, leap_mode=LeapMode(mode))
+
+
+def leap_check(dev, corpus, cfg, sem, gate, what, tile=256) -> int:
+    """The LEAP kernel against its plain version on one corpus and
+    configuration, both input forms (lv_bag: in CIGAR mode, records and
+    decoded CIGARs too); returns the max abs error (0) or raises."""
+    from asm_tpu_torch.kernels.greedy_cuda import stage_planes_tiled_t
+    from asm_tpu_torch.kernels.leap import leap_align
+    from asm_tpu_torch.kernels.leap_backtrack import (
+        leap_backtrack_batch,
+        leap_edit_records,
+    )
+    from asm_tpu_torch.kernels.leap_cuda import (
+        leap_align_cuda,
+        leap_cigar_decode,
+    )
+
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in corpus]
+    cigar = sem == "lv_bag"
+    want = leap_align(*t, cfg, semantics=sem, use_shd_gate=gate,
+                      want_history=cigar)
+    if cigar:
+        rec = torch.from_numpy(leap_edit_records(
+            want, cfg, cfg.leap_energy_bound)).to(dev)
+        want_cig = [x and x[1] for x in leap_backtrack_batch(want, cfg)]
+    planes = [torch.from_numpy(stage_planes_tiled_t(
+        np.ascontiguousarray(a), tile=tile).view(np.int32)).to(dev)
+        for a in (corpus[0], corpus[2])]
+    err = 0
+    for pre, (a, b) in ((False, (t[0], t[2])), ("planes_tiled", planes)):
+        got = leap_align_cuda(a, t[1], b, t[3], cfg, pre_staged=pre,
+                              tile=tile, semantics=sem, use_shd_gate=gate,
+                              want_cigar=cigar)
+        for key in ("passed", "penalty", "lane_shift"):
+            err = max(err, max_diff(got[key], want[key],
+                                    f"{what}/{pre}: {key}"))
+        if cigar:
+            err = max(err, max_diff(got["edit_rec"], rec,
+                                    f"{what}/{pre}: edit_rec"))
+            cig = [x and x[1] for x in leap_cigar_decode(got, cfg)]
+            if cig != want_cig:
+                raise AssertionError(f"{what}/{pre}: decoded CIGARs differ")
+    return err
+
+
+def leap_conformance(dev, name) -> int:
+    """Phase 8; returns the max abs error (0)."""
+    err, n_cmp = 0, 0
+    cases = leap_conformance_cases()
+    for label, corpus in cases:
+        L = corpus[0].shape[1]
+        for sem, gate, pens in LEAP_VARIANTS:
+            for mode in range(4):  # LOCAL, GLOBAL, SEMI_FREE_BEGIN / _END
+                what = f"{label}/{sem}/gate{int(gate)}/{pens}/mode{mode}"
+                err = max(err, leap_check(dev, corpus,
+                                          leap_cfg(sem, pens, mode, L), sem,
+                                          gate, what))
+                n_cmp += 2
+    corpus = cases[0][1]
+    for k in (2, 4):
+        for sem, gate, pens in LEAP_VARIANTS:
+            err = max(err, leap_check(dev, corpus, leap_cfg(sem, pens, 1, 128,
+                                                            k=k),
+                                      sem, gate, f"k{k}/{sem}/gate{gate}"))
+            n_cmp += 2
+    err = max(err, leap_check(dev, cases[1][1],
+                              leap_cfg("lv_bag", (1, 1, 1), 1, 128, af=2),
+                              "lv_bag", False, "tight af=2"))
+    n_cmp += 2
+    phase(f"[8 LEAP kernel vs plain] {n_cmp} cases on {name}: passed, "
+          f"penalty, lane_shift, edit records and decoded CIGARs exactly "
+          f"equal, codes and tile-major planes (max abs err {err})")
+    return err
+
+
+def leap_main_path(dev, card, err) -> dict:
+    """Phase 9; returns the LEAP kernel's JSON entry."""
+    import dataclasses
+
+    from asm_tpu_torch import leap_headline
+    from asm_tpu_torch.encoding import PAD_READ, PAD_REF
+    from asm_tpu_torch.kernels import leap_cuda
+    from asm_tpu_torch.kernels.greedy_cuda import codes_from_planes_tiled
+    from asm_tpu_torch.kernels.leap import leap_align
+    from asm_tpu_torch.kernels.leap_backtrack import leap_edit_records
+
+    leap_cuda.LAUNCHES = 0
+    res = leap_headline.run(MAIN_PAIRS, chunk=MAIN_CHUNK, err=0.05,
+                            tile=MAIN_TILE, device=dev, reps=5, digest=True)
+    launches = leap_cuda.LAUNCHES
+    if launches <= 0:
+        raise AssertionError("the LEAP main path never launched the kernel")
+    lp, lc, lg = res["leap"], res["leap_cigar"], res["leap_gated"]
+    got = (lp["checksum"], lp["passed"], lg["checksum"],
+           lc["energy_bounds"], lc["digest"])
+    want = (LEAP_CHECKSUM_1M, LEAP_PASSED_1M, LEAP_GATED_CHECKSUM_1M,
+            LEAP_CIGAR_BOUNDS_1M, LEAP_CIGAR_DIGEST_1M)
+    for g, w, what in zip(got, want, ("leap checksum", "leap passed",
+                                      "leap_gated checksum",
+                                      "leap_cigar energy bounds",
+                                      "leap_cigar CIGAR digest")):
+        if g != w:
+            raise AssertionError(f"{what} {g} != pinned {w}")
+    ms = {k: min(res[k]["rep_s"]) * 1e3 for k in leap_headline.METRICS}
+
+    # the plain version on the same staged pairs, pair by pair
+    codes = [(codes_from_planes_tiled(a, b, PAD_READ), b,
+              codes_from_planes_tiled(c, d, PAD_REF), d)
+             for a, b, c, d in res["chunks"]]
+    cfg, gcfg = leap_headline.leap_config(), leap_headline.gated_config()
+    plain_ms, plain = cuda_ms(lambda: [leap_align(*c, cfg) for c in codes], 1)
+    gated = [leap_align(*c, gcfg, semantics="simd_ed_lev", use_shd_gate=True)
+             for c in codes]
+    for outs, wants, what in ((lp["outs"], plain, "leap"),
+                              (lg["outs"], gated, "leap_gated")):
+        for o, w in zip(outs, wants):
+            for key in ("passed", "penalty", "lane_shift"):
+                err = max(err, max_diff(o[key], w[key],
+                                        f"{what} main path: {key}"))
+    # CIGAR records of the first 65,536 pairs against the plain walk
+    n = 1 << 16
+    a, b, c, d = res["chunks"][0]
+    ccfg = dataclasses.replace(cfg, leap_max_energy=lc["energy_bounds"][0])
+    rec = leap_cuda.leap_align_cuda(
+        a[:n // MAIN_TILE], b[:n], c[:n // MAIN_TILE], d[:n], ccfg,
+        pre_staged="planes_tiled", tile=MAIN_TILE, want_cigar=True)["edit_rec"]
+    hist = leap_align(codes[0][0][:n], b[:n], codes[0][2][:n], d[:n], ccfg,
+                      want_history=True)
+    err = max(err, max_diff(rec, torch.from_numpy(leap_edit_records(
+        hist, ccfg, ccfg.leap_energy_bound)).to(dev), "leap_cigar records"))
+    rates = {k: MAIN_PAIRS / v / 1e3 for k, v in ms.items()}
+    bounds = ", ".join(f"{res[k]['bound']['bound_ms']:.4f}" for k in ms)
+    phase(f"[9 LEAP main path] {res['n_pairs']} pairs err 0.05: leap "
+          f"checksum {lp['checksum']}, {lp['passed']} passed, leap_gated "
+          f"checksum {lg['checksum']}, leap_cigar bounds "
+          f"{lc['energy_bounds']} (max passed energy "
+          f"{lc['chunk_max_energy']}) and CIGAR digest {lc['digest'][0][:12]}"
+          f"... of {lc['digest'][1]} (all pinned), {launches} kernel "
+          f"launches; leap {ms['leap']:.3f} ms ({rates['leap']:.1f}M "
+          f"aligns/s), leap_cigar {ms['leap_cigar']:.3f} ms "
+          f"({rates['leap_cigar']:.1f}M), leap_gated {ms['leap_gated']:.3f} "
+          f"ms ({rates['leap_gated']:.1f}M); bounds {bounds} ms; "
+          f"plain version (leap) "
+          f"{plain_ms:.3f} ms, equal on every pair (leap and leap_gated; "
+          f"records on 65,536 pairs), all on {card}")
+    return dict(name="leap", route="cuda", source="asm_tpu_torch/csrc/leap.cu",
+                replaces="asm_tpu/kernels/leap_pallas.py:49",
+                launches=launches, max_abs_err=float(err), ms=ms["leap"],
+                plain_ms=plain_ms, **lp["bound"])
+
+
+def filter_cli(card) -> None:
+    """Phase 10: the LEAP filter CLI on a pair file in a temporary
+    directory; the pass counts must equal the JAX CLI's."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from asm_tpu_torch.apps import leap_filter
+    from asm_tpu_torch.kernels import leap_cuda
+
+    got = {}
+    before = leap_cuda.LAUNCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pairs.seq")
+        write_pair_file(path)
+        for label, argv in (("levenshtein+shd", ["3"]),
+                            ("affine", ["3", "0", "0"])):
+            with contextlib.redirect_stdout(io.StringIO()):
+                got[label] = leap_filter.main(argv + ["--file", path])
+    launches = leap_cuda.LAUNCHES - before
+    counts = {k: v["passed"] for k, v in got.items()}
+    if counts != FILTER_PASSED or launches <= 0:
+        raise AssertionError(f"filter CLI passed {counts} (pinned "
+                             f"{FILTER_PASSED}), {launches} launches")
+    times = ", ".join(f"{k} {v['align_s'] * 1e3:.3f} ms"
+                      for k, v in got.items())
+    phase(f"[10 LEAP filter CLI] {FILTER_PAIRS} pairs, max_len 256: passNum "
+          f"{counts} (pinned), {launches} kernel launches, align time "
+          f"{times} on {card}")
 
 
 def main() -> int:
@@ -474,7 +772,7 @@ def main() -> int:
         return 1
     from concurrent.futures import ThreadPoolExecutor
 
-    from asm_tpu_torch.kernels import greedy_cuda, nw_band, nw_cuda
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band, nw_cuda
     from asm_tpu_torch.native import build_native
 
     dev = torch.device("cuda", 0)
@@ -485,14 +783,14 @@ def main() -> int:
 
     # every build at once: one nvcc per kernel source, and make
     t0 = time.perf_counter()
-    kernels = (greedy_cuda, nw_cuda, nw_band)
+    kernels = (greedy_cuda, nw_cuda, nw_band, leap_cuda)
     with ThreadPoolExecutor(len(kernels) + 1) as ex:
         builds = [ex.submit(k.build_kernel) for k in kernels]
         native = ex.submit(build_native)
         built = [f.result()[1] for f in builds]
         native.result()
     ptxas = "; ".join(ptxas_summary(k.ptxas_report()) for k in kernels)
-    phase(f"[2 build] 3 kernel libraries + native library in "
+    phase(f"[2 build] {len(kernels)} kernel libraries + native library in "
           f"{time.perf_counter() - t0:.1f}s (built now: {built}); "
           f"ptxas: {ptxas}")
 
@@ -500,6 +798,9 @@ def main() -> int:
     err = nw_conformance(dev, name)
     entries += nw_main_path(dev, card, err)
     entries.append(coverage_path(dev, card, err))
+    leap_err = leap_conformance(dev, name)
+    entries.append(leap_main_path(dev, card, leap_err))
+    filter_cli(card)
 
     print(json.dumps({"kernels": entries}))
     print(card_line(), flush=True)

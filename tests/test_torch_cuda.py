@@ -1,5 +1,5 @@
-"""The CUDA kernels (greedy; NW band, full and trace) against their plain
-PyTorch versions on the card.
+"""The CUDA kernels (greedy; NW band, full and trace; LEAP) against their
+plain PyTorch versions on the card.
 
 Runs only where CUDA is present; elsewhere each test skips. The card's
 machine has no jax, so run these without the suite's conftest:
@@ -7,7 +7,8 @@ machine has no jax, so run these without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: exact equality of cost, steps and raw step records (greedy);
-of penalties, ops and match masks (NW)."""
+of penalties, ops and match masks (NW); of passed, penalty, lane_shift and
+raw edit records (LEAP)."""
 
 import numpy as np
 import pytest
@@ -164,3 +165,128 @@ def test_nw_kernels_refuse_unbuilt_shapes(dev):
         nw_band.nw_penalty_banded(rc, rl, fc, fl, bw=12)
     with pytest.raises(ValueError):
         nw_cuda.nw_align_cuda(rc, rl.cpu(), fc, fl)
+
+
+# LEAP: the main path's profile, error 0.2, the indel-heavy corpus, unequal
+# lengths, the edge pairs, L = 256 (full-length buffers included)
+LEAP_CASES = [
+    ("err0.05", dict(num_reads=1001, length=100, error_rate=0.05, seed=5)),
+    ("err0.2", dict(num_reads=501, length=100, error_rate=0.2, seed=6)),
+    ("err0.4-mr0.5", dict(num_reads=501, length=100, error_rate=0.4,
+                          mismatch_rate=0.5, seed=40)),
+    ("length_range", dict(num_reads=701, length=100, error_rate=0.12,
+                          mismatch_rate=0.8, seed=95,
+                          length_range=(60, 120))),
+    ("edges", None),
+    ("max_len256", dict(num_reads=301, length=200, error_rate=0.1, seed=3,
+                        max_len=256)),
+    ("max_len256-full", dict(num_reads=131, length=256, error_rate=0.01,
+                             seed=4, max_len=256)),
+]
+# (semantics, use_shd_gate, (x, o, e)); simd_ed_lev is unit-cost, af == k
+LEAP_VARIANTS = [
+    ("lv_bag", False, (1, 1, 1)),
+    ("lv_bag", False, (2, 3, 1)),
+    ("simd_ed_lev", False, (1, 1, 1)),
+    ("simd_ed_lev", True, (1, 1, 1)),
+    ("simd_ed_affine", False, (1, 1, 1)),
+    ("simd_ed_affine", False, (2, 3, 1)),
+]
+
+
+def _leap_cfg(sem, pens, mode, max_len, k=3):
+    from asm_tpu_torch.config import LeapMode
+
+    if sem == "simd_ed_lev":
+        return AlignConfig(k=k, leap_af_threshold=k, max_len=max_len,
+                           leap_mode=LeapMode(mode))
+    return AlignConfig(x=pens[0], o=pens[1], e=pens[2], k=k,
+                       leap_af_threshold=40, leap_max_energy=40,
+                       max_len=max_len, leap_mode=LeapMode(mode))
+
+
+def _leap_check(dev, corpus, cfg, sem, gate, tile=256, launches=1):
+    from asm_tpu_torch.kernels import leap_cuda
+    from asm_tpu_torch.kernels.leap import leap_align
+    from asm_tpu_torch.kernels.leap_backtrack import leap_edit_records
+
+    rc, rl, fc, fl = corpus
+    cigar = sem == "lv_bag"
+    want = leap_align(rc, rl, fc, fl, cfg, semantics=sem, use_shd_gate=gate,
+                      want_history=cigar)
+    planes = [torch.from_numpy(greedy_cuda.stage_planes_tiled_t(
+        a.cpu().numpy(), tile=tile).view(np.int32)).to(dev) for a in (rc, fc)]
+    for pre, (a, b) in ((False, (rc, fc)), ("planes_tiled", planes)):
+        before = leap_cuda.LAUNCHES
+        got = leap_cuda.leap_align_cuda(a, rl, b, fl, cfg, pre_staged=pre,
+                                        tile=tile, semantics=sem,
+                                        use_shd_gate=gate, want_cigar=cigar)
+        assert leap_cuda.LAUNCHES == before + launches
+        torch.cuda.synchronize()
+        for key in ("passed", "penalty", "lane_shift"):
+            assert torch.equal(got[key], want[key]), (key, pre)
+        if cigar:
+            rec = leap_edit_records(want, cfg, cfg.leap_energy_bound)
+            assert np.array_equal(got["edit_rec"].cpu().numpy(), rec), pre
+
+
+@pytest.mark.parametrize("label,kw", LEAP_CASES,
+                         ids=[c[0] for c in LEAP_CASES])
+@pytest.mark.parametrize("sem,gate,pens", LEAP_VARIANTS,
+                         ids=[f"{v[0]}-gate{int(v[1])}-{''.join(map(str, v[2]))}"
+                              for v in LEAP_VARIANTS])
+def test_leap_kernel_matches_plain(dev, label, kw, sem, gate, pens):
+    corpus = _nw_corpus(dev, kw)
+    max_len = corpus[0].shape[1]
+    for mode in range(4):  # LOCAL, GLOBAL, SEMI_FREE_BEGIN, SEMI_FREE_END
+        _leap_check(dev, corpus, _leap_cfg(sem, pens, mode, max_len), sem,
+                    gate)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_leap_kernel_band_widths(dev, k):
+    corpus = _corpus(dev, num_reads=401, length=100, error_rate=0.1, seed=7)
+    for sem, gate, pens in LEAP_VARIANTS:
+        _leap_check(dev, corpus, _leap_cfg(sem, pens, 1, 128, k=k), sem,
+                    gate)
+
+
+def test_leap_cigar_in_pieces_and_tight_threshold(dev, monkeypatch):
+    """A CIGAR launch larger than the history scratch runs in pieces; a
+    tight threshold leaves most pairs unpassed."""
+    from asm_tpu_torch.kernels import leap_cuda
+
+    corpus = _corpus(dev, num_reads=300, length=100, error_rate=0.1, seed=9)
+    cfg = AlignConfig(leap_af_threshold=24)
+    monkeypatch.setattr(leap_cuda, "CIGAR_SCRATCH_BYTES",
+                        4 * leap_cuda.history_words(cfg) * 128)
+    _leap_check(dev, corpus, cfg, "lv_bag", False, launches=3)  # 300/128
+    _leap_check(dev, corpus, AlignConfig(leap_af_threshold=2), "lv_bag",
+                False)
+
+
+def test_leap_kernel_builds_every_instantiation(dev):
+    from asm_tpu_torch.kernels import leap_cuda
+
+    path, _ = leap_cuda.build_kernel()
+    assert path.endswith(".so")
+    with open(leap_cuda.ptxas_report()) as f:
+        report = f.read()
+    # k in {2, 3, 4} x W in {4, 8} x 2 penalty sets x {penalty, CIGAR}
+    assert report.count("Compiling entry function") == 24
+
+
+def test_leap_kernel_refuses_unbuilt_shapes(dev):
+    from asm_tpu_torch.kernels import leap_cuda
+
+    rc, rl, fc, fl = _corpus(dev, num_reads=8, length=50, error_rate=0.1,
+                             seed=1)
+    with pytest.raises(NotImplementedError):
+        leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(k=5))
+    with pytest.raises(NotImplementedError):
+        leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(x=1, o=4, e=2))
+    with pytest.raises(ValueError):
+        leap_cuda.leap_align_cuda(rc, rl.cpu(), fc, fl, AlignConfig())
+    with pytest.raises(ValueError):
+        leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(),
+                                  semantics="simd_ed_affine", want_cigar=True)

@@ -42,12 +42,26 @@ _PORT_MODULES = [
     "asm_tpu_torch.metrics.coverage",
     "asm_tpu_torch.metrics.coverage_device",
     "asm_tpu_torch.nw_headline",
+    "asm_tpu_torch.utils.bounds",
+    "asm_tpu_torch.utils.timing",
+    "asm_tpu_torch.kernels.shd",
+    "asm_tpu_torch.kernels.leap",
+    "asm_tpu_torch.kernels.leap_backtrack",
+    "asm_tpu_torch.kernels.leap_cuda",
+    "asm_tpu_torch.leap_headline",
+    "asm_tpu_torch.apps",
+    "asm_tpu_torch.apps.leap_filter",
 ]
+# the LEAP slice's entry points
+_LEAP_MODULES = ["asm_tpu_torch.kernels.leap_cuda",
+                 "asm_tpu_torch.leap_headline",
+                 "asm_tpu_torch.apps.leap_filter"]
 
 
-@pytest.mark.parametrize("module", ["asm_tpu_torch", "all"])
+@pytest.mark.parametrize("module", ["asm_tpu_torch", "leap", "all"])
 def test_port_imports_no_jax(module):
-    mods = _PORT_MODULES if module == "all" else [module]
+    mods = {"all": _PORT_MODULES, "leap": _LEAP_MODULES}.get(module,
+                                                             [module])
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
