@@ -13,7 +13,13 @@ Ported paths:
   * the exact NW oracle: measured bands -> band-major plan -> the band
     kernel, with the full kernel for the band-0 residue
     (`python -m asm_tpu_torch.nw_headline`), and NW with traceback for the
-    coverage metric (`metrics.coverage_device.coverage_counts`).
+    coverage metric (`metrics.coverage_device.coverage_counts`);
+  * LEAP in its three modes (`python -m asm_tpu_torch.leap_headline`) and
+    the LEAP filter CLI (`python -m asm_tpu_torch.apps.leap_filter`);
+  * the three-way harness over NW, LEAP and greedy
+    (`python -m asm_tpu_torch.bench`) and the roofline tool, which
+    measures the card's issue and stream rates and counts the kernels'
+    SASS (`python -m asm_tpu_torch.tools.roofline`).
 """
 
 from asm_tpu_torch.config import (

@@ -129,6 +129,98 @@ def generate_dataset_arrays(
     return read_codes, read_len, ref_codes, ref_len
 
 
+def generate_real_profile_arrays(
+    num_reads: int,
+    length: int = 100,
+    mismatch_frac: float = 0.02452309963366200179,
+    insert_frac: float = 0.00046834182131581764,
+    delete_frac: float = 0.00055319598705419218,
+    seed: int = 0,
+    max_len: int = 128,
+    pad_read: int = 4,
+    pad_ref: int = 5,
+    length_range: tuple[int, int] | None = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Synthetic stand-in for the reference's real-data corpus.
+
+    The reference benchmarks a corpus derived from Illumina run SRR611076
+    (benchmark.cpp:28-30) and publishes only its error profile: ~2.452%
+    mismatches, ~0.047% insertions, ~0.055% deletions per base
+    (README.md:70-76). This generator reproduces the profile: per-base
+    independent substitutions to one of the three other bases and per-base
+    indels at the published rates, applied sequentially to the evolving
+    text like `generate_dataset_arrays`. Same draws, in the same order, as
+    `asm_tpu.data.generator.generate_real_profile_arrays`.
+    """
+    rng = np.random.default_rng(seed)
+    N = num_reads
+    if length_range is not None:
+        lo, hi = length_range
+        if not 1 <= lo <= hi:
+            raise ValueError(f"bad length_range {length_range}")
+        lens = rng.integers(lo, hi + 1, size=N).astype(np.int32)
+        length = hi
+    else:
+        lens = np.full(N, length, dtype=np.int32)
+    pattern = rng.integers(0, 4, size=(N, length), dtype=np.int8)
+    if length_range is not None:
+        pattern[np.arange(length)[None, :] >= lens[:, None]] = 0
+
+    # realized substitutions: flip to one of the other three bases
+    mis = rng.random((N, length)) < mismatch_frac
+    delta = rng.integers(1, 4, size=(N, length), dtype=np.int8)
+    text_base = np.where(mis, (pattern + delta) % 4, pattern).astype(np.int8)
+
+    n_ins = rng.binomial(lens, insert_frac).astype(np.int32)
+    n_del = rng.binomial(lens, delete_frac).astype(np.int32)
+    max_ev = int(max((n_ins + n_del).max(initial=0), 0))
+    Wt = length + (int(n_ins.max(initial=0)) if N else 0)
+    text = np.full((N, max(Wt, length)), 0, dtype=np.int8)
+    text[:, :length] = text_base
+    tlen = lens.copy()
+    Wt = text.shape[1]
+    cols = np.arange(Wt, dtype=np.int32)[None, :]
+    for step in range(max_ev):
+        do_ins = step < n_ins
+        do_del = (step >= n_ins) & (step < n_ins + n_del)
+        live = do_ins | do_del
+        pos = (rng.random(N) * tlen).astype(np.int32)
+        base = rng.integers(0, 4, size=N, dtype=np.int8)
+        posc = pos[:, None]
+        gather = np.where(
+            (do_del & live)[:, None],
+            cols + (cols >= posc),
+            np.where((do_ins & live)[:, None], cols - (cols > posc), cols),
+        )
+        np.clip(gather, 0, Wt - 1, out=gather)
+        text = np.take_along_axis(text, gather, axis=1)
+        rows = np.nonzero(do_ins)[0]
+        text[rows, pos[rows]] = base[rows]
+        tlen = tlen + live * (do_ins.astype(np.int32) - do_del.astype(np.int32))
+
+    read_codes = np.full((N, max_len), pad_read, dtype=np.int8)
+    m = min(length, max_len)
+    read_codes[:, :m] = pattern[:, :m]
+    read_len = np.minimum(lens, max_len).astype(np.int32)
+    rmask = np.arange(max_len)[None, :] >= read_len[:, None]
+    read_codes[rmask] = pad_read
+    ref_codes = np.full((N, max_len), pad_ref, dtype=np.int8)
+    w = min(Wt, max_len)
+    ref_codes[:, :w] = text[:, :w]
+    mask = np.arange(max_len)[None, :] >= np.minimum(tlen, max_len)[:, None]
+    ref_codes[mask] = pad_ref
+    ref_len = np.minimum(tlen, max_len).astype(np.int32)
+    return read_codes, read_len, ref_codes, ref_len
+
+
+def dataset_filename(
+    num_reads: int, length: int, error_rate: float, exact: bool = True
+) -> str:
+    """Reference naming convention (benchmark_dataset.h:242-253)."""
+    suffix = "eq" if exact else "lt_eq"
+    return f"simulated_{num_reads}_{length}_{error_rate:.6f}_{suffix}.seq"
+
+
 def generate_dataset_native(num_reads, length, error_rate, mismatch_rate=0.96,
                             exact_error_rate=True, seed=0, max_len=128):
     """C++ corpus generator (same error process, its own seeded

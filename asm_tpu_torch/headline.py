@@ -40,7 +40,7 @@ import torch
 
 from asm_tpu_torch.config import AlignConfig
 from asm_tpu_torch.data.generator import generate_dataset_native
-from asm_tpu_torch.kernels.greedy_cuda import stage_planes_tiled_t
+from asm_tpu_torch.kernels.greedy_cuda import stage_planes_tiled_t, step_trips
 from asm_tpu_torch.parallel.runner import make_greedy_step
 from asm_tpu_torch.parallel.schedule import (
     difficulty_order,
@@ -104,7 +104,8 @@ def run_pass(corpus, perm, bounds, cfg: AlignConfig, chunk: int, tile: int,
     (chunk i with steps bound bounds[i]).
 
     Returns checksum (total cost), chunk_max (max steps per chunk),
-    cost and steps (int32 per pair, in `perm` order) and, on a CUDA
+    cost, steps and trips (int32 per pair, in `perm` order; trips: the
+    step loop's, `greedy_cuda.step_trips`) and, on a CUDA
     device, the CUDA-event seconds of each timed rep over all chunks
     (`rep_s`) and the fastest rep's dispatch_ms and enqueue_ms (`best`).
     """
@@ -127,6 +128,10 @@ def run_pass(corpus, perm, bounds, cfg: AlignConfig, chunk: int, tile: int,
         chunk_max=[int(o["steps"].max()) for o in outs],
         cost=np.concatenate([o["cost"].cpu().numpy() for o in outs]),
         steps=np.concatenate([o["steps"].cpu().numpy() for o in outs]),
+        trips=np.concatenate([
+            (o["trips"] if "trips" in o else
+             step_trips(o["steps"], o["step_rec"])).cpu().numpy()
+            for o in outs]),
         rep_s=rep_s,
         best=best,
     )
@@ -137,7 +142,7 @@ def run(n_pairs: int = 1 << 26, chunk: int = 1 << 25, err: float = 0.05,
         device="cuda", impl: str = "cuda", reps: int = 5,
         cache: bool = False) -> dict:
     """The headline flow; returns the measured-order pass's checksum,
-    chunk_max, bounds, rep_s, best, per-pair cost and steps, and its perm,
+    chunk_max, bounds, rep_s, best, per-pair cost, steps and trips, its perm,
     the corpus, the heuristic pass's results (`first`) and the kernel's
     bound for one rep (`bound`: utils.bounds.greedy_work). Raises if the two
     passes disagree or a bound truncated a walk."""

@@ -1,3 +1,3 @@
 """The aligners: plain PyTorch versions and the wrappers of their CUDA
 kernels (greedy; exact NW: full, trace and band; LEAP, with the SHD
-gate and the fused CIGAR)."""
+gate and the fused CIGAR), and the roofline's microkernels."""

@@ -84,6 +84,8 @@ def greedy_align(read_codes, read_len, ref_codes, ref_len, cfg: AlignConfig,
         in the last two; slots with run 0 are empty
       cigar_count: int32[B] non-empty slots
       steps: int32[B] highway steps taken
+      trips: int32[B] trips of the step loop the pair ran: its steps, plus
+        one where the walk stopped on an empty highway
       final_lane / final_col: int32[B] cursor before the final leap
     """
     B, L = read_codes.shape
@@ -260,6 +262,7 @@ def greedy_align(read_codes, read_len, ref_codes, ref_len, cfg: AlignConfig,
         cigar_runs=runs_.to(torch.int32),
         cigar_count=(runs_ > 0).sum(dim=1, dtype=torch.int32),
         steps=steps.to(torch.int32),
+        trips=iters.to(torch.int32),
         final_lane=cur_lane.to(torch.int32),
         final_col=cur_col.to(torch.int32),
     )

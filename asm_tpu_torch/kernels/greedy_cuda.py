@@ -7,6 +7,7 @@ the port of `asm_tpu.kernels.greedy_pallas`.
                                           the plain version (CPU tensors)
   expand_records                          packed step records -> (op, run)
                                           CIGAR slots
+  step_trips                              the step loop's trips per pair
 
 The kernel is compiled with nvcc for sm_90a at first use into
 asm_tpu_torch/build/ and bound with ctypes. On a CUDA tensor the wrapper
@@ -224,6 +225,26 @@ def expand_records(rec: torch.Tensor, read_len, ref_len,
         cigar_runs=runs_,
         cigar_count=(runs_ > 0).sum(dim=1, dtype=torch.int32),
     )
+
+
+def step_trips(steps: torch.Tensor, rec: torch.Tensor) -> torch.Tensor:
+    """int32[B] trips of the step loop each pair ran, read from its steps
+    and packed records [T+1, B] (the plain version's `trips`).
+
+    A step's record is never 0, so rows 0 .. steps-1 are nonzero. A walk
+    that stopped on an empty highway ran one trip more: that trip wrote 0
+    at row `steps` and the final leap follows at row steps + 1. That leap
+    is never 0 once a step was taken (an unneeded leap means the last step
+    reached the destination, which ends the walk without the empty trip),
+    while rows past a walk's final leap are 0. A pair with no step stopped
+    on its first trip. A walk cut at the bound T ran T trips."""
+    T = rec.shape[0] - 1
+    s = steps.to(torch.int64)
+    row = s.clamp(max=max(T - 1, 0))[None, :]
+    at = rec.gather(0, row)[0]
+    after = rec.gather(0, (row + 1).clamp(max=T))[0]
+    empty = (s < T) & ((s == 0) | ((at == 0) & (after != 0)))
+    return (s + empty.to(torch.int64)).to(torch.int32)
 
 
 def greedy_align_cuda(read, read_len, ref, ref_len, cfg: AlignConfig, *,

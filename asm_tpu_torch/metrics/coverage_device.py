@@ -21,7 +21,9 @@ import torch
 
 from asm_tpu_torch.config import AlignConfig
 from asm_tpu_torch.encoding import decode_string
+from asm_tpu_torch.kernels.greedy import greedy_align
 from asm_tpu_torch.kernels.greedy_cuda import greedy_align_cuda
+from asm_tpu_torch.kernels.nw import nw_align
 from asm_tpu_torch.kernels.nw_cuda import nw_align_cuda
 from asm_tpu_torch.metrics.coverage import check_coverage
 from asm_tpu_torch.native import coverage_batch_native, load_native
@@ -60,18 +62,26 @@ def positional_covered(greedy_mask, nw_mask) -> torch.Tensor:
 
 def coverage_counts(read_codes, read_len, ref_codes, ref_len,
                     cfg: AlignConfig, coverage_sample: int | None = None,
-                    chunk: int = 1 << 17, device="cuda") -> dict:
+                    chunk: int = 1 << 17, device="cuda",
+                    impl: str = "cuda") -> dict:
     """The harness's coverage loop (asm_tpu/bench/harness.py:247-334) on
     a host corpus (int8 codes [B, L], int32 lengths): in chunks of at most
     8192 pairs, NW with traceback and match mask through the trace kernel,
     greedy CIGAR slots through the greedy kernel, the positional
     certificate on the device, and the exact check for the pairs it
-    leaves open.
+    leaves open. impl="torch" runs the plain versions (`nw.nw_align`,
+    `greedy.greedy_align`) in place of the kernels' wrappers.
 
     Returns covered (pairs whose greedy LCM covers the NW LCM), checked
     (pairs examined: all, or the first `coverage_sample`), certified (of
     them, by the positional certificate alone) and greedy_equal_nw (pairs
     whose greedy cost equals the NW penalty)."""
+    if impl == "cuda":
+        nw_fn, greedy_fn = nw_align_cuda, greedy_align_cuda
+    elif impl == "torch":
+        nw_fn, greedy_fn = nw_align, greedy_align
+    else:
+        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     B = read_len.shape[0]
     checked = B if coverage_sample is None else min(coverage_sample, B)
     L = read_codes.shape[1]
@@ -84,9 +94,9 @@ def coverage_counts(read_codes, read_len, ref_codes, ref_len,
         fc, fl = ref_codes[i:j], ref_len[i:j]
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for a in (rc, rl, fc, fl)]
-        pen, nw_ops, nw_mask = nw_align_cuda(
+        pen, nw_ops, nw_mask = nw_fn(
             *args, x=cfg.x, o=cfg.o, e=cfg.e, match_mask_threshold=3)
-        g = greedy_align_cuda(*args, cfg)
+        g = greedy_fn(*args, cfg)
         g_mask = greedy_match_mask(g["cigar_ops"], g["cigar_runs"], L, 1)
         cert = positional_covered(g_mask, nw_mask).cpu().numpy()
         equal += int((g["cost"] == pen).sum())

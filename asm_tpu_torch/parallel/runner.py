@@ -1,8 +1,16 @@
-"""Single-device greedy step (port of
-`asm_tpu.parallel.runner.make_sharded_greedy`, one GPU; the multi-device
-half waits for the torch.distributed slice)."""
+"""Single-device steps of the port (the one-GPU halves of
+`asm_tpu.parallel.runner`; the multi-device halves wait for the
+torch.distributed slice):
+
+  make_greedy_step     greedy only (`make_sharded_greedy`), the headline's
+  make_pipeline_step   the evaluation step (`make_sharded_pipeline`): NW
+                       oracle, greedy cost and LEAP penalty per pair, and
+                       the 7 corpus counters `unpack_stats` reads
+"""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -13,6 +21,28 @@ from asm_tpu_torch.kernels.greedy_cuda import (
     codes_from_planes_tiled,
     greedy_align_cuda,
 )
+from asm_tpu_torch.kernels.leap import leap_align
+from asm_tpu_torch.kernels.leap_cuda import leap_align_cuda
+from asm_tpu_torch.kernels.nw import nw_penalty
+from asm_tpu_torch.kernels.nw_band import BWS, nw_penalty_partitioned
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _on_device(step, device):
+    """`step` behind a check that every input lies on `device`."""
+    def checked(read, read_len, ref, ref_len):
+        for t in (read, read_len, ref, ref_len):
+            if t.device != device:
+                raise ValueError(f"input on {t.device}, step on {device}")
+        return step(read, read_len, ref, ref_len)
+
+    return checked
 
 
 def make_greedy_step(cfg: AlignConfig, device, impl: str = "cuda",
@@ -29,9 +59,7 @@ def make_greedy_step(cfg: AlignConfig, device, impl: str = "cuda",
     pre_staged: False ([B, L] int8 codes) or "planes_tiled" (tile-major
     planes from `stage_planes_tiled_t(..., tile=tile)`).
     """
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = _device(device)
     if impl == "cuda":
         def step(read, read_len, ref, ref_len):
             return greedy_align_cuda(read, read_len, ref, ref_len, cfg,
@@ -47,11 +75,86 @@ def make_greedy_step(cfg: AlignConfig, device, impl: str = "cuda",
             return greedy_align(read, read_len, ref, ref_len, cfg)
     else:
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    return _on_device(step, device)
 
-    def checked(read, read_len, ref, ref_len):
-        for t in (read, read_len, ref, ref_len):
-            if t.device != device:
-                raise ValueError(f"input on {t.device}, step on {device}")
-        return step(read, read_len, ref, ref_len)
 
-    return checked
+@dataclasses.dataclass
+class BatchStats:
+    """The pipeline's corpus counters (host-side view)."""
+
+    pairs: int
+    greedy_correct: int
+    leap_correct: int
+    leap_passed: int
+    nw_penalty_sum: int
+    greedy_cost_sum: int
+    leap_penalty_sum: int
+
+    @property
+    def greedy_accuracy(self) -> float:
+        return self.greedy_correct / max(self.pairs, 1)
+
+    @property
+    def leap_accuracy(self) -> float:
+        return self.leap_correct / max(self.pairs, 1)
+
+
+def unpack_stats(stats_vec) -> BatchStats:
+    return BatchStats(*[int(x) for x in stats_vec])
+
+
+def make_pipeline_step(cfg: AlignConfig, device, impl: str = "cuda"):
+    """(read, read_len, ref, ref_len) int8 codes [B, L] and int32 lengths
+    on `device` -> (nw_pen int32[B], greedy_cost int32[B], leap_pen
+    int32[B], stats int32[7]); `unpack_stats` reads the 7-vector.
+
+    impl="torch": the plain versions (`nw.nw_penalty`,
+    `greedy.greedy_align`, `leap.leap_align`), as the JAX pipeline runs
+    the XLA kernels. impl="cuda": the kernels' wrappers — NW through the
+    partitioned dispatch (`nw_band.nw_penalty_partitioned` over the band
+    widths BWS, the residue to the full kernel), `greedy_align_cuda`
+    without CIGAR slots, `leap_align_cuda`; on CPU tensors they run their
+    plain versions."""
+    device = _device(device)
+    if impl == "torch":
+        def nw_fn(rc, rl, fc, fl):
+            return nw_penalty(rc, rl, fc, fl, cfg.x, cfg.o, cfg.e)
+
+        def greedy_fn(rc, rl, fc, fl):
+            return greedy_align(rc, rl, fc, fl, cfg)["cost"]
+
+        def leap_fn(rc, rl, fc, fl):
+            return leap_align(rc, rl, fc, fl, cfg)
+    elif impl == "cuda":
+        def nw_fn(rc, rl, fc, fl):
+            pen = nw_penalty_partitioned(rc, rl, fc, fl, x=cfg.x, o=cfg.o,
+                                         e=cfg.e, bws=BWS)
+            return torch.from_numpy(pen).to(device)
+
+        def greedy_fn(rc, rl, fc, fl):
+            return greedy_align_cuda(rc, rl, fc, fl, cfg,
+                                     want_cigar=False)["cost"]
+
+        def leap_fn(rc, rl, fc, fl):
+            return leap_align_cuda(rc, rl, fc, fl, cfg)
+    else:
+        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+
+    def step(read, read_len, ref, ref_len):
+        nw_pen = nw_fn(read, read_len, ref, ref_len)
+        g_cost = greedy_fn(read, read_len, ref, ref_len)
+        lp = leap_fn(read, read_len, ref, ref_len)
+        l_pen = lp["penalty"]
+        i32 = torch.int32
+        stats = torch.stack([
+            torch.tensor(read.shape[0], dtype=i32, device=device),
+            (g_cost == nw_pen).sum(dtype=i32),
+            (l_pen == nw_pen).sum(dtype=i32),
+            lp["passed"].sum(dtype=i32),
+            nw_pen.sum(dtype=i32),
+            g_cost.sum(dtype=i32),
+            l_pen.sum(dtype=i32),
+        ])
+        return nw_pen, g_cost, l_pen, stats
+
+    return _on_device(step, device)

@@ -1,11 +1,16 @@
 """The least time an H100 could take for each ported kernel's work: the
-larger of its integer operations over the card's INT32 issue rate and its
-bytes over its memory rate.
+larger of its integer operations over the card's integer issue rate and
+its bytes over its memory rate.
 
-INT32_OPS_PER_S is the H100 SXM's 132 SMs x 64 INT32 lanes per clock at
-1980 MHz, the SM clock sampled under load (PERF.md section 5);
-HBM_BYTES_PER_S its 3.35 TB/s. Bytes count each input read once and each
-output written once. Operations are counted on one basis for every
+INT32_OPS_PER_S is the H100 SXM's issue limit for 32-bit integer work:
+132 SMs x 4 schedulers, each issuing one 32-lane instruction per clock, at
+1980 MHz, the SM clock sampled under load (PERF.md section 5). An add /
+logic mix reaches it, since ptxas spreads such work over the ALU pipe and
+the FMA pipe (the issue chain, PERF.md section 3); the INT32 pipe alone
+(64 lanes per SM) would give half the rate and a bound that a kernel can
+beat.
+HBM_BYTES_PER_S is the card's 3.35 TB/s. Bytes count each input read once
+and each output written once. Operations are counted on one basis for every
 kernel: the fewest integer operations the recurrence itself needs per
 unit of the work the data needs (the *_work functions: steps a pair
 takes, band and DP cells, energy levels), with no index clamps, borders,
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import numpy as np
 
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 
 # per Gotoh cell: E = max(E - e, H - o - e) and F likewise (3 each), the

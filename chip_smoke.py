@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc and g++. Phases, each printing one line:
+Needs one CUDA card, nvcc, cuobjdump and g++. Phases, each printing one
+line:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the greedy, NW, NW band and LEAP kernels (nvcc, sm_90a) and
-     the native host runtime, all at once, from this checkout's sources;
+  2. build: the greedy, NW, NW band, LEAP and roofline kernels (nvcc,
+     sm_90a) and the native host runtime, all at once, from this
+     checkout's sources;
   3. kernel vs plain: greedy_align_cuda on CUDA tensors against the plain
      PyTorch greedy_align on the same device, on the corpora of the
      kernel's conformance tests, both input forms — cost, steps, raw step
@@ -49,6 +51,23 @@ Needs one CUDA card, nvcc and g++. Phases, each printing one line:
  10. the LEAP filter CLI (apps.leap_filter) on a 20,000-pair file written
      to a temporary directory, levenshtein + SHD gate and affine: both
      pass counts must equal the pinned values.
+ 11. harness main path: the three-way harness (bench.harness.
+     run_benchmark, impl="cuda": the NW partitioned dispatch, the greedy
+     and LEAP kernels on tile-major planes, coverage on every pair) on the
+     1,000,000-pair headline corpus; the pairs whose greedy cost and whose
+     LEAP penalty equal the NW penalty and the covered pairs must equal
+     the pinned values, and the greedy, band, trace and LEAP kernels must
+     have launched; then impl="torch" (the plain versions) on the first
+     65,536 pairs must give the counts impl="cuda" gives there. Prints the
+     reference-format report.
+ 12. roofline: each roofline kernel against its plain version (issue
+     chain, stream fold on 256 MiB, probe with x[0] = 7), exactly equal;
+     the SASS counter on the probe's real SASS (the loop body charged at
+     the given weight) and on issue_chain's (its loop body holds
+     STREAMS x UNROLL x 2 integer instructions besides its trip control);
+     then the measured issue rate, stream rate and dispatch floor, none
+     above 105% of its published limit, and the greedy and LEAP roofline
+     lines of phases 4 and 9's runs.
 Prints a JSON line of per-kernel results (time, plain version's time,
 bound, launches), the card line, and last {"ok": true, "device": {...}}.
 Any failure raises (exit code != 0).
@@ -113,6 +132,20 @@ LEAP_CIGAR_DIGEST_1M = (
 # --file ..., and with "3 0 0": affine, no gate).
 FILTER_PAIRS = 20_000
 FILTER_PASSED = {"levenshtein+shd": 12358, "affine": 14820}
+# The harness on the same 1,000,000-pair headline corpus (x=o=e=1, k=3,
+# max_len 128), computed with the JAX package on the CPU:
+# asm_tpu.bench.harness.run_benchmark(impl="xla", chunk=65536) over the
+# native corpus, coverage on every pair: pairs whose greedy cost equals the
+# NW penalty, pairs whose LEAP penalty equals it, covered pairs.
+HARNESS_GREEDY_EQ = 931265
+HARNESS_LEAP_EQ = 997619
+HARNESS_COVERED = 975809
+HARNESS_PREFIX = 65_536
+# phase 12: the check's issue_chain iterations and stream size (the
+# measurement takes tools/roofline.micro's) and the probe's loop trips
+ISSUE_CHECK_ITERS = 16
+STREAM_CHECK_MIB = 256
+PROBE_TRIPS = 7
 
 
 def phase(msg: str) -> None:
@@ -143,6 +176,9 @@ def _instance_name(ln: str) -> str | None:
     if m:
         return (f"leap k{m[1]}/W{m[2]}/x{m[3]}o{m[4]}e{m[5]}"
                 f"{'/cigar' if m[6] == '1' else ''}")
+    m = re.search(r"(issue_chain|stream_fold|probe_kernel|noop_kernel)", ln)
+    if m:
+        return m[1]
     return None
 
 
@@ -282,11 +318,13 @@ def max_diff(got, want, what: str) -> int:
 
 
 def greedy_phases(dev, name, card) -> dict:
-    """Phases 3 and 4 (greedy); returns the kernel's JSON entry."""
+    """Phases 3 and 4 (greedy); returns the kernel's JSON entry and the
+    main path's roofline inputs."""
     from asm_tpu_torch import headline
     from asm_tpu_torch.kernels import greedy_cuda
     from asm_tpu_torch.kernels.greedy import greedy_align
     from asm_tpu_torch.ops.cigar import runs_to_cigars_batch
+    from asm_tpu_torch.utils.bounds import greedy_work
 
     # ---- 3: kernel vs plain on the card ----
     max_err = 0
@@ -313,7 +351,9 @@ def greedy_phases(dev, name, card) -> dict:
             got = greedy_cuda.greedy_align_cuda(
                 a, lens[0], b, lens[1], cfg, pre_staged=pre, tile=tile)
             torch.cuda.synchronize()
-            for key in ("cost", "steps", "step_rec"):
+            got["trips"] = greedy_cuda.step_trips(got["steps"],
+                                                  got["step_rec"])
+            for key in ("cost", "steps", "step_rec", "trips"):
                 d = (got[key].to(torch.int64)
                      - plain[key].to(torch.int64)).abs().max().item()
                 max_err = max(max_err, d)
@@ -327,8 +367,8 @@ def greedy_phases(dev, name, card) -> dict:
                 raise AssertionError(f"{label}/{form}: {bad} CIGARs differ")
             n_cmp += 1
     phase(f"[3 kernel vs plain] {n_cmp} corpus/form cases on {name}: cost, "
-          f"steps, step records and CIGARs exactly equal (max abs err "
-          f"{max_err})")
+          f"steps, step records, the step loop's trips read from them and "
+          f"CIGARs exactly equal (max abs err {max_err})")
 
     # ---- 4: the main path ----
     greedy_cuda.LAUNCHES = 0
@@ -351,7 +391,8 @@ def greedy_phases(dev, name, card) -> dict:
     plain_ms = min(plain["rep_s"]) * 1e3
     d = int(np.abs(plain["cost"].astype(np.int64)
                    - res["cost"].astype(np.int64)).max())
-    if d or not np.array_equal(plain["steps"], res["steps"]):
+    if d or not (np.array_equal(plain["steps"], res["steps"])
+                 and np.array_equal(plain["trips"], res["trips"])):
         raise AssertionError("plain version disagrees on the main path")
     max_err = max(max_err, d)
     phase(f"[4 main path] {res['n_pairs']} pairs: checksum "
@@ -360,11 +401,17 @@ def greedy_phases(dev, name, card) -> dict:
           f"launches; kernel {kernel_ms:.3f} ms "
           f"({res['n_pairs'] / kernel_ms / 1e3:.1f}M aligns/s), plain "
           f"version {plain_ms:.3f} ms, both on {card}")
-    return dict(name="greedy", route="cuda",
-                source="asm_tpu_torch/csrc/greedy.cu",
-                replaces="asm_tpu/kernels/greedy_pallas.py:91",
-                launches=launches, max_abs_err=float(max_err),
-                ms=kernel_ms, plain_ms=plain_ms, **res["bound"])
+    entry = dict(name="greedy", route="cuda",
+                 source="asm_tpu_torch/csrc/greedy.cu",
+                 replaces="asm_tpu/kernels/greedy_pallas.py:91",
+                 launches=launches, max_abs_err=float(max_err),
+                 ms=kernel_ms, plain_ms=plain_ms, **res["bound"])
+    # phase 12's roofline line: the step loop's trips in launch order
+    rows = dict(trips=res["trips"], seconds=kernel_ms / 1e3,
+                n=res["n_pairs"], bound_ms=res["bound"]["bound_ms"],
+                bytes=greedy_work(res["steps"], res["bounds"],
+                                  MAIN_CHUNK)[1])
+    return entry, rows
 
 
 def nw_conformance(dev, name) -> dict:
@@ -658,7 +705,8 @@ def leap_conformance(dev, name) -> int:
 
 
 def leap_main_path(dev, card, err) -> dict:
-    """Phase 9; returns the LEAP kernel's JSON entry."""
+    """Phase 9; returns the LEAP kernel's JSON entry and the main path's
+    roofline inputs."""
     import dataclasses
 
     from asm_tpu_torch import leap_headline
@@ -667,6 +715,7 @@ def leap_main_path(dev, card, err) -> dict:
     from asm_tpu_torch.kernels.greedy_cuda import codes_from_planes_tiled
     from asm_tpu_torch.kernels.leap import leap_align
     from asm_tpu_torch.kernels.leap_backtrack import leap_edit_records
+    from asm_tpu_torch.utils.bounds import leap_levels, leap_work
 
     leap_cuda.LAUNCHES = 0
     res = leap_headline.run(MAIN_PAIRS, chunk=MAIN_CHUNK, err=0.05,
@@ -727,10 +776,21 @@ def leap_main_path(dev, card, err) -> dict:
           f"plain version (leap) "
           f"{plain_ms:.3f} ms, equal on every pair (leap and leap_gated; "
           f"records on 65,536 pairs), all on {card}")
-    return dict(name="leap", route="cuda", source="asm_tpu_torch/csrc/leap.cu",
-                replaces="asm_tpu/kernels/leap_pallas.py:49",
-                launches=launches, max_abs_err=float(err), ms=ms["leap"],
-                plain_ms=plain_ms, **lp["bound"])
+    entry = dict(name="leap", route="cuda",
+                 source="asm_tpu_torch/csrc/leap.cu",
+                 replaces="asm_tpu/kernels/leap_pallas.py:49",
+                 launches=launches, max_abs_err=float(err), ms=ms["leap"],
+                 plain_ms=plain_ms, **lp["bound"])
+    # phase 12's roofline line: the energy loop's trips in launch order
+    cat = {k: torch.cat([o[k] for o in lp["outs"]]).cpu().numpy()
+           for k in ("passed", "penalty", "lane_shift")}
+    levels = leap_levels(cat["passed"], cat["penalty"], cat["lane_shift"],
+                         cfg.leap_af_threshold)
+    n = res["n_pairs"]
+    rows = dict(trips=levels, seconds=ms["leap"] / 1e3, n=n,
+                bound_ms=lp["bound"]["bound_ms"],
+                bytes=leap_work(n, n + int(levels.sum()))[1])
+    return entry, rows
 
 
 def filter_cli(card) -> None:
@@ -765,6 +825,243 @@ def filter_cli(card) -> None:
           f"{times} on {card}")
 
 
+def harness_counts(r) -> tuple[int, int, int]:
+    """(greedy == NW, LEAP == NW, covered) pair counts of a
+    BenchmarkResult."""
+    return (round(r.greedy_accuracy * r.total),
+            round(r.leap_accuracy * r.total),
+            round(r.greedy_coverage * r.coverage_checked))
+
+
+def harness_path(dev, card) -> None:
+    """Phase 11: the three-way harness on the 1M headline corpus."""
+    from asm_tpu_torch import headline
+    from asm_tpu_torch.bench.harness import format_report, run_benchmark
+    from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band, nw_cuda
+    from asm_tpu_torch.parallel.runner import make_pipeline_step, unpack_stats
+
+    corpus = headline.native_corpus(MAIN_PAIRS, 0.05)
+    cfg = AlignConfig(x=1, o=1, e=1, k=3, max_len=128)
+    greedy_cuda.LAUNCHES = nw_band.LAUNCHES = leap_cuda.LAUNCHES = 0
+    nw_cuda.LAUNCHES.update(nw=0, nw_trace=0)
+    t0 = time.perf_counter()
+    r = run_benchmark(*corpus, cfg, chunk=1 << 20, impl="cuda", device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(greedy=greedy_cuda.LAUNCHES, nw_band=nw_band.LAUNCHES,
+                    nw=nw_cuda.LAUNCHES["nw"],
+                    nw_trace=nw_cuda.LAUNCHES["nw_trace"],
+                    leap=leap_cuda.LAUNCHES)
+    missing = [k for k in ("greedy", "nw_band", "nw_trace", "leap")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the harness never launched {missing}")
+    got = harness_counts(r)
+    want = (HARNESS_GREEDY_EQ, HARNESS_LEAP_EQ, HARNESS_COVERED)
+    if r.coverage_checked != r.total or got != want:
+        raise AssertionError(f"harness (greedy == NW, LEAP == NW, covered) "
+                             f"{got} on {r.coverage_checked} checked != "
+                             f"pinned {want} on {r.total}")
+    for ln in format_report(r).splitlines():
+        phase(ln)
+    prefix = tuple(a[:HARNESS_PREFIX] for a in corpus)
+    pc = run_benchmark(*prefix, cfg, chunk=HARNESS_PREFIX, impl="cuda",
+                       device=dev)
+    pt = run_benchmark(*prefix, cfg, chunk=HARNESS_PREFIX, impl="torch",
+                       device=dev)
+    if (harness_counts(pc), pc.coverage_checked) != (harness_counts(pt),
+                                                     pt.coverage_checked):
+        raise AssertionError(f"harness on {HARNESS_PREFIX} pairs: cuda "
+                             f"{harness_counts(pc)} != torch "
+                             f"{harness_counts(pt)}")
+    # the pipeline step (the evaluation step of the multi-device runner)
+    # on the same prefix: both routes, counters against the harness's
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in prefix)
+    before = (greedy_cuda.LAUNCHES, nw_band.LAUNCHES, leap_cuda.LAUNCHES)
+    stats = {impl: unpack_stats(make_pipeline_step(cfg, dev, impl)(*args)[3])
+             for impl in ("cuda", "torch")}
+    if min(a - b for a, b in zip((greedy_cuda.LAUNCHES, nw_band.LAUNCHES,
+                                  leap_cuda.LAUNCHES), before)) <= 0:
+        raise AssertionError("the pipeline step's cuda route launched no "
+                             "greedy, band or LEAP kernel")
+    want = (HARNESS_PREFIX,) + harness_counts(pc)[:2]
+    for impl, st in stats.items():
+        got_p = (st.pairs, st.greedy_correct, st.leap_correct)
+        if got_p != want or st != stats["cuda"]:
+            raise AssertionError(f"pipeline step ({impl}) {st} != the "
+                                 f"harness's {want} or the cuda route's")
+    phase(f"[11 harness] {r.total} pairs err 0.05: greedy == NW "
+          f"{got[0]}, LEAP == NW {got[1]}, covered {got[2]} of "
+          f"{r.coverage_checked} (all pinned); launches {launches}; NW "
+          f"{r.nw_aligns_per_sec / 1e6:.1f}M, LEAP "
+          f"{r.leap_aligns_per_sec / 1e6:.1f}M, greedy "
+          f"{r.greedy_aligns_per_sec / 1e6:.1f}M aligns/s ({r.nw_time * 1e3:.3f}"
+          f" / {r.leap_time * 1e3:.3f} / {r.greedy_time * 1e3:.3f} ms), "
+          f"{wall:.1f} s wall with coverage; first {HARNESS_PREFIX} pairs: "
+          f"cuda {harness_counts(pc)} == torch {harness_counts(pt)} == the "
+          f"pipeline step's counters on both routes (NW / "
+          f"LEAP / greedy plain {pt.nw_time * 1e3:.3f} / "
+          f"{pt.leap_time * 1e3:.3f} / {pt.greedy_time * 1e3:.3f} ms); all on "
+          f"{card}")
+
+
+INT_CATEGORIES = ("arith", "shift", "popcount", "selcmp")
+
+
+def roofline_counter_checks(lib: str) -> str:
+    """Phase 12's counter checks on the built roofline library; returns
+    the opcodes of issue_chain's loop body."""
+    from asm_tpu_torch.kernels import roofline_cuda as rc
+    from asm_tpu_torch.tools import roofline as rl
+
+    # the probe: one loop, its body charged at the given weight
+    sass = rl.sass_listing(lib, "probe_kernel")
+    c0 = rl.count_sass(sass, [0])
+    cw = rl.count_sass(sass, [PROBE_TRIPS])
+    loops = cw["loops"]
+    if len(loops) != 1 or not loops[0]["weighted"]:
+        raise AssertionError(f"probe: expected one weighted loop, got {loops}")
+    body = loops[0]["body"]
+    for cat in rl.CATEGORIES:
+        if cw["counts"][cat] - c0["counts"][cat] != PROBE_TRIPS * body[cat]:
+            raise AssertionError(f"probe: {cat} not charged at weight "
+                                 f"{PROBE_TRIPS}: {cw['counts']} vs "
+                                 f"{c0['counts']}, body {body}")
+    if body["mem"] < 2:
+        raise AssertionError(f"probe: the loop lost the volatile load and "
+                             f"store: {loops[0]['opcodes']}")
+    # issue_chain: the loop body holds the chain ops the slope divides by
+    sass = rl.sass_listing(lib, "issue_chain")
+    loops = rl.count_sass(sass)["loops"]
+    top = [lp for lp in loops if lp["depth"] == 0]
+    if len(top) != 1:
+        raise AssertionError(f"issue_chain: expected one loop, got {loops}")
+    lp = top[0]
+    control = rl.loop_control(sass, lp)
+    n_int = sum(lp["body"][c] for c in INT_CATEGORIES)
+    n_control = sum(rl.category(op) in INT_CATEGORIES for _, op in control)
+    want = rc.STREAMS * rc.UNROLL * 2
+    if n_int - n_control != want:
+        raise AssertionError(
+            f"issue_chain: {n_int} integer instructions in the loop body, "
+            f"{n_control} of them trip control, != {want}: {lp['opcodes']}")
+    return (f"probe loop body {dict((k, v) for k, v in body.items() if v)} "
+            f"charged x{PROBE_TRIPS}; issue_chain loop body "
+            f"{n_int - n_control} chain + {n_control} control integer "
+            f"instructions, opcodes {lp['opcodes']}")
+
+
+def roofline_phase(dev, card, greedy_rows, leap_rows) -> list[dict]:
+    """Phase 12; returns the three roofline kernels' JSON entries."""
+    import contextlib
+    import io
+
+    from asm_tpu_torch.kernels import roofline_cuda as rc
+    from asm_tpu_torch.tools import roofline as rl
+    from asm_tpu_torch.utils.bounds import (
+        HBM_BYTES_PER_S,
+        INT32_OPS_PER_S,
+        bound_entry,
+    )
+
+    # ---- each kernel against its plain version ----
+    err = {}
+    seeds = rl.issue_seeds(dev)
+    err["issue_chain"] = max_diff(
+        rc.issue_chain(seeds, ISSUE_CHECK_ITERS),
+        rc.issue_chain_plain(seeds, ISSUE_CHECK_ITERS), "issue_chain")
+    small = rl.seeded_words(STREAM_CHECK_MIB << 18, dev, seed=2)
+    err["stream_fold"] = max_diff(rc.stream_fold(small),
+                                  rc.stream_fold_plain(small),
+                                  f"stream_fold {STREAM_CHECK_MIB} MiB")
+    del small
+    x = rl.seeded_words(1024, dev, seed=3)
+    x[0] = PROBE_TRIPS
+    err["probe"] = max_diff(rc.probe(x), rc.probe_plain(x), "probe")
+    counter = roofline_counter_checks(rc.build_kernel()[0])
+
+    # ---- the measurement: the phase's main path, the CLI's own ----
+    for k in rc.LAUNCHES:
+        rc.LAUNCHES[k] = 0
+    line, raw = rl.micro(dev, keep_words=True)
+    probe_ms, _ = cuda_ms(lambda: rc.probe(x), 10)
+    launches = dict(rc.LAUNCHES)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the roofline never launched a kernel: "
+                             f"{launches}")
+    issue, stream, words = raw["issue"], raw["stream"], raw["words"]
+    iters, mib = line["issue_iters"], line["stream_mib"]
+    limit = line["issue_limit_ops_per_sec"]
+    if issue["rate"] > 1.05 * limit:
+        raise AssertionError(f"issue rate {issue['rate']:.4g} above 105% of "
+                             f"the issue limit {limit:.4g}")
+    if stream["rate"] > 1.05 * HBM_BYTES_PER_S:
+        raise AssertionError(f"stream rate {stream['rate']:.4g} above 105% "
+                             f"of {HBM_BYTES_PER_S:.4g} B/s")
+
+    # the plain versions at the measurement's shapes (not counted)
+    seeds = raw["seeds"]
+    issue_plain_ms, want = cuda_ms(
+        lambda: rc.issue_chain_plain(seeds, iters), 1)
+    err["issue_chain"] = max(err["issue_chain"], max_diff(
+        issue["out"], want, f"issue_chain at {iters} iterations"))
+    stream_plain_ms, want = cuda_ms(lambda: rc.stream_fold_plain(words), 1)
+    err["stream_fold"] = max(err["stream_fold"], max_diff(
+        stream["out"], want, f"stream_fold {mib[1]} MiB"))
+    n_words = words.numel()
+    del words, want, raw
+    probe_plain_ms, _ = cuda_ms(lambda: rc.probe_plain(x), 3)
+
+    phase(f"[12a roofline kernels] issue chain ({ISSUE_CHECK_ITERS} and "
+          f"{iters} iterations), stream fold ({STREAM_CHECK_MIB} and "
+          f"{mib[1]} MiB), probe (x[0] = {PROBE_TRIPS}) exactly equal "
+          f"to their plain versions; counter: {counter}")
+    phase(f"[12b roofline rates] issue {issue['rate'] / 1e12:.3f} T int ops/s"
+          f" (walls {[round(w * 1e3, 4) for w in issue['walls']]} ms at "
+          f"{iters}/{2 * iters} iterations, "
+          f"{seeds.shape[0]} threads) = {issue['rate'] / limit:.1%} of the "
+          f"issue limit at the sampled {line['sm_clock_mhz']:.0f} MHz, "
+          f"{issue['rate'] / INT32_OPS_PER_S:.1%} of utils.bounds' "
+          f"{INT32_OPS_PER_S / 1e12:.2f} T; stream "
+          f"{stream['rate'] / 1e12:.3f} TB/s (walls "
+          f"{[round(w * 1e3, 4) for w in stream['walls']]} ms at "
+          f"{mib[0]}/{mib[1]} MiB) = "
+          f"{stream['rate'] / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; dispatch "
+          f"floor {line['dispatch_floor_us']:.2f} us; launches {launches}; "
+          f"on {card}")
+    for name, rows, counts, is_bound in (
+            ("greedy", greedy_rows, rl.greedy_counts, True),
+            ("leap", leap_rows, rl.leap_counts, False)):
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = rl.report(name, counts(rows["trips"]),
+                            rows["bytes"] / rows["n"], rows["seconds"],
+                            rows["n"], issue["rate"], stream["rate"],
+                            rows["bound_ms"], issue_is_bound=is_bound)
+        phase(f"[12c roofline {name}] {json.dumps(got)}")
+
+    threads = seeds.shape[0]
+    common = dict(route="cuda", source="asm_tpu_torch/csrc/roofline.cu")
+    return [
+        dict(name="issue_chain", replaces="tools/roofline.py:49",
+             launches=launches["issue_chain"],
+             max_abs_err=float(err["issue_chain"]),
+             ms=issue["walls"][0] * 1e3, plain_ms=issue_plain_ms,
+             **common, **bound_entry(
+                 rc.issue_chain_ops(threads, iters),
+                 4 * threads * (rc.STREAMS + 1))),
+        dict(name="stream_fold", replaces="tools/roofline.py:119",
+             launches=launches["stream_fold"],
+             max_abs_err=float(err["stream_fold"]),
+             ms=stream["walls"][1] * 1e3, plain_ms=stream_plain_ms,
+             **common, **bound_entry(n_words, 4 * n_words + 4)),
+        dict(name="probe", replaces="tests/test_roofline_counts.py:37",
+             launches=launches["probe"], max_abs_err=float(err["probe"]),
+             ms=probe_ms, plain_ms=probe_plain_ms, **common,
+             **bound_entry(x.numel() * (2 + PROBE_TRIPS), 8 * x.numel())),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on a GPU",
@@ -772,7 +1069,13 @@ def main() -> int:
         return 1
     from concurrent.futures import ThreadPoolExecutor
 
-    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band, nw_cuda
+    from asm_tpu_torch.kernels import (
+        greedy_cuda,
+        leap_cuda,
+        nw_band,
+        nw_cuda,
+        roofline_cuda,
+    )
     from asm_tpu_torch.native import build_native
 
     dev = torch.device("cuda", 0)
@@ -783,7 +1086,7 @@ def main() -> int:
 
     # every build at once: one nvcc per kernel source, and make
     t0 = time.perf_counter()
-    kernels = (greedy_cuda, nw_cuda, nw_band, leap_cuda)
+    kernels = (greedy_cuda, nw_cuda, nw_band, leap_cuda, roofline_cuda)
     with ThreadPoolExecutor(len(kernels) + 1) as ex:
         builds = [ex.submit(k.build_kernel) for k in kernels]
         native = ex.submit(build_native)
@@ -794,13 +1097,17 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s (built now: {built}); "
           f"ptxas: {ptxas}")
 
-    entries = [greedy_phases(dev, name, card)]
+    entry, greedy_rows = greedy_phases(dev, name, card)
+    entries = [entry]
     err = nw_conformance(dev, name)
     entries += nw_main_path(dev, card, err)
     entries.append(coverage_path(dev, card, err))
     leap_err = leap_conformance(dev, name)
-    entries.append(leap_main_path(dev, card, leap_err))
+    entry, leap_rows = leap_main_path(dev, card, leap_err)
+    entries.append(entry)
     filter_cli(card)
+    harness_path(dev, card)
+    entries += roofline_phase(dev, card, greedy_rows, leap_rows)
 
     print(json.dumps({"kernels": entries}))
     print(card_line(), flush=True)

@@ -1,5 +1,7 @@
-"""The CUDA kernels (greedy; NW band, full and trace; LEAP) against their
-plain PyTorch versions on the card.
+"""The CUDA kernels (greedy; NW band, full and trace; LEAP; the roofline
+microkernels) against their plain PyTorch versions on the card, the SASS
+counter on the probe kernel's real SASS, and the harness's and the
+pipeline step's kernel routes against their plain routes.
 
 Runs only where CUDA is present; elsewhere each test skips. The card's
 machine has no jax, so run these without the suite's conftest:
@@ -8,7 +10,8 @@ machine has no jax, so run these without the suite's conftest:
 
 Tolerance: exact equality of cost, steps and raw step records (greedy);
 of penalties, ops and match masks (NW); of passed, penalty, lane_shift and
-raw edit records (LEAP)."""
+raw edit records (LEAP); of the roofline kernels' words; of the harness's
+counts and the pipeline step's outputs."""
 
 import numpy as np
 import pytest
@@ -38,6 +41,9 @@ def _check(got, want):
     torch.cuda.synchronize()
     for key in ("cost", "steps", "step_rec"):
         assert torch.equal(got[key], want[key]), key
+    # the step loop's trips, read from the kernel's records
+    assert torch.equal(greedy_cuda.step_trips(got["steps"], got["step_rec"]),
+                       want["trips"])
 
 
 @pytest.mark.parametrize("cfg,kw", [
@@ -290,3 +296,71 @@ def test_leap_kernel_refuses_unbuilt_shapes(dev):
     with pytest.raises(ValueError):
         leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(),
                                   semantics="simd_ed_affine", want_cigar=True)
+
+
+# the roofline microkernels (csrc/roofline.cu) and the SASS counter
+
+
+def test_roofline_kernels_match_plain(dev):
+    from asm_tpu_torch.kernels import roofline_cuda as rc
+    from asm_tpu_torch.tools import roofline as rl
+
+    seeds = rl.issue_seeds(dev, blocks_per_sm=1)
+    before = dict(rc.LAUNCHES)
+    got = rc.issue_chain(seeds, 9)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rc.issue_chain_plain(seeds, 9))
+    for n in (4, 1 << 20, (1 << 24) + 12):  # a grid-stride tail, too
+        x = rl.seeded_words(n, dev, seed=n)
+        assert torch.equal(rc.stream_fold(x), rc.stream_fold_plain(x)), n
+    x = rl.seeded_words(1000, dev, seed=3)
+    for trips in (7, 0, -5):
+        x[0] = trips
+        assert torch.equal(rc.probe(x), rc.probe_plain(x)), trips
+    assert rc.LAUNCHES == dict(issue_chain=before["issue_chain"] + 1,
+                               stream_fold=before["stream_fold"] + 3,
+                               probe=before["probe"] + 3)
+    with pytest.raises(ValueError):
+        rc.stream_fold(x[1:7])  # not a multiple of 4 words
+
+
+def test_counter_on_probe_sass(dev):
+    from asm_tpu_torch.kernels import roofline_cuda as rc
+    from asm_tpu_torch.tools import roofline as rl
+
+    sass = rl.sass_listing(rc.build_kernel()[0], "probe_kernel")
+    c0, c7 = rl.count_sass(sass, [0]), rl.count_sass(sass, [7])
+    assert len(c7["loops"]) == 1 and c7["loops"][0]["weighted"]
+    body = c7["loops"][0]["body"]
+    assert body["mem"] >= 2  # the volatile load and store of every trip
+    for cat in rl.CATEGORIES:
+        assert c7["counts"][cat] - c0["counts"][cat] == 7 * body[cat], cat
+
+
+def test_harness_cuda_matches_torch(dev):
+    from asm_tpu_torch.bench.harness import run_benchmark
+
+    corpus = generate_dataset_arrays(4096, 100, 0.1, seed=12)
+    got = run_benchmark(*corpus, AlignConfig(), chunk=1500, impl="cuda",
+                        device=dev)
+    want = run_benchmark(*corpus, AlignConfig(), chunk=1500, impl="torch",
+                         device=dev)
+    for f in ("total", "leap_accuracy", "greedy_accuracy", "greedy_coverage",
+              "coverage_checked"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.device == torch.cuda.get_device_name(dev)
+
+
+def test_pipeline_step_cuda_matches_torch(dev):
+    from asm_tpu_torch.kernels import leap_cuda
+    from asm_tpu_torch.parallel.runner import make_pipeline_step
+
+    args = _corpus(dev, num_reads=3000, length=100, error_rate=0.1, seed=21)
+    before = (greedy_cuda.LAUNCHES, nw_band.LAUNCHES, leap_cuda.LAUNCHES)
+    got = make_pipeline_step(AlignConfig(), dev, "cuda")(*args)
+    assert min(a - b for a, b in zip(
+        (greedy_cuda.LAUNCHES, nw_band.LAUNCHES, leap_cuda.LAUNCHES),
+        before)) > 0
+    want = make_pipeline_step(AlignConfig(), dev, "torch")(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -51,6 +51,14 @@ _PORT_MODULES = [
     "asm_tpu_torch.leap_headline",
     "asm_tpu_torch.apps",
     "asm_tpu_torch.apps.leap_filter",
+    "asm_tpu_torch.data.io",
+    "asm_tpu_torch.metrics.numleaps",
+    "asm_tpu_torch.bench",
+    "asm_tpu_torch.bench.harness",
+    "asm_tpu_torch.bench.__main__",
+    "asm_tpu_torch.kernels.roofline_cuda",
+    "asm_tpu_torch.tools",
+    "asm_tpu_torch.tools.roofline",
 ]
 # the LEAP slice's entry points
 _LEAP_MODULES = ["asm_tpu_torch.kernels.leap_cuda",

@@ -84,6 +84,34 @@ def test_wrapper_matches_xla(label, jcfg, kw, form):
     _same(got, ref)
 
 
+@pytest.mark.parametrize("label,jcfg,kw", CASES, ids=[c[0] for c in CASES])
+def test_step_trips_from_records_match_plain(label, jcfg, kw):
+    """step_trips reads from steps and records the step loop's trips that
+    the plain version counts (its steps, plus one where a walk stopped on
+    an empty highway)."""
+    rc, rl, fc, fl = map(torch.from_numpy, generate_dataset_arrays(**kw))
+    g = greedy_cuda.greedy_align(rc, rl, fc, fl, config_from_jax(jcfg),
+                                 records=True)
+    got = greedy_cuda.step_trips(g["steps"], g["step_rec"])
+    assert torch.equal(got, g["trips"])
+    extra = (g["trips"] - g["steps"]).unique().tolist()
+    assert set(extra) <= {0, 1}, extra
+
+
+def test_step_trips_count_empty_highway_trips():
+    # indel-heavy walks and empty strings stop on an empty highway: trips
+    # exceed steps there
+    rc, rl, fc, fl = map(torch.from_numpy, generate_dataset_arrays(
+        300, 100, 0.4, mismatch_rate=0.5, seed=40))
+    rl[:8] = 0
+    fl[4:12] = 0
+    g = greedy_cuda.greedy_align(rc, rl, fc, fl, AlignConfig(max_steps=24),
+                                 records=True)
+    trips = greedy_cuda.step_trips(g["steps"], g["step_rec"])
+    assert torch.equal(trips, g["trips"])
+    assert bool((trips > g["steps"]).any())
+
+
 def test_wrapper_want_cigar_false():
     rc, rl, fc, fl = map(torch.from_numpy,
                          generate_dataset_arrays(64, 100, 0.1, seed=9))
