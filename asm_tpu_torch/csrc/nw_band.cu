@@ -1,31 +1,51 @@
-// Banded NW/Gotoh penalty, one pair per BW-cell segment of a warp (sm_90a).
+// Banded NW/Gotoh penalty on Hopper (sm_90a): BW/2 threads per pair, each
+// computing one existing band cell per diagonal.
 //
 // Replaces the Pallas TPU kernel asm_tpu/kernels/nw_band.py _nw_band_kernel
-// (wrapper nw_penalty_banded). Band-offset layout: cell u of a pair's band
-// holds diagonal offset k = i - j = u - KB, KB = BW/2 - 1; per diagonal d,
-// E reads (d-1, k-1), F reads (d-1, k+1), the substitution (d-2, k), and
-// INF enters at the band's two edges. The pair's result is H at
-// (d = m+n, k = m-n), min-folded with the closed form of empty reads, so
-// uncertified upper bounds and INF (destination off the band) come out as
-// the JAX kernel's.
+// (wrapper nw_penalty_banded). Band offsets: offset u of a pair's band
+// holds the diagonal offset k = i - j = u - KB, KB = BW/2 - 1; cell (d, k)
+// reads E from (d-1, k-1), F from (d-1, k+1) and the substitution from
+// (d-2, k), and INF enters at the band's two edges. The pair's result is
+// H at (d = m+n, k = m-n), min-folded with the closed form of empty reads,
+// so uncertified upper bounds and INF (destination off the band) come out
+// as the JAX kernel's.
 //
-// What bounds it on Hopper: per cell and diagonal ~20 integer ops and two
-// shared-memory byte loads, plus four warp shuffles per thread and
-// diagonal (the k-1 / k+1 neighbours), so instruction throughput and the
-// shuffle pipe, not memory: a pair reads 64 B of planes and writes 4 B.
-// The TPU kernel streamed precomputed mismatch planes of BW/4 bytes per
-// diagonal per pair (512 B per pair at BW 16, 2 KB at BW 64); here the
-// mismatch bit is computed in the kernel from the pair's codes, unpacked
-// once from its 2-bit planes into shared memory, so no mismatch planes
-// exist at all.
+// Layout. A cell (d, k) exists only where d + k is even, and an existing
+// cell reads only existing ones. KB is odd for every BW, so a pair takes
+// SEG = BW/2 threads (64/BW pairs per warp) and thread t owns two
+// adjacent offsets: A at u = 2t (k odd, cells on odd diagonals) and B at
+// u = 2t + 1 (k even, even diagonals). One loop trip is two diagonals:
+//   A on odd d:  E from B of thread t-1 (two shuffles up), F from the
+//                thread's own B, the substitution from its own A;
+//   B on d + 1:  E from the thread's own A, F from A of thread t+1 (two
+//                shuffles down), the substitution from its own B.
+// Shuffles run with width SEG, so a segment's edge thread takes INF in
+// place of its neighbour, exactly the TPU kernel's at_lo / at_hi. The
+// state is six registers (H, E, F of A and B); no cell of the wrong parity
+// is computed. Along a trip A and B share the ref code, and B's read code
+// is the next trip's A's, so a trip loads two code bytes from shared
+// memory. The borders (k == d, k == -d) live only in the first BW/4 trips,
+// which are unrolled apart from the main loop. Each pair's 2-bit planes
+// are loaded once per word and unpacked in registers, four codes per
+// 32-bit shared store, into rows padded by BW/4 codes on both sides, so
+// the running code indices need no clamps.
 //
-// Layout: BW <= 32 gives one cell per thread and 32/BW pairs per warp
-// (BW 8: 4 pairs); BW 64 gives two adjacent cells per thread, one pair per
-// warp. Shuffles run with width = the segment, so a segment's edge thread
-// takes INF in place of its neighbour, exactly the TPU kernel's
-// at_lo/at_hi. A warp loops to the largest m+n of its pairs; the
-// band-major, difficulty-sorted order keeps those maxima close. Lanes of
-// the wrong parity (d + k odd) compute values that no valid cell reads.
+// What bounds it: integer issue. A pair reads 64 B of planes and writes
+// 4 B, so memory is far below. By the SASS count (tools/roofline.py
+// nw_band_loop), the diagonal loop issues 18 instructions per existing
+// cell at BW 8/16 (19-19.5 at BW 32/64): two shuffles, one shared byte
+// load, half a branch and 14.5 integer instructions where the recurrence
+// needs 11 (utils/bounds.py); the earlier kernel, one thread per offset,
+// issued 78-86. The shuffle pipe is not the limit: two shuffles in 18
+// instructions. A warp loops to the largest m+n of its 64/BW pairs,
+// 1.001-1.002x the mean in the headline's band-major order. Of the loop's
+// 36 instructions per trip at BW 16, ptxas already fuses six add-min
+// pairs into DPX VIADDMNMX; 4 are the band edges' INF selects and 6 the
+// destination's capture (two compares, two selects, two counters). Left
+// for later: those ten, DPX min-plus written out (__viaddmin_s32,
+// __vimin3_s32) where ptxas does not fuse, mismatches from the bit
+// planes without shared memory, and the harness's per-dispatch packing
+// of int8 codes into planes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,20 +60,86 @@ struct Params {
     int B, x, o, e;
 };
 
+// the low 4 bits of v, one to bit 0 of each byte
+__device__ __forceinline__ uint32_t spread4(uint32_t v) {
+    return ((v & 15u) * 0x00204081u) & 0x01010101u;
+}
+
+// the j == 0 column (k == d: h = e = the border penalty, f = INF) and the
+// i == 0 row (k == -d: h = the border penalty, e = f = INF)
+__device__ __forceinline__ void border(int k, int d, int o, int e, int& h,
+                                       int& en, int& fn) {
+    const int bp = o + (d - 1) * e;
+    const bool bl = k == d, bt = k == -d;
+    if (bl || bt) {
+        h = bp;
+        fn = kInf;
+    }
+    en = bl ? bp : (bt ? kInf : en);
+}
+
+struct Cells {
+    int ha, ea, fa, hb, eb, fb;
+};
+
+// One trip: A on odd diagonal d, then B on d + 1. ra / rb: the read codes
+// of A's and B's cells, c: their ref code (the same column j).
+template <int SEG, bool BORDERS>
+__device__ __forceinline__ void trip(Cells& s, int& hit, int d, int ra, int rb,
+                                     int c, int t, int ka, int hit_a,
+                                     int hit_b, int x, int o, int e) {
+    {
+        int uh = __shfl_up_sync(kFull, s.hb, 1, SEG);
+        int ue = __shfl_up_sync(kFull, s.eb, 1, SEG);
+        if (t == 0) {
+            uh = kInf;
+            ue = kInf;
+        }
+        int en = min(uh + o, ue + e);
+        int fn = min(s.hb + o, s.fb + e);
+        int hn = min(s.ha + (ra != c ? x : 0), min(en, fn));
+        if (BORDERS) border(ka, d, o, e, hn, en, fn);
+        if (d == hit_a) hit = hn;
+        s.ha = hn;
+        s.ea = en;
+        s.fa = fn;
+    }
+    {
+        int dh = __shfl_down_sync(kFull, s.ha, 1, SEG);
+        int df = __shfl_down_sync(kFull, s.fa, 1, SEG);
+        if (t == SEG - 1) {
+            dh = kInf;
+            df = kInf;
+        }
+        int en = min(s.ha + o, s.ea + e);
+        int fn = min(dh + o, df + e);
+        int hn = min(s.hb + (rb != c ? x : 0), min(en, fn));
+        if (BORDERS) border(ka + 1, d + 1, o, e, hn, en, fn);
+        if (d + 1 == hit_b) hit = hn;
+        s.hb = hn;
+        s.eb = en;
+        s.fb = fn;
+    }
+}
+
 template <int BW, int W>
 __global__ void __launch_bounds__(kThreads)
 band_kernel(const uint32_t* __restrict__ rp, const uint32_t* __restrict__ fp,
             const int* __restrict__ rl, const int* __restrict__ fl, Params P,
             int* __restrict__ pen_out) {
     constexpr int L = 32 * W;
-    constexpr int SEG = BW < 32 ? BW : 32;  // threads per pair
-    constexpr int CPL = BW / SEG;           // cells per thread
-    constexpr int PPW = 32 / SEG;           // pairs per warp
+    constexpr int SEG = BW / 2;  // threads per pair
+    constexpr int PPW = 32 / SEG;  // pairs per warp
     constexpr int PPB = (kThreads / 32) * PPW;
     constexpr int KB = BW / 2 - 1;
-    constexpr int ROW = L + 4;  // skews the rows of a warp's pairs across banks
-    __shared__ int8_t s_read[PPB][ROW];
-    __shared__ int8_t s_ref[PPB][ROW];
+    // code rows: PAD bytes, the L codes, PAD bytes; the running indices
+    // reach BW/4 codes past either end. An odd number of words per row
+    // skews a warp's rows across the banks.
+    constexpr int PAD = BW / 4 < 4 ? 4 : BW / 4;
+    constexpr int ROWW = (L + 2 * PAD) / 4 % 2 ? (L + 2 * PAD) / 4
+                                               : (L + 2 * PAD) / 4 + 1;
+    __shared__ __align__(16) uint32_t s_read[PPB][ROWW];
+    __shared__ __align__(16) uint32_t s_ref[PPB][ROWW];
 
     const int lane = threadIdx.x & 31;
     const int slot = (threadIdx.x >> 5) * PPW + lane / SEG;
@@ -68,96 +154,85 @@ band_kernel(const uint32_t* __restrict__ rp, const uint32_t* __restrict__ fp,
         m = min(rl[p], L);
         n = min(fl[p], L);
     }
-    // unpack the pair's 2-bit planes (row w: bit 0 of positions 32w..,
-    // row W + w: bit 1) into one code byte per position
-    for (int pos = t; pos < L; pos += SEG) {
-        const int w = pos >> 5, b = pos & 31;
-        int rc = 0, fc = 0;
-        if (live) {
-            rc = ((rp[w * B + p] >> b) & 1) | (((rp[(W + w) * B + p] >> b) & 1) << 1);
-            fc = ((fp[w * B + p] >> b) & 1) | (((fp[(W + w) * B + p] >> b) & 1) << 1);
+    // unpack the pair's planes (row w: bit 0 of positions 32w..32w+31,
+    // row W + w: bit 1): each thread loads its words once and stores
+    // QPT quads (4 codes each) of every one of them
+    {
+        constexpr int WN = W < SEG ? W : SEG;  // threads on distinct words
+        constexpr int G = SEG / WN;  // threads per word
+        constexpr int QPT = 8 / G;  // quads per thread and word
+        const int ws = t % WN, g = t / WN;
+#pragma unroll
+        for (int i = 0; i < W / WN; i++) {
+            const int w = ws + WN * i;
+            uint32_t rlo = 0, rhi = 0, flo = 0, fhi = 0;
+            if (live) {
+                rlo = rp[w * B + p];
+                rhi = rp[(W + w) * B + p];
+                flo = fp[w * B + p];
+                fhi = fp[(W + w) * B + p];
+            }
+#pragma unroll
+            for (int j = 0; j < QPT; j++) {
+                const int q = g * QPT + j, sh = 4 * q;
+                const int at = PAD / 4 + 8 * w + q;
+                s_read[slot][at] = spread4(rlo >> sh) | (spread4(rhi >> sh) << 1);
+                s_ref[slot][at] = spread4(flo >> sh) | (spread4(fhi >> sh) << 1);
+            }
         }
-        s_read[slot][pos] = (int8_t)rc;
-        s_ref[slot][pos] = (int8_t)fc;
+        for (int u = t; u < PAD / 2; u += SEG) {  // the pads: don't-care
+            const int at = u < PAD / 4 ? u : u + 8 * W;
+            s_read[slot][at] = 0;
+            s_ref[slot][at] = 0;
+        }
     }
     __syncwarp();
 
     const int mn = m + n, dk = m - n;
-    const int d_max = __reduce_max_sync(kFull, mn);
+    const int trips = (__reduce_max_sync(kFull, mn) + 1) >> 1;
+    const int ka = 2 * t - KB;  // offset A; B is ka + 1
+    // the destination's owner captures H on diagonal m+n
+    const int ud = dk + KB;
+    const bool in_band = ud >= 0 && ud < BW;
+    const bool owner = in_band && (ud >> 1) == t;
+    const int hit_a = owner && !(ud & 1) ? mn : -1;
+    const int hit_b = owner && (ud & 1) ? mn : -1;
 
-    int kk[CPL], h1[CPL], h2[CPL], e1[CPL], f1[CPL];
+    Cells s{kInf, kInf, kInf, ka + 1 == 0 ? 0 : kInf, kInf, kInf};
+    int hit = kInf;
+    // trip tau: A's cell is (i, j) = (tau + t + 1 - BW/4, tau - t + BW/4),
+    // B's (i + 1, j); codes at i - 1 and j - 1
+    const uint8_t* pr =
+        reinterpret_cast<const uint8_t*>(s_read[slot]) + PAD + t - BW / 4;
+    const uint8_t* pc = reinterpret_cast<const uint8_t*>(s_ref[slot]) + PAD +
+                        BW / 4 - 1 - t;
+    int ra = pr[0];
 #pragma unroll
-    for (int c = 0; c < CPL; c++) {
-        kk[c] = t * CPL + c - KB;
-        h1[c] = kk[c] == 0 ? 0 : kInf;  // diagonal 0: only cell (0, 0)
-        h2[c] = kInf;
-        e1[c] = kInf;
-        f1[c] = kInf;
+    for (int tau = 0; tau < BW / 4; tau++) {  // the borders' trips
+        if (tau >= trips) break;
+        const int rb = pr[tau + 1], c = pc[tau];
+        trip<SEG, true>(s, hit, 2 * tau + 1, ra, rb, c, t, ka, hit_a, hit_b,
+                        x, o, e);
+        ra = rb;
     }
-    int hit = kInf;  // H at the destination
-
-    for (int d = 1; d <= d_max; d++) {
-        // neighbours on diagonal d-1: k-1 (up) and k+1 (down)
-        int uh[CPL], ue[CPL], dh[CPL], df[CPL];
-        {
-            const int sh = __shfl_up_sync(kFull, h1[CPL - 1], 1, SEG);
-            const int se = __shfl_up_sync(kFull, e1[CPL - 1], 1, SEG);
-            const int dh0 = __shfl_down_sync(kFull, h1[0], 1, SEG);
-            const int df0 = __shfl_down_sync(kFull, f1[0], 1, SEG);
-            uh[0] = t == 0 ? kInf : sh;
-            ue[0] = t == 0 ? kInf : se;
-            dh[CPL - 1] = t == SEG - 1 ? kInf : dh0;
-            df[CPL - 1] = t == SEG - 1 ? kInf : df0;
-#pragma unroll
-            for (int c = 1; c < CPL; c++) {
-                uh[c] = h1[c - 1];
-                ue[c] = e1[c - 1];
-                dh[c - 1] = h1[c];
-                df[c - 1] = f1[c];
-            }
-        }
-        const int bp = o + (d - 1) * e;
-#pragma unroll
-        for (int c = 0; c < CPL; c++) {
-            const int k = kk[c];
-            // cell (i, j) = ((d+k)/2, (d-k)/2); out-of-range and
-            // wrong-parity cells are don't-care, their indices clamped
-            const int ri = min(max(((d + k) >> 1) - 1, 0), L - 1);
-            const int rj = min(max(((d - k) >> 1) - 1, 0), L - 1);
-            const int mis = s_read[slot][ri] != s_ref[slot][rj];
-            int en = min(uh[c] + o, ue[c] + e);
-            int fn = min(dh[c] + o, df[c] + e);
-            int hn = min(h2[c] + x * mis, min(en, fn));
-            // borders inside the band: k == d is the j == 0 column,
-            // k == -d the i == 0 row
-            const bool bl = k == d, bt = k == -d;
-            if (bl || bt) {
-                hn = bp;
-                fn = kInf;
-            }
-            en = bl ? bp : (bt ? kInf : en);
-            if (d == mn && k == dk) hit = hn;
-            h2[c] = h1[c];
-            h1[c] = hn;
-            e1[c] = en;
-            f1[c] = fn;
-        }
+#pragma unroll 1
+    for (int tau = BW / 4; tau < trips; tau++) {
+        const int rb = pr[tau + 1], c = pc[tau];
+        trip<SEG, false>(s, hit, 2 * tau + 1, ra, rb, c, t, ka, hit_a, hit_b,
+                         x, o, e);
+        ra = rb;
     }
 
     if (!live) return;
     const int closed = mn == 0 ? 0 : (m == 0 ? o + (mn - 1) * e : kInf);
-    const bool in_band = dk >= -KB && dk <= BW - 1 - KB;
-    bool mine = false;
-#pragma unroll
-    for (int c = 0; c < CPL; c++) mine |= kk[c] == dk;
-    if (in_band ? mine : t == 0) pen_out[p] = min(closed, hit);
+    if (in_band ? owner : t == 0) pen_out[p] = min(closed, hit);
 }
 
 template <int BW, int W>
 cudaError_t launch(const void* rp, const void* fp, const void* rl,
                    const void* fl, const Params& P, void* pen,
                    cudaStream_t s) {
-    constexpr int PPB = (kThreads / 32) * (32 / (BW < 32 ? BW : 32));
+    constexpr int PPB = (kThreads / 32) * (64 / BW);
     const int blocks = (P.B + PPB - 1) / PPB;
     band_kernel<BW, W><<<blocks, kThreads, 0, s>>>(
         (const uint32_t*)rp, (const uint32_t*)fp, (const int*)rl,

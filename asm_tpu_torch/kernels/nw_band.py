@@ -2,11 +2,11 @@
 `asm_tpu.kernels.nw_band`, host half, plus the wrapper of the CUDA band
 kernel csrc/nw_band.cu).
 
-Band-offset layout: lane u of a pair's BW-lane band holds the diagonal
-offset k = i - j = u - KB, KB = BW/2 - 1, so k runs over [-KB, BW/2] (an
-asymmetric band). Cell (d, k) reads (d-1, k-1) for E, (d-1, k+1) for F
-and (d-2, k) for the substitution; INF enters at the band's edges. A
-destination with m - n outside the band gives INF.
+Band offsets: position u of a pair's band of BW offsets holds the
+diagonal offset k = i - j = u - KB, KB = BW/2 - 1, so k runs over [-KB,
+BW/2] (an asymmetric band). Cell (d, k) reads (d-1, k-1) for E, (d-1,
+k+1) for F and (d-2, k) for the substitution; INF enters at the band's
+edges. A destination with m - n outside the band gives INF.
 
 Exactness: leaving the band needs a gap run costing >= o + KB*e, so a
 banded penalty below that threshold is the full NW penalty
@@ -15,10 +15,17 @@ turns exact penalties into each pair's smallest certifying band, and
 `nw_penalty_partitioned` runs each pair through the bands, forwarding the
 uncertified residue, and the last residue to the full kernel.
 
-Parity: cell (d, k) exists only when d + k is even. Lanes of the other
-parity compute values that no valid cell reads, and the destination
-(d = m+n, k = m-n) has valid parity. Cells past a pair's lengths never
-feed its destination, so padding codes are don't-care.
+Parity: cell (d, k) exists only when d + k is even, and an existing cell
+reads only existing ones. KB is odd, so the plain version and the kernel
+give a pair BW/2 lanes, lane t holding two adjacent offsets: A, k = 2t -
+KB (odd k, cells on odd diagonals) and B, k = 2t + 1 - KB (even k, even
+diagonals). An odd diagonal computes every A: E from B of lane t-1, F
+from the lane's own B, the substitution from its own A two diagonals
+back; an even diagonal computes every B: E from the lane's own A, F from
+A of lane t+1. No cell of the wrong parity is computed. The destination
+(d = m+n, k = m-n) lies in lane (k + KB) // 2, slot A where m+n is odd.
+Cells past a pair's lengths never feed its destination, so padding codes
+are don't-care.
 """
 
 from __future__ import annotations
@@ -70,44 +77,56 @@ def codes_from_planes(planes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 
 def banded_plain(read_codes, read_len, ref_codes, ref_len, bw=32, x=1, o=1,
                  e=1):
-    """The plain version of the band kernel on int8 codes [B, L]: the
-    same recurrence over [B, BW] lanes, read out at each destination and
-    min-folded with the closed form, as the JAX kernel does."""
+    """The plain version of the band kernel on int8 codes [B, L], in its
+    layout: BW/2 lanes per pair, lane t holding offsets A (k = 2t - KB,
+    cells on odd diagonals) and B (k = 2t + 1 - KB, even diagonals).
+    Odd diagonals step A, even ones B; the result is read out at each
+    destination and min-folded with the closed form, as the JAX kernel
+    does."""
     B, L = read_codes.shape
     dev = read_codes.device
     i32 = torch.int32
     kb = bw // 2 - 1
-    kk = torch.arange(bw, device=dev, dtype=i32) - kb
+    k_a = 2 * torch.arange(bw // 2, device=dev, dtype=i32) - kb
+    k_b = k_a + 1
     m = read_len.to(i32).clamp(max=L)
     n = ref_len.to(i32).clamp(max=L)
     mn = m + n
     dk = m - n
     in_band = (dk >= -kb) & (dk <= bw - 1 - kb)
-    dest = (dk + kb).clamp(0, bw - 1).to(torch.int64)[:, None]
+    # the destination's lane; its slot is A or B by the parity of m + n
+    dest = ((dk + kb) // 2).clamp(0, bw // 2 - 1).to(torch.int64)[:, None]
     d_max = int(mn.max()) if B else 0
 
-    inf = torch.full((B, bw), INF, dtype=i32, device=dev)
+    inf = torch.full((B, bw // 2), INF, dtype=i32, device=dev)
     inf_col = inf[:, :1]
-    h1 = torch.where(kk == 0, 0, inf)  # diagonal 0: only cell (0, 0)
-    h2, e1, f1 = inf, inf, inf
+    h_a, e_a, f_a = inf, inf, inf
+    h_b = torch.where(k_b == 0, 0, inf)  # diagonal 0: only cell (0, 0)
+    e_b, f_b = inf, inf
     hit = torch.full((B,), INF, dtype=i32, device=dev)
     rd = read_codes.to(i32)
     rf = ref_codes.to(i32)
 
-    def up(a):  # lane u reads u-1 (the k-1 dependency)
+    def up(a):  # lane t reads t-1
         return torch.cat([inf_col, a[:, :-1]], dim=1)
 
-    def dn(a):  # lane u reads u+1 (the k+1 dependency)
+    def dn(a):  # lane t reads t+1
         return torch.cat([a[:, 1:], inf_col], dim=1)
 
     for d in range(1, d_max + 1):
-        # (i, j) of each lane; wrong-parity and out-of-range lanes are
-        # don't-care, their indices only clamped
+        if d % 2:  # A: E from B of lane t-1, F from its own B
+            kk, h2 = k_a, h_a
+            e_new = torch.minimum(up(h_b) + o, up(e_b) + e)
+            f_new = torch.minimum(h_b + o, f_b + e)
+        else:  # B: E from its own A, F from A of lane t+1
+            kk, h2 = k_b, h_b
+            e_new = torch.minimum(h_a + o, e_a + e)
+            f_new = torch.minimum(dn(h_a) + o, dn(f_a) + e)
+        # (i, j) of each cell; out-of-range cells are don't-care, their
+        # indices only clamped
         ri = ((d + kk) // 2 - 1).clamp(0, L - 1).to(torch.int64)
         rj = ((d - kk) // 2 - 1).clamp(0, L - 1).to(torch.int64)
         mis = (rd[:, ri] != rf[:, rj]).to(i32)
-        e_new = torch.minimum(up(h1) + o, up(e1) + e)
-        f_new = torch.minimum(dn(h1) + o, dn(f1) + e)
         h_new = torch.minimum(h2 + x * mis, torch.minimum(e_new, f_new))
         # borders inside the band: k == d is the j == 0 column, k == -d
         # the i == 0 row
@@ -119,7 +138,10 @@ def banded_plain(read_codes, read_len, ref_codes, ref_len, bw=32, x=1, o=1,
         f_new = torch.where(bl | bt, INF, f_new)
         at = (mn == d) & in_band
         hit = torch.where(at, torch.gather(h_new, 1, dest)[:, 0], hit)
-        h2, h1, e1, f1 = h1, h_new, e_new, f_new
+        if d % 2:
+            h_a, e_a, f_a = h_new, e_new, f_new
+        else:
+            h_b, e_b, f_b = h_new, e_new, f_new
     return torch.minimum(pen_closed_form(m, mn, o, e), hit)
 
 

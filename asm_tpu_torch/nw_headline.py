@@ -146,7 +146,7 @@ def kernel_bound(read_len, ref_len, bands) -> dict:
     """bound_ms / bound_by of one rep (utils.bounds): the band cells of
     every band pair and the full DP of the band-0 residue."""
     m, n = np.minimum(read_len, 128), np.minimum(ref_len, 128)
-    ops, nbytes = nw_band_work(m + n, bands)
+    ops, nbytes = nw_band_work(m, n, bands)
     res = bands == 0
     if res.any():
         ops += nw_full_work(m[res], n[res])[0]

@@ -30,12 +30,17 @@ lv_bag does not run, so its line marks the issue time as no bound. The
 rates of `utils/bounds.py` stay; this tool prints the measured ones
 beside them.
 
-    python -m asm_tpu_torch.tools.roofline [micro greedy leap] [--pairs N]
+    python -m asm_tpu_torch.tools.roofline [micro greedy leap nw] [--pairs N]
+        [--err R]
 
 runs the greedy and LEAP headline flows in-process at --pairs (default
 67,108,864, the headlines' corpus) and prints one JSON line for the
-microbenchmarks and one per kernel. Needs one CUDA card, and cuobjdump
-(the CUDA toolkit's, or the copy bundled with Triton).
+microbenchmarks and one per kernel. The nw row (not in the default set)
+runs the NW headline flow at --err and prints, per band width, the band
+kernel's diagonal loop (`nw_band_loop`: SASS instructions per existing
+cell, the warp maximum of m+n against its mean) beside the dispatches'
+times. Needs one CUDA card, and cuobjdump (the CUDA toolkit's, or the
+copy bundled with Triton).
 """
 
 from __future__ import annotations
@@ -462,6 +467,80 @@ def leap_counts(levels, lib_path: str | None = None) -> dict:
                          levels)
 
 
+# csrc/nw_band.cu's layout: BW/2 threads per pair (64/BW pairs per warp),
+# each computing one existing cell per diagonal with two shuffles
+BAND_SHFL_PER_DIAGONAL = 2
+
+
+def band_function(bw: int, L: int = 128) -> str:
+    """The mangled name of band_kernel<BW, W> at max_len L (W = L/32)."""
+    return f"band_kernelILi{bw}ELi{L // 32}E"
+
+
+def nw_band_loop(listing: str, bw: int, lens_sum) -> dict:
+    """The diagonal loop of one band-kernel instantiation (the one loop of
+    its SASS that holds shuffles): its body's instructions (all of them,
+    by category and by opcode), the diagonals a trip covers (its shuffles
+    over BAND_SHFL_PER_DIAGONAL, so an unrolled loop counts right), which
+    are the existing cells a thread's trip computes, and the instructions
+    per existing cell; and the m+n of the pairs it ran, in launch order
+    (`lens_sum`): the mean, the mean of each warp's largest
+    (`warp_max_mean` over 64/BW pairs per warp), which bounds the warp's
+    trips, and their ratio."""
+    ppw = 64 // bw
+    loops = [lp for lp in count_sass(listing)["loops"]
+             if any(op.startswith("SHFL") for op in lp["opcodes"])]
+    if len(loops) != 1:
+        raise ValueError(f"expected one loop with shuffles, got {loops}")
+    lp = loops[0]
+    shfl = sum(v for op, v in lp["opcodes"].items() if op.startswith("SHFL"))
+    cells = shfl / BAND_SHFL_PER_DIAGONAL
+    insts = sum(lp["body"].values())
+    mn = np.asarray(lens_sum, dtype=np.float64)
+    mean = float(mn.mean()) if mn.size else 0.0
+    warp = warp_max_mean(mn, ppw)
+    return dict(function=find_kernels(listing)[0], pairs_per_warp=ppw,
+                loop_shuffles=shfl, existing_cells_per_trip=cells,
+                loop_insts=insts,
+                loop_body={k: v for k, v in lp["body"].items() if v},
+                loop_opcodes=lp["opcodes"],
+                loop_insts_per_existing_cell=insts / cells,
+                mn_mean=mean, mn_warp_max_mean=warp,
+                mn_divergence_x=warp / mean if mean else 1.0)
+
+
+def plan_max_len(plan) -> int:
+    """max_len L of an NW plan's chunks: planes [L/16, b] or codes [b, L]."""
+    rc = plan.chunks[0][0]
+    return 16 * rc.shape[0] if plan.pre_staged else rc.shape[1]
+
+
+def nw_band_lines(res: dict, lib_path: str) -> list[dict]:
+    """One roofline line per band width of an NW headline run
+    (`nw_headline.run`'s result): `nw_band_loop` of the instantiation at
+    the run's max_len in `lib_path` (the band kernel's library), over the
+    m+n of that width's dispatches in launch order, lengths clamped to
+    max_len as the kernel clamps them, with the dispatches' pairs and
+    best-rep ms. Prints each line as JSON."""
+    plan = res["plan"]
+    ms = res["best"]["dispatch_ms"]
+    L = plan_max_len(plan)
+    lines = []
+    for bw in sorted({w for w in plan.widths if w}):
+        idx = [i for i, w in enumerate(plan.widths) if w == bw]
+        mn = np.concatenate([
+            (plan.chunks[i][1].clamp(max=L) + plan.chunks[i][3].clamp(
+                max=L)).cpu().numpy() for i in idx])
+        line = dict(kernel="nw_band", bw=bw, max_len=L,
+                    **nw_band_loop(sass_listing(lib_path,
+                                                band_function(bw, L)),
+                                   bw, mn),
+                    pairs=int(mn.size), dispatch_ms=[ms[i] for i in idx])
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    return lines
+
+
 def report(name: str, kc: dict, bytes_per_pair: float, seconds: float,
            n_pairs: int, issue_rate: float, stream_rate: float,
            recurrence_bound_ms: float, issue_is_bound: bool = True) -> dict:
@@ -543,11 +622,14 @@ def micro(device, iters: int = 8192, stream_mib: int = 4096,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("rows", nargs="*", choices=("micro", "greedy", "leap"),
-                    help="default: all three")
+    ap.add_argument("rows", nargs="*",
+                    choices=("micro", "greedy", "leap", "nw"),
+                    help="default: micro, greedy and leap")
     ap.add_argument("--pairs", type=int, default=1 << 26)
     ap.add_argument("--chunk", type=int, default=1 << 25)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--err", type=float, default=0.05,
+                    help="the nw row's error rate")
     args = ap.parse_args(argv)
     args.rows = args.rows or ["micro", "greedy", "leap"]
     if not torch.cuda.is_available():
@@ -588,6 +670,15 @@ def main(argv=None) -> None:
         report("leap", leap_counts(levels), nbytes / n, min(lp["rep_s"]), n,
                m["issue_ops_per_sec"], m["stream_bytes_per_sec"],
                lp["bound"]["bound_ms"], issue_is_bound=False)
+    if "nw" in args.rows:
+        from asm_tpu_torch import nw_headline
+        from asm_tpu_torch.kernels import nw_band
+
+        res = nw_headline.run(args.pairs, args.chunk, args.err,
+                              reps=args.reps, device=dev)
+        log(f"nw rep {min(res['rep_s']) * 1e3:.3f} ms, bound "
+            f"{res['bound']['bound_ms']:.3f} ms, checksum {res['checksum']}")
+        nw_band_lines(res, nw_band.build_kernel()[0])
     print(card, flush=True)
 
 

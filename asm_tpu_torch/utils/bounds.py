@@ -60,12 +60,34 @@ def greedy_work(steps, bounds, chunk, k=3, L=128) -> tuple[float, float]:
     return ops, n * (2 * (L // 4) + 16) + rec
 
 
-def nw_band_work(lens_sum, bands, L=128) -> tuple[float, float]:
-    """csrc/nw_band.cu: BW Gotoh cells per pair on each of its m+n
-    diagonals, GOTOH_CELL_OPS each. Bytes: 2 x L/4 of planes, 8 of
-    lengths, 4 of penalty per pair."""
-    cells = float(np.sum(bands.astype(np.int64) * lens_sum))
-    return GOTOH_CELL_OPS * cells, len(bands) * (2 * (L // 4) + 12)
+def band_cells(m, n, bw: int) -> np.ndarray:
+    """Cells (i, j) of the DP matrix, 1 <= i <= m and 1 <= j <= n, inside
+    a band of BW offsets k = i - j in [1 - BW/2, BW/2], per pair of
+    lengths m, n (broadcast)."""
+    m, n = np.asarray(m, np.int64), np.asarray(n, np.int64)
+    out = np.zeros(np.broadcast(m, n).shape, np.int64)
+    for k in range(1 - bw // 2, bw // 2 + 1):
+        out += np.maximum(np.minimum(n, m - k) - max(1, 1 - k) + 1, 0)
+    return out
+
+
+def nw_band_work(m, n, bands, L=128) -> tuple[float, float]:
+    """csrc/nw_band.cu: the Gotoh cells of a pair's band that lie in its
+    m x n matrix (`band_cells`: borders and the band's cells past either
+    end of a sequence need no recurrence), GOTOH_CELL_OPS each; at most
+    BW/2 x (m+n), the band cells that exist on its m+n diagonals. m and n
+    lie in [0, L]. Bytes: 2 x L/4 of planes, 8 of lengths, 4 of penalty
+    per pair."""
+    m, n = np.asarray(m, np.int64), np.asarray(n, np.int64)
+    bands = np.asarray(bands)
+    # pairs counted once per (m, n) length class, not each on its own
+    mm, nn = np.divmod(np.arange((L + 1) ** 2), L + 1)
+    cells = 0
+    for bw in np.unique(bands[bands > 0]):
+        sel = bands == bw
+        hist = np.bincount(m[sel] * (L + 1) + n[sel], minlength=(L + 1) ** 2)
+        cells += int(hist @ band_cells(mm, nn, int(bw)))
+    return GOTOH_CELL_OPS * float(cells), len(bands) * (2 * (L // 4) + 12)
 
 
 def nw_full_work(m, n, L=128, trace=False) -> tuple[float, float]:

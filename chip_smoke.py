@@ -66,8 +66,10 @@ line:
      the given weight) and on issue_chain's (its loop body holds
      STREAMS x UNROLL x 2 integer instructions besides its trip control);
      then the measured issue rate, stream rate and dispatch floor, none
-     above 105% of its published limit, and the greedy and LEAP roofline
-     lines of phases 4 and 9's runs.
+     above 105% of its published limit, the greedy and LEAP roofline
+     lines of phases 4 and 9's runs, and the NW band kernel's diagonal
+     loop (SASS instructions per existing cell, the warp maximum of m+n
+     against its mean) per band width of phase 6's 1M run.
 Prints a JSON line of per-kernel results (time, plain version's time,
 bound, launches), the card line, and last {"ok": true, "device": {...}}.
 Any failure raises (exit code != 0).
@@ -455,8 +457,9 @@ def nw_conformance(dev, name) -> dict:
     return err
 
 
-def nw_main_path(dev, card, err) -> list[dict]:
-    """Phase 6; returns the band and full kernels' JSON entries."""
+def nw_main_path(dev, card, err) -> tuple[list[dict], dict]:
+    """Phase 6; returns the band and full kernels' JSON entries and the 1M
+    run (`nw_headline.run`'s result) for the roofline."""
     from asm_tpu_torch import nw_headline
     from asm_tpu_torch.kernels import nw, nw_band, nw_cuda
     from asm_tpu_torch.kernels.nw_band import banded_plain, codes_from_planes
@@ -478,6 +481,7 @@ def nw_main_path(dev, card, err) -> list[dict]:
     band_ms = min(res["rep_s"]) * 1e3
     band_bound = res["bound"]
     plan = res["plan"]
+    main_res = res
 
     def plain_chunks():
         outs = []
@@ -534,7 +538,7 @@ def nw_main_path(dev, card, err) -> list[dict]:
              replaces="asm_tpu/kernels/nw_pallas.py:88",
              launches=full_launches, max_abs_err=float(err["nw"]),
              ms=full_ms, plain_ms=full_plain_ms, **full_bound),
-    ]
+    ], main_res
 
 
 def coverage_path(dev, card, err) -> dict:
@@ -952,11 +956,12 @@ def roofline_counter_checks(lib: str) -> str:
             f"instructions, opcodes {lp['opcodes']}")
 
 
-def roofline_phase(dev, card, greedy_rows, leap_rows) -> list[dict]:
+def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res) -> list[dict]:
     """Phase 12; returns the three roofline kernels' JSON entries."""
     import contextlib
     import io
 
+    from asm_tpu_torch.kernels import nw_band
     from asm_tpu_torch.kernels import roofline_cuda as rc
     from asm_tpu_torch.tools import roofline as rl
     from asm_tpu_torch.utils.bounds import (
@@ -1039,6 +1044,10 @@ def roofline_phase(dev, card, greedy_rows, leap_rows) -> list[dict]:
                             rows["n"], issue["rate"], stream["rate"],
                             rows["bound_ms"], issue_is_bound=is_bound)
         phase(f"[12c roofline {name}] {json.dumps(got)}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        lines = rl.nw_band_lines(nw_res, nw_band.build_kernel()[0])
+    for got in lines:
+        phase(f"[12d roofline nw_band BW{got['bw']}] {json.dumps(got)}")
 
     threads = seeds.shape[0]
     common = dict(route="cuda", source="asm_tpu_torch/csrc/roofline.cu")
@@ -1100,14 +1109,15 @@ def main() -> int:
     entry, greedy_rows = greedy_phases(dev, name, card)
     entries = [entry]
     err = nw_conformance(dev, name)
-    entries += nw_main_path(dev, card, err)
+    got, nw_res = nw_main_path(dev, card, err)
+    entries += got
     entries.append(coverage_path(dev, card, err))
     leap_err = leap_conformance(dev, name)
     entry, leap_rows = leap_main_path(dev, card, leap_err)
     entries.append(entry)
     filter_cli(card)
     harness_path(dev, card)
-    entries += roofline_phase(dev, card, greedy_rows, leap_rows)
+    entries += roofline_phase(dev, card, greedy_rows, leap_rows, nw_res)
 
     print(json.dumps({"kernels": entries}))
     print(card_line(), flush=True)

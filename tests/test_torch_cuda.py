@@ -83,7 +83,7 @@ def test_kernel_refuses_unbuilt_shapes(dev):
 
 
 # NW corpora: the main path's profile, indel-heavy, variable lengths,
-# edge pairs (empty, one base, 128 bases), and L = 256
+# edge pairs (empty, one base, 128 bases), ragged warps, and L = 256
 NW_CASES = [
     ("err0.05", dict(num_reads=1001, length=100, error_rate=0.05, seed=5)),
     ("err0.4-mr0.5", dict(num_reads=777, length=100, error_rate=0.4,
@@ -92,9 +92,31 @@ NW_CASES = [
                           mismatch_rate=0.8, seed=95,
                           length_range=(40, 120))),
     ("edges", None),
+    ("ragged_warps", "ragged_warps"),
     ("max_len256", dict(num_reads=301, length=200, error_rate=0.1, seed=3,
                         max_len=256)),
 ]
+
+
+def _ragged_warps(n=4099, seed=21):
+    """n pairs (the last block partial at every BW): in each group of 8
+    consecutive pairs one 128-base read against a 100-128-base ref (a copy
+    with substitutions) beside empty, 1-base and short pairs, so m+n
+    varies inside every warp."""
+    rng = np.random.default_rng(seed)
+    short = [(0, 0), (1, 0), (0, 1), (1, 1), (3, 5), (10, 7), (2, 9)]
+    reads, refs = [], []
+    for i in range(n):
+        if i % 8 == 0:
+            read = rng.integers(0, 4, 128)
+            ref = np.where(rng.random(128) < 0.05, rng.integers(0, 4, 128),
+                           read)[:int(rng.integers(100, 129))]
+        else:
+            lr, lf = short[i % 8 - 1]
+            read, ref = rng.integers(0, 4, lr), rng.integers(0, 4, lf)
+        reads.append("".join("ACGT"[c] for c in read))
+        refs.append("".join("ACGT"[c] for c in ref))
+    return encode_batch(reads, refs, 128)
 
 
 def _nw_corpus(dev, kw):
@@ -103,6 +125,8 @@ def _nw_corpus(dev, kw):
         refs = ["ACGT" * 32, "A", "ACGTACGT", "ACG", "ACGT" * 25, "TGCA" * 20]
         return [torch.from_numpy(a).to(dev)
                 for a in encode_batch(reads, refs, 128)]
+    if kw == "ragged_warps":
+        return [torch.from_numpy(a).to(dev) for a in _ragged_warps()]
     return _corpus(dev, **kw)
 
 
@@ -112,7 +136,7 @@ def test_nw_band_kernel_matches_plain(dev, label, kw, bw):
     rc, rl, fc, fl = _nw_corpus(dev, kw)
     planes = [torch.from_numpy(greedy_cuda.stage_planes_t(
         a.cpu().numpy()).view(np.int32)).to(dev) for a in (rc, fc)]
-    for x, o, e in [(1, 1, 1), (2, 3, 1)]:
+    for x, o, e in [(1, 1, 1), (2, 3, 1), (1, 4, 2)]:
         want = nw_band.banded_plain(rc, rl, fc, fl, bw, x, o, e)
         for pre, (a, b) in ((False, (rc, fc)), (True, planes)):
             before = nw_band.LAUNCHES

@@ -3,9 +3,11 @@
 every banded penalty — certified, uncertified upper bound or INF — equal
 to asm_tpu.kernels.nw_band.nw_penalty_banded (Pallas, interpret mode) in
 both input forms, and the partitioned / dispatch paths equal to the exact
-XLA oracle asm_tpu.kernels.nw.nw_penalty, mirroring tests/test_nw_band.py.
+XLA oracle asm_tpu.kernels.nw.nw_penalty, mirroring tests/test_nw_band.py;
+and utils.bounds.nw_band_work against a brute-force count of the band
+cells that lie in the DP matrix.
 
-Tolerance everywhere: exact equality (integer DP)."""
+Tolerance everywhere: exact equality (integer DP, integer counts)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,11 @@ from asm_tpu_torch.kernels.nw_dispatch import (
     band_major_order,
     nw_partition_execute,
     nw_partition_plan,
+)
+from asm_tpu_torch.utils.bounds import (
+    GOTOH_CELL_OPS,
+    band_cells,
+    nw_band_work,
 )
 
 torch.set_num_threads(1)
@@ -92,6 +99,35 @@ def test_banded_every_entry_matches_pallas(label, bw):
                                pre_staged=True)
             np.testing.assert_array_equal(got.numpy(), np.asarray(want2))
     assert nw_band.LAUNCHES == 0  # CPU tensors never launch
+
+
+@pytest.mark.parametrize("bw", [8, 16, 32, 64])
+def test_band_work_counts_band_cells_in_the_matrix(bw):
+    """nw_band_work's cells against a brute-force count of the cells (i, j)
+    with 1 <= i <= m, 1 <= j <= n and i - j in the band [-KB, BW/2]; never
+    more than the BW/2 x (m+n) band cells that exist on the m+n
+    diagonals."""
+    rng = np.random.default_rng(bw)
+    m = np.concatenate([[0, 0, 1, 128, 128, 5], rng.integers(0, 129, 12)])
+    n = np.concatenate([[0, 1, 0, 128, 90, 120], rng.integers(0, 129, 12)])
+    bands = np.full(m.shape, bw, np.int32)
+    kb = bw // 2 - 1
+    per_pair = []
+    for mi, ni in zip(m, n):
+        i, j = np.meshgrid(np.arange(1, mi + 1), np.arange(1, ni + 1),
+                           indexing="ij")
+        per_pair.append(int(np.sum((i - j >= -kb) & (i - j <= bw // 2))))
+    np.testing.assert_array_equal(band_cells(m, n, bw), per_pair)
+    assert all(c <= bw // 2 * (a + b) for c, a, b in zip(per_pair, m, n))
+    ops, nbytes = nw_band_work(m, n, bands)
+    assert ops == GOTOH_CELL_OPS * sum(per_pair)
+    assert nbytes == len(m) * (2 * 32 + 12)
+    # a band-0 pair (the full kernel's residue) holds no band cells
+    assert nw_band_work(m, n, np.zeros_like(bands))[0] == 0
+    # mixed widths: each pair counted at its own
+    mixed = np.where(np.arange(len(m)) % 2, bw, 0).astype(np.int32)
+    assert nw_band_work(m, n, mixed)[0] == GOTOH_CELL_OPS * sum(
+        c for c, w in zip(per_pair, mixed) if w)
 
 
 def test_certificate_and_required_band_match_jax():

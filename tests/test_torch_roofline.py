@@ -11,7 +11,8 @@ counter (tools/roofline.py) on a listing in cuobjdump's format.
   without an interpret flag and cannot lower on the CPU.
 - count_sass: the counterpart of test_count_jaxpr_on_synthetic_kernel: a
   loop body charged at the given weight, memory counted per instruction,
-  nothing left uncategorised.
+  nothing left uncategorised; and the NW band kernel's loop count
+  (nw_band_loop) and instantiation at the plan's max_len.
 
 Tolerance: exact (integer words and counts)."""
 
@@ -255,6 +256,52 @@ def test_sass_categories_and_warp_weights():
     assert rl.warp_max_mean([2.0] * 64) == 2.0
 
 
+@pytest.mark.parametrize("bw", [8, 16])
+def test_nw_band_loop_on_synthetic_listing(bw):
+    """The band kernel's diagonal loop is the one that holds shuffles: here
+    the first loop, once its LDS is a SHFL.UP and its STS a SHFL.DOWN. Two
+    shuffles are one diagonal, one existing cell per thread; a warp holds
+    64/BW pairs."""
+    listing = LISTING.replace(
+        "LDS R3, [R0] ;                         /* 0x0",
+        "SHFL.UP PT, R3, R3, 0x1, RZ ;          /* 0x0", 1).replace(
+        "STS [R0], R3 ;                         /* 0x0",
+        "SHFL.DOWN PT, R3, R3, 0x1, 0x1f ;      /* 0x0", 1)
+    mn = np.array([200, 10, 10, 10, 150, 150, 150, 20, 4])
+    got = rl.nw_band_loop(listing, bw, mn)
+    assert got["pairs_per_warp"] == 64 // bw and got["loop_shuffles"] == 2
+    assert got["existing_cells_per_trip"] == 1.0
+    assert got["loop_insts"] == 6
+    assert got["loop_body"] == dict(arith=2, selcmp=1, other=2, skip=1)
+    assert got["loop_opcodes"]["SHFL.UP"] == got["loop_opcodes"][
+        "SHFL.DOWN"] == 1
+    assert got["loop_insts_per_existing_cell"] == 6.0
+    assert got["mn_mean"] == pytest.approx(mn.mean())
+    assert got["mn_warp_max_mean"] == rl.warp_max_mean(mn, 64 // bw)
+    assert got["mn_divergence_x"] == pytest.approx(
+        rl.warp_max_mean(mn, 64 // bw) / mn.mean())
+    with pytest.raises(ValueError, match="shuffles"):
+        rl.nw_band_loop(LISTING, bw, mn)
+
+
+@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("pre_staged", [True, False])
+def test_band_instantiation_follows_the_plans_max_len(L, pre_staged):
+    """nw_band_lines counts band_kernel<BW, L/32>, L read from the plan's
+    chunks: planes [L/16, b] or codes [b, L]."""
+    from asm_tpu_torch.kernels.nw_dispatch import nw_partition_plan
+
+    b = 5
+    codes = (np.zeros((L // 16, b), np.uint32) if pre_staged
+             else np.zeros((b, L), np.int8))
+    lens = np.full(b, 3, np.int32)
+    plan = nw_partition_plan(codes, lens, codes, lens,
+                             np.full(b, 16, np.int32), pre_staged=pre_staged,
+                             device="cpu")
+    assert rl.plan_max_len(plan) == L
+    assert rl.band_function(16, L) == f"band_kernelILi16ELi{L // 32}E"
+
+
 @pytest.mark.parametrize("is_bound", [True, False])
 def test_report_marks_a_count_that_is_no_bound(is_bound, capsys):
     kc = dict(function=rl.find_kernels(LISTING)[0],
@@ -291,7 +338,8 @@ def test_sass_listing_needs_cuobjdump(monkeypatch, tmp_path):
 
 def test_roofline_cli_parses_and_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for argv in ([], ["micro", "leap", "--pairs", "64"]):
+    for argv in ([], ["micro", "leap", "--pairs", "64"],
+                 ["nw", "--err", "0.2"]):
         with pytest.raises(SystemExit, match="no CUDA device"):
             rl.main(argv)
     with pytest.raises(SystemExit):
