@@ -8,6 +8,7 @@ the port of `asm_tpu.kernels.greedy_pallas`.
   expand_records                          packed step records -> (op, run)
                                           CIGAR slots
   step_trips                              the step loop's trips per pair
+  occupancy                               resident blocks per SM
 
 The kernel is compiled with nvcc for sm_90a at first use into
 asm_tpu_torch/build/ and bound with ctypes. On a CUDA tensor the wrapper
@@ -43,6 +44,7 @@ from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 LAUNCHES = 0
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "greedy.cu")
+THREADS = 128  # threads per block, one pair each (csrc/greedy.cu kThreads)
 _KS = (2, 3)  # band half-widths the kernel is instantiated for
 _WS = (4, 8)  # words per row (max_len 128, 256)
 _lib = None
@@ -177,8 +179,20 @@ def _load():
         lib.asm_greedy_launch.argtypes = (
             [c.c_void_p] * 4 + [c.c_int] * 10 + [c.c_float] * 3
             + [c.c_void_p] * 3 + [c.c_int, c.c_void_p])
+        lib.asm_greedy_occupancy.restype = c.c_int
+        lib.asm_greedy_occupancy.argtypes = [c.c_int] * 3
         _lib = lib
     return _lib
+
+
+def occupancy(k: int = 3, max_len: int = 128, planes: bool = True) -> int:
+    """Resident blocks of THREADS per SM of the kernel built for (k,
+    max_len, input route) on the current CUDA device, with the shared
+    memory its launch uses (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    got = _load().asm_greedy_occupancy(k, max_len // 32, int(planes))
+    if got < 0:
+        raise RuntimeError(f"greedy occupancy query failed: cudaError {-got}")
+    return got
 
 
 # ---- the wrapper ----------------------------------------------------------

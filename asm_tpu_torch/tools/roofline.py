@@ -15,7 +15,8 @@ Three measurements, one report:
    generated (`cuobjdump -sass` of the built library), charges every
    instruction to a category, and charges each loop body at a weight
    read from the run's own outputs (greedy: the step loop's trips a pair
-   ran, `greedy_cuda.step_trips`; LEAP: the energy levels it ran,
+   ran, `greedy_cuda.step_trips`, and each loop over the 2k+1 lanes
+   inside it 2k+1 times per trip; LEAP: the energy levels it ran,
    `utils.bounds.leap_levels`). Each kernel is
    counted under two weights: the mean per pair (the JAX tool's basis),
    and the mean over 32-pair warps, in launch order, of the warp's
@@ -25,10 +26,13 @@ Three measurements, one report:
 `report` sets the kernel's measured time per pair beside its issue bound
 (instructions / the measured issue rate), its stream bound (bytes / the
 measured stream rate) and its recurrence bound (`utils.bounds`, the
-fewest operations at the card's issue limit). LEAP's count charges code
-lv_bag does not run, so its line marks the issue time as no bound. The
-rates of `utils/bounds.py` stay; this tool prints the measured ones
-beside them.
+fewest operations at the card's issue limit), with the rate the run
+issued its count at and one trip of the main loop by category and by
+opcode. LEAP's count charges code lv_bag does not run, so its line marks
+the issue time as no bound. The greedy line also carries the main-path
+instantiation's registers and spill bytes (its ptxas report) and warps
+per SM (the occupancy query), `greedy_resources`. The rates of
+`utils/bounds.py` stay; this tool prints the measured ones beside them.
 
     python -m asm_tpu_torch.tools.roofline [micro greedy leap nw] [--pairs N]
         [--err R]
@@ -58,6 +62,7 @@ import torch
 
 from asm_tpu_torch.kernels import roofline_cuda
 from asm_tpu_torch.utils.bounds import HBM_BYTES_PER_S, INT32_OPS_PER_S
+from asm_tpu_torch.utils.build import ptxas_usage
 from asm_tpu_torch.utils.timing import best_of_reps, log, time_dispatches
 
 # ---------------------------------------------------------------- micro
@@ -380,6 +385,7 @@ def count_sass(listing: str, loop_weights=()) -> dict:
             body={c: 0 for c in CATEGORIES + ("skip",)}, opcodes={}))
     counts = {c: 0.0 for c in CATEGORIES}
     skipped = 0.0
+    opcodes = {}
     for addr, op, _, _ in insts:
         mult, inner = 1.0, None
         for lp, (s, e) in zip(loops, ranges):
@@ -394,7 +400,8 @@ def count_sass(listing: str, loop_weights=()) -> dict:
             skipped += mult
         else:
             counts[cat] += mult
-    return dict(counts=counts, skipped=skipped, loops=loops)
+        opcodes[op] = opcodes.get(op, 0.0) + mult
+    return dict(counts=counts, skipped=skipped, opcodes=opcodes, loops=loops)
 
 
 def warp_max_mean(values, warp: int = 32) -> float:
@@ -412,43 +419,92 @@ def warp_max_mean(values, warp: int = 32) -> float:
     return float((m * sizes).sum() / n)
 
 
-def main_loop_weights(listing: str, weight: float) -> list:
+def main_loop_weights(listing: str, weight: float,
+                      inner: float | None = None) -> list:
     """loop_weights giving `weight` to the function's main loop, its
-    largest outermost loop; every other loop is charged once."""
+    largest outermost loop, and `inner` to each loop nested in it (trips
+    per trip of the loop around it; None charges them once); every other
+    loop is charged once."""
     loops = count_sass(listing)["loops"]
     top = [i for i, lp in enumerate(loops) if lp["depth"] == 0]
     if not top:
         raise ValueError("the function has no loop")
     i = max(top, key=lambda j: loops[j]["insts"])
-    return [None] * i + [weight]
+    if inner is None:
+        return [None] * i + [weight]
+    s, e = (int(loops[i][k], 16) for k in ("start", "end"))
+    return [None] * i + [weight] + [
+        inner if s <= int(lp["start"], 16) <= e else None
+        for lp in loops[i + 1:]]
+
+
+def count_kernel(listing: str, trips, inner: float | None = None) -> dict:
+    """One function's SASS counted with its main loop weighted by the
+    per-pair trip counts `trips` (launch order) under both weights: "mean"
+    (the mean per pair) and "warp" (`warp_max_mean`), and each loop nested
+    in it by `inner` (its trips per main-loop trip). Returns weights,
+    counts (count_sass per weight), trip (one main-loop trip, nested loops
+    at `inner`: by category with "skip", and by opcode) and the function's
+    name."""
+    weights = {"mean": float(np.mean(trips)), "warp": warp_max_mean(trips)}
+    one, zero = (count_sass(listing, main_loop_weights(listing, w, inner))
+                 for w in (1.0, 0.0))
+    trip = {c: one["counts"][c] - zero["counts"][c] for c in CATEGORIES}
+    trip["skip"] = one["skipped"] - zero["skipped"]
+    opcodes = {op: n - zero["opcodes"].get(op, 0.0)
+               for op, n in one["opcodes"].items()}
+    return dict(function=find_kernels(listing)[0], weights=weights,
+                counts={k: count_sass(listing,
+                                      main_loop_weights(listing, w, inner))
+                        for k, w in weights.items()},
+                trip=dict(by_category=trip, opcodes={
+                    op: n for op, n in sorted(opcodes.items(),
+                                              key=lambda t: -t[1]) if n}))
 
 
 # the main-path instantiations: k = 3, L = 128 (W = 4); greedy on planes
 # with int16 records, LEAP in penalty mode with x = o = e = 1
 GREEDY_FN = "greedy_kernelILi3ELi4ELb1EsE"
+GREEDY_LANES = 7  # 2k + 1 at k = 3: the trips of each lane loop per step
 LEAP_FN = "leap_kernelILi3ELi4ELi1ELi1ELi1ELb0E"
-
-
-def kernel_counts(lib_path: str, function: str, trips) -> dict:
-    """The function's SASS counted with its main loop weighted by the
-    per-pair trip counts `trips` (launch order) under both weights:
-    "mean" (the mean per pair) and "warp" (`warp_max_mean`). Returns
-    weights, counts (count_sass per weight) and the function's name."""
-    listing = sass_listing(lib_path, function)
-    weights = {"mean": float(np.mean(trips)), "warp": warp_max_mean(trips)}
-    return dict(function=find_kernels(listing)[0], weights=weights,
-                counts={k: count_sass(listing, main_loop_weights(listing, w))
-                        for k, w in weights.items()})
 
 
 def greedy_counts(trips, lib_path: str | None = None) -> dict:
     """csrc/greedy.cu's main-path instantiation, its step loop weighted by
     the trips each pair ran (`greedy_cuda.step_trips`: its steps, plus one
-    where the walk stopped on an empty highway)."""
+    where the walk stopped on an empty highway) and the one loop inside
+    it, the rolled highway update over the 2k+1 lanes, by GREEDY_LANES.
+    Raises if the step loop holds another number of loops: a loop ptxas
+    unswitches into two copies, of which a trip runs one, would be
+    charged twice."""
     from asm_tpu_torch.kernels import greedy_cuda
 
-    return kernel_counts(lib_path or greedy_cuda.build_kernel()[0],
-                         GREEDY_FN, trips)
+    kc = count_kernel(sass_listing(lib_path or greedy_cuda.build_kernel()[0],
+                                   GREEDY_FN), trips, inner=GREEDY_LANES)
+    nested = [lp for lp in kc["counts"]["mean"]["loops"] if lp["depth"]]
+    if len(nested) != 1:
+        raise ValueError(f"the step loop holds {len(nested)} loops, not the "
+                         f"one lane loop the count weights: {nested}")
+    return kc
+
+
+def greedy_resources(report: str | None = None) -> dict:
+    """The main-path instantiation's registers and spill bytes from its
+    ptxas report (text; default: the current build's) and, from the card,
+    its resident blocks and warps per SM (`greedy_cuda.occupancy`)."""
+    from asm_tpu_torch.kernels import greedy_cuda
+
+    if report is None:
+        greedy_cuda.build_kernel()
+        with open(greedy_cuda.ptxas_report()) as f:
+            report = f.read()
+    hits = [v for k, v in ptxas_usage(report).items() if GREEDY_FN in k]
+    if len(hits) != 1:
+        raise ValueError(f"{len(hits)} kernels of the ptxas report match "
+                         f"{GREEDY_FN!r}")
+    blocks = greedy_cuda.occupancy()
+    return dict(hits[0], blocks_per_sm=blocks,
+                warps_per_sm=blocks * greedy_cuda.THREADS // 32)
 
 
 def leap_counts(levels, lib_path: str | None = None) -> dict:
@@ -463,8 +519,8 @@ def leap_counts(levels, lib_path: str | None = None) -> dict:
     issue_is_bound=False)."""
     from asm_tpu_torch.kernels import leap_cuda
 
-    return kernel_counts(lib_path or leap_cuda.build_kernel()[0], LEAP_FN,
-                         levels)
+    return count_kernel(sass_listing(lib_path or leap_cuda.build_kernel()[0],
+                                     LEAP_FN), levels)
 
 
 # csrc/nw_band.cu's layout: BW/2 threads per pair (64/BW pairs per warp),
@@ -543,13 +599,18 @@ def nw_band_lines(res: dict, lib_path: str) -> list[dict]:
 
 def report(name: str, kc: dict, bytes_per_pair: float, seconds: float,
            n_pairs: int, issue_rate: float, stream_rate: float,
-           recurrence_bound_ms: float, issue_is_bound: bool = True) -> dict:
+           recurrence_bound_ms: float, issue_is_bound: bool = True,
+           resources: dict | None = None) -> dict:
     """One kernel's roofline line (printed as JSON, and returned): thread
     instructions per pair (one pair per thread) by category under both
-    weights, and the measured time per pair beside the issue, stream and
-    recurrence bounds. issue_is_bound=False marks a count that charges
-    code the run does not reach: its issue time is then no bound, and the
-    line states no binding wall and no headroom."""
+    weights, one trip of the main loop (nested loops at their weight) by
+    category and by opcode, and the measured time per pair beside the issue, stream and
+    recurrence bounds, with the rate at which the run issued its count
+    (the warp weight's instructions x pairs / seconds). issue_is_bound=
+    False marks a count that charges code the run does not reach: its
+    issue time is then no bound, and the line states no binding wall, no
+    headroom and no issued rate. `resources` (registers, spills, warps per
+    SM: `greedy_resources`) joins the line as it is."""
     per = {k: c["counts"] for k, c in kc["counts"].items()}
     insts = {k: sum(v.values()) for k, v in per.items()}
     issue_ns = {k: v / issue_rate * 1e9 for k, v in insts.items()}
@@ -579,6 +640,12 @@ def report(name: str, kc: dict, bytes_per_pair: float, seconds: float,
         "headroom_x": measured_ns / wall if issue_is_bound else None,
         "divergence_x": insts["warp"] / max(insts["mean"], 1e-12),
         "recurrence_bound_ns_per_pair": recurrence_bound_ms * 1e6 / n_pairs,
+        "issued_thread_insts_per_sec": insts["warp"] * n_pairs / seconds
+        if issue_is_bound else None,
+        "main_loop_trip": {k: v for k, v in kc["trip"]["by_category"].items()
+                           if v},
+        "main_loop_trip_opcodes": kc["trip"]["opcodes"],
+        **(resources or {}),
     }
     print(json.dumps(line), flush=True)
     return line
@@ -651,7 +718,8 @@ def main(argv=None) -> None:
         nbytes = greedy_work(res["steps"], res["bounds"], args.chunk)[1]
         report("greedy", greedy_counts(res["trips"]), nbytes / n,
                min(res["rep_s"]), n, m["issue_ops_per_sec"],
-               m["stream_bytes_per_sec"], res["bound"]["bound_ms"])
+               m["stream_bytes_per_sec"], res["bound"]["bound_ms"],
+               resources=greedy_resources())
         del res
     if "leap" in args.rows:
         from asm_tpu_torch import leap_headline

@@ -12,6 +12,7 @@ from __future__ import annotations
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -61,6 +62,25 @@ def ptxas_report_path(stem: str, source: str) -> str:
     """Path of the ptxas report (registers, spills) of `source`'s build."""
     return os.path.join(BUILD_DIR, f"lib{stem}_{source_hash([source])}"
                                     ".ptxas.txt")
+
+
+def ptxas_usage(report: str) -> dict:
+    """Per kernel of an `nvcc -Xptxas -v` report (its text): the mangled
+    name -> registers, spill_stores and spill_loads (bytes)."""
+    out, name, spill = {}, None, (0, 0)
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m[1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            out[name] = dict(registers=int(m[1]), spill_stores=spill[0],
+                             spill_loads=spill[1])
+            name, spill = None, (0, 0)
+    return out
 
 
 def nvcc_library(stem: str, source: str) -> tuple[str, bool]:

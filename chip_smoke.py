@@ -17,7 +17,10 @@ line:
      1,000,000 pairs, the reference's own benchmark size; the checksum
      must equal the pinned value, every chunk's max steps must stay below
      its bound, and the kernel must have been launched; then the plain
-     version runs on the same pairs and must agree pair by pair.
+     version runs on the same pairs and must agree pair by pair. The line
+     carries the count: the main-path instantiation's registers and spill
+     bytes (ptxas), its warps per SM (the occupancy query) and the rate
+     it issued its SASS instructions at (warp weight x pairs / time).
   5. NW kernels vs plain: the band kernel at BW 8/16/32/64 in both input
      forms, the full kernel and the trace kernel (penalties, ops, match
      mask) against their plain PyTorch versions on the card, on the NW
@@ -162,23 +165,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _instance_name(ln: str) -> str | None:
-    """Kernel instantiation of a ptxas "Compiling entry function" line."""
-    m = re.search(r"greedy_kernelILi(\d+)ELi(\d+)ELb(\d)", ln)
+def _instance_name(name: str) -> str | None:
+    """Short name of the kernel instantiation a mangled name stands for."""
+    m = re.search(r"greedy_kernelILi(\d+)ELi(\d+)ELb(\d)", name)
     if m:
         return f"greedy k{m[1]}/W{m[2]}/{'planes' if m[3] == '1' else 'codes'}"
-    m = re.search(r"band_kernelILi(\d+)ELi(\d+)E", ln)
+    m = re.search(r"band_kernelILi(\d+)ELi(\d+)E", name)
     if m:
         return f"nw_band BW{m[1]}/W{m[2]}"
-    m = re.search(r"nw_kernelILi(\d+)ELb(\d)", ln)
+    m = re.search(r"nw_kernelILi(\d+)ELb(\d)", name)
     if m:
         return f"{'nw_trace' if m[2] == '1' else 'nw'} W{m[1]}"
     m = re.search(r"leap_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)",
-                  ln)
+                  name)
     if m:
         return (f"leap k{m[1]}/W{m[2]}/x{m[3]}o{m[4]}e{m[5]}"
                 f"{'/cigar' if m[6] == '1' else ''}")
-    m = re.search(r"(issue_chain|stream_fold|probe_kernel|noop_kernel)", ln)
+    m = re.search(r"(issue_chain|stream_fold|probe_kernel|noop_kernel)", name)
     if m:
         return m[1]
     return None
@@ -187,18 +190,12 @@ def _instance_name(ln: str) -> str | None:
 def ptxas_summary(path: str) -> str:
     """Registers and spill bytes per kernel instantiation from nvcc's
     -Xptxas -v report."""
-    out, name, spill = [], "?", "?"
+    from asm_tpu_torch.utils.build import ptxas_usage
+
     with open(path) as f:
-        for ln in f:
-            if "Compiling entry function" in ln:
-                name = _instance_name(ln) or "?"
-            m = re.search(r"(\d+) bytes spill stores", ln)
-            if m:
-                spill = m[1]
-            m = re.search(r"Used (\d+) registers", ln)
-            if m:
-                out.append(f"{name} {m[1]} regs {spill} B spill")
-    return "; ".join(out)
+        usage = ptxas_usage(f.read())
+    return "; ".join(f"{_instance_name(k) or '?'} {u['registers']} regs "
+                     f"{u['spill_stores']} B spill" for k, u in usage.items())
 
 
 def conformance_cases():
@@ -326,6 +323,7 @@ def greedy_phases(dev, name, card) -> dict:
     from asm_tpu_torch.kernels import greedy_cuda
     from asm_tpu_torch.kernels.greedy import greedy_align
     from asm_tpu_torch.ops.cigar import runs_to_cigars_batch
+    from asm_tpu_torch.tools import roofline
     from asm_tpu_torch.utils.bounds import greedy_work
 
     # ---- 3: kernel vs plain on the card ----
@@ -397,19 +395,29 @@ def greedy_phases(dev, name, card) -> dict:
                  and np.array_equal(plain["trips"], res["trips"])):
         raise AssertionError("plain version disagrees on the main path")
     max_err = max(max_err, d)
+    # the count: registers, spills and warps per SM of the main-path
+    # instantiation, and the rate it issued its SASS on the warp weight
+    counts = roofline.greedy_counts(res["trips"])
+    use = roofline.greedy_resources()
+    insts = sum(counts["counts"]["warp"]["counts"].values())
     phase(f"[4 main path] {res['n_pairs']} pairs: checksum "
           f"{res['checksum']} (pinned), per-chunk max steps "
           f"{res['chunk_max']} < bounds {res['bounds']}, {launches} kernel "
           f"launches; kernel {kernel_ms:.3f} ms "
           f"({res['n_pairs'] / kernel_ms / 1e3:.1f}M aligns/s), plain "
-          f"version {plain_ms:.3f} ms, both on {card}")
+          f"version {plain_ms:.3f} ms, both on {card}; {use['registers']} "
+          f"registers, {use['spill_stores']} B spill stores, "
+          f"{use['warps_per_sm']} warps per SM, {insts:.1f} SASS thread "
+          f"instructions per pair (warp weight) issued at "
+          f"{insts * res['n_pairs'] / kernel_ms / 1e9:.2f} T/s")
     entry = dict(name="greedy", route="cuda",
                  source="asm_tpu_torch/csrc/greedy.cu",
                  replaces="asm_tpu/kernels/greedy_pallas.py:91",
                  launches=launches, max_abs_err=float(max_err),
                  ms=kernel_ms, plain_ms=plain_ms, **res["bound"])
-    # phase 12's roofline line: the step loop's trips in launch order
-    rows = dict(trips=res["trips"], seconds=kernel_ms / 1e3,
+    # phase 12's roofline line: the SASS count, the step loop weighted by
+    # the trips of the pairs in launch order
+    rows = dict(counts=counts, resources=use, seconds=kernel_ms / 1e3,
                 n=res["n_pairs"], bound_ms=res["bound"]["bound_ms"],
                 bytes=greedy_work(res["steps"], res["bounds"],
                                   MAIN_CHUNK)[1])
@@ -719,6 +727,7 @@ def leap_main_path(dev, card, err) -> dict:
     from asm_tpu_torch.kernels.greedy_cuda import codes_from_planes_tiled
     from asm_tpu_torch.kernels.leap import leap_align
     from asm_tpu_torch.kernels.leap_backtrack import leap_edit_records
+    from asm_tpu_torch.tools import roofline as rl
     from asm_tpu_torch.utils.bounds import leap_levels, leap_work
 
     leap_cuda.LAUNCHES = 0
@@ -791,7 +800,8 @@ def leap_main_path(dev, card, err) -> dict:
     levels = leap_levels(cat["passed"], cat["penalty"], cat["lane_shift"],
                          cfg.leap_af_threshold)
     n = res["n_pairs"]
-    rows = dict(trips=levels, seconds=ms["leap"] / 1e3, n=n,
+    rows = dict(counts=rl.leap_counts(levels), resources=None,
+                seconds=ms["leap"] / 1e3, n=n,
                 bound_ms=lp["bound"]["bound_ms"],
                 bytes=leap_work(n, n + int(levels.sum()))[1])
     return entry, rows
@@ -1035,14 +1045,14 @@ def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res) -> list[dict]:
           f"{stream['rate'] / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; dispatch "
           f"floor {line['dispatch_floor_us']:.2f} us; launches {launches}; "
           f"on {card}")
-    for name, rows, counts, is_bound in (
-            ("greedy", greedy_rows, rl.greedy_counts, True),
-            ("leap", leap_rows, rl.leap_counts, False)):
+    for name, rows, is_bound in (("greedy", greedy_rows, True),
+                                 ("leap", leap_rows, False)):
         with contextlib.redirect_stdout(io.StringIO()):
-            got = rl.report(name, counts(rows["trips"]),
-                            rows["bytes"] / rows["n"], rows["seconds"],
-                            rows["n"], issue["rate"], stream["rate"],
-                            rows["bound_ms"], issue_is_bound=is_bound)
+            got = rl.report(name, rows["counts"], rows["bytes"] / rows["n"],
+                            rows["seconds"], rows["n"], issue["rate"],
+                            stream["rate"], rows["bound_ms"],
+                            issue_is_bound=is_bound,
+                            resources=rows["resources"])
         phase(f"[12c roofline {name}] {json.dumps(got)}")
     with contextlib.redirect_stdout(io.StringIO()):
         lines = rl.nw_band_lines(nw_res, nw_band.build_kernel()[0])

@@ -8,7 +8,8 @@ machine has no jax, so run these without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: exact equality of cost, steps and raw step records (greedy);
+Tolerance: exact equality of cost, steps, raw step records, the trips
+read from them and the decoded CIGARs (greedy);
 of penalties, ops and match masks (NW); of passed, penalty, lane_shift and
 raw edit records (LEAP); of the roofline kernels' words; of the harness's
 counts and the pipeline step's outputs."""
@@ -38,27 +39,73 @@ def _corpus(dev, **kw):
 
 
 def _check(got, want):
+    from asm_tpu_torch.ops.cigar import runs_to_cigars_batch
+
     torch.cuda.synchronize()
     for key in ("cost", "steps", "step_rec"):
         assert torch.equal(got[key], want[key]), key
     # the step loop's trips, read from the kernel's records
     assert torch.equal(greedy_cuda.step_trips(got["steps"], got["step_rec"]),
                        want["trips"])
+    assert runs_to_cigars_batch(
+        got["cigar_ops"].cpu().numpy(), got["cigar_runs"].cpu().numpy()
+    ) == runs_to_cigars_batch(want["cigar_ops"].cpu().numpy(),
+                              want["cigar_runs"].cpu().numpy())
 
 
-@pytest.mark.parametrize("cfg,kw", [
-    (AlignConfig(max_steps=24), dict(error_rate=0.05, seed=5)),
-    (AlignConfig(max_steps=24, alignment_type=AlignmentType.SEMI_GLOBAL),
+def _greedy_edges(n=3001, seed=8):
+    """n pairs (no multiple of 128): every third an edge pair (empty, one
+    base, 128 bases, on either side or both), the rest 100-base reads
+    against copies with 6% substitutions."""
+    rng = np.random.default_rng(seed)
+    full = "ACGT" * 32
+    edge = [("", ""), ("A", ""), ("", "A"), ("A", "A"), ("A", "C"),
+            (full, full), (full, ""), ("", full[::-1]), (full, "A"),
+            ("C", full), (full, full[1:] + "T")]
+    reads, refs = [], []
+    for i in range(n):
+        if i % 3 == 0:
+            read, ref = edge[(i // 3) % len(edge)]
+        else:
+            codes = rng.integers(0, 4, 100)
+            sub = np.where(rng.random(100) < 0.06, rng.integers(0, 4, 100),
+                           codes)
+            read, ref = ("".join("ACGT"[c] for c in a) for a in (codes, sub))
+        reads.append(read)
+        refs.append(ref)
+    return encode_batch(reads, refs, 128)
+
+
+# corpus: keyword arguments of generate_dataset_arrays, or a corpus name
+GREEDY_CASES = [
+    ("err0.05", AlignConfig(max_steps=24), dict(error_rate=0.05, seed=5)),
+    ("semi-err0.4", AlignConfig(max_steps=24,
+                                alignment_type=AlignmentType.SEMI_GLOBAL),
      dict(error_rate=0.4, mismatch_rate=0.5, seed=40)),
-    (AlignConfig(x=2, o=3, e=1, k=2, max_steps=2), dict(error_rate=0.1,
-                                                        seed=17)),
-    (AlignConfig(max_len=256, max_steps=64), dict(error_rate=0.1, seed=3,
-                                                  length=200, max_len=256)),
-])
+    ("x2o3e1k2", AlignConfig(x=2, o=3, e=1, k=2, max_steps=2),
+     dict(error_rate=0.1, seed=17)),
+    ("max_len256", AlignConfig(max_len=256, max_steps=64),
+     dict(error_rate=0.1, seed=3, length=200, max_len=256)),
+    # empty, 1-base and 128-base pairs beside ordinary ones
+    ("edges", AlignConfig(max_steps=24), "edges"),
+    ("edges-semi-x2o3e1k2", AlignConfig(
+        x=2, o=3, e=1, k=2, max_steps=24,
+        alignment_type=AlignmentType.SEMI_GLOBAL), "edges"),
+    # every SM holds several resident blocks; the last block is partial
+    ("many_blocks", AlignConfig(max_steps=24),
+     dict(num_reads=200_003, error_rate=0.05, seed=23)),
+]
+
+
+@pytest.mark.parametrize("label,cfg,kw", GREEDY_CASES,
+                         ids=[c[0] for c in GREEDY_CASES])
 @pytest.mark.parametrize("form", ["codes", "planes_tiled"])
-def test_kernel_matches_plain(dev, cfg, kw, form):
-    kw = dict(dict(num_reads=1000, length=100), **kw)
-    rc, rl, fc, fl = _corpus(dev, **kw)
+def test_kernel_matches_plain(dev, label, cfg, kw, form):
+    if kw == "edges":
+        rc, rl, fc, fl = (torch.from_numpy(a).to(dev) for a in _greedy_edges())
+    else:
+        rc, rl, fc, fl = _corpus(dev, **dict(dict(num_reads=1000, length=100),
+                                             **kw))
     want = greedy_align(rc, rl, fc, fl, cfg, records=True)
     if form == "planes_tiled":
         rc, fc = (torch.from_numpy(greedy_cuda.stage_planes_tiled_t(
@@ -71,6 +118,27 @@ def test_kernel_matches_plain(dev, cfg, kw, form):
         tile=256)
     assert greedy_cuda.LAUNCHES == before + 1
     _check(got, want)
+
+
+def test_kernel_occupancy_and_spills(dev):
+    """Every instantiation builds without spills; the shared-memory rows
+    leave room for at least 5 resident blocks of the main path's (k = 3,
+    L = 128) and 3 at L = 256."""
+    from asm_tpu_torch.tools import roofline as rl
+    from asm_tpu_torch.utils.build import ptxas_usage
+
+    greedy_cuda.build_kernel()
+    with open(greedy_cuda.ptxas_report()) as f:
+        usage = ptxas_usage(f.read())
+    assert len(usage) == 8  # k in {2, 3} x L in {128, 256} x 2 input forms
+    for name, u in usage.items():
+        assert u["spill_stores"] == u["spill_loads"] == 0, name
+    for k in (2, 3):
+        for planes in (True, False):
+            assert greedy_cuda.occupancy(k, 128, planes) >= 5
+            assert greedy_cuda.occupancy(k, 256, planes) >= 3
+    got = rl.greedy_resources()
+    assert got["warps_per_sm"] == 4 * greedy_cuda.occupancy()
 
 
 def test_kernel_refuses_unbuilt_shapes(dev):

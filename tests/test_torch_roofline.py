@@ -240,6 +240,35 @@ def test_count_sass_on_synthetic_listing():
         (0xD0, "ISETP.GE.AND"), (0xC0, "VIADD")]
 
 
+def test_count_kernel_weights_nested_loops():
+    """A loop nested in the main loop runs `inner` trips per main-loop
+    trip (greedy's lane loops: 2k+1); loops outside it are charged once."""
+    assert rl.main_loop_weights(LISTING, 4.0, inner=5.0) == [None, 4.0, 5.0]
+    kc = rl.count_kernel(LISTING, [2.0, 2.0, 4.0], inner=5.0)
+    assert kc["weights"] == {"mean": pytest.approx(8 / 3), "warp": 4.0}
+    assert kc["trip"]["by_category"] == dict(
+        arith=6.0, shift=1.0, popcount=5.0, selcmp=6.0, mem=0.0, other=0.0,
+        skip=7.0)
+    assert kc["trip"]["opcodes"]["POPC"] == 5.0
+    base = rl.count_sass(LISTING, [None, 0.0])["counts"]
+    for cat in rl.CATEGORIES:  # 4 trips of the main loop at the warp weight
+        assert kc["counts"]["warp"]["counts"][cat] == pytest.approx(
+            base[cat] + 4.0 * kc["trip"]["by_category"][cat]), cat
+
+
+def test_greedy_counts_weight_the_one_lane_loop(monkeypatch):
+    """greedy_counts weights the one loop inside the step loop (here the
+    inner loop 0x120-0x150) by the 2k+1 lanes, and refuses a step loop
+    that holds another number of loops."""
+    monkeypatch.setattr(rl, "sass_listing", lambda lib, fn: LISTING)
+    kc = rl.greedy_counts([1.0, 1.0], lib_path="lib.so")
+    assert kc["trip"]["by_category"]["popcount"] == rl.GREEDY_LANES
+    flat = LISTING.replace("@P1 BRA `(.L_x_2) ;      ", "@P1 NOP ;              ")
+    monkeypatch.setattr(rl, "sass_listing", lambda lib, fn: flat)
+    with pytest.raises(ValueError, match="holds 0 loops"):
+        rl.greedy_counts([1.0, 1.0], lib_path="lib.so")
+
+
 def test_sass_categories_and_warp_weights():
     cats = {op: rl.category(op) for op in (
         "IMAD.MOV.U32", "IMAD.SHL.U32", "IMAD.IADD", "LOP3.LUT", "UIADD3",
@@ -304,10 +333,8 @@ def test_band_instantiation_follows_the_plans_max_len(L, pre_staged):
 
 @pytest.mark.parametrize("is_bound", [True, False])
 def test_report_marks_a_count_that_is_no_bound(is_bound, capsys):
-    kc = dict(function=rl.find_kernels(LISTING)[0],
-              weights={"mean": 2.0, "warp": 3.0},
-              counts={"mean": rl.count_sass(LISTING, [2.0]),
-                      "warp": rl.count_sass(LISTING, [3.0])})
+    kc = rl.count_kernel(LISTING, [1.0, 3.0])  # mean 2, warp maximum 3
+    assert kc["weights"] == {"mean": 2.0, "warp": 3.0}
     line = rl.report("synthetic", kc, 100.0, 1e-3, 10 ** 6, 1e10, 1e12, 0.5,
                      issue_is_bound=is_bound)
     insts = {k: sum(c["counts"].values()) for k, c in kc["counts"].items()}
@@ -321,9 +348,58 @@ def test_report_marks_a_count_that_is_no_bound(is_bound, capsys):
     if is_bound:  # 1 ns per pair measured against the issue wall
         assert line["binding_wall"] == "issue"
         assert line["headroom_x"] == pytest.approx(10 / insts["warp"])
+        # the warp weight's instructions for 10^6 pairs in 1 ms
+        assert line["issued_thread_insts_per_sec"] == pytest.approx(
+            insts["warp"] * 1e9)
     else:
         assert line["binding_wall"] is None and line["headroom_x"] is None
+        assert line["issued_thread_insts_per_sec"] is None
+    # one trip of the main loop (0x100-0x180), its inner loop once
+    assert line["main_loop_trip"] == dict(arith=2, shift=1, popcount=1,
+                                          selcmp=2, skip=3)
+    assert line["main_loop_trip_opcodes"] == {
+        "IADD3": 2.0, "ISETP.NE.AND": 2.0, "BRA": 2.0, "SHF.L.U32": 1.0,
+        "MOV": 1.0, "POPC": 1.0}
     assert '"kernel": "synthetic"' in capsys.readouterr().out
+    line = rl.report("synthetic", kc, 100.0, 1e-3, 10 ** 6, 1e10, 1e12, 0.5,
+                     issue_is_bound=is_bound,
+                     resources=dict(registers=96, warps_per_sm=20))
+    assert (line["registers"], line["warps_per_sm"]) == (96, 20)
+
+
+# nvcc -Xptxas -v's report for two kernels: the greedy kernel's main-path
+# instantiation without spills, and another that spills
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113greedy_kernelILi3ELi4ELb1EsEEvPKjS2_PKiS4_NS_6ParamsEPiS7_PT2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113greedy_kernelILi3ELi4ELb1EsEEvPKjS2_PKiS4_NS_6ParamsEPiS7_PT2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113greedy_kernelILi3ELi8ELb1EiEEvPKjS2_PKiS4_NS_6ParamsEPiS7_PT2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113greedy_kernelILi3ELi8ELb1EiEEvPKjS2_PKiS4_NS_6ParamsEPiS7_PT2_
+    24 bytes stack frame, 16 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers, 416 bytes cmem[0]
+"""
+
+
+def test_greedy_resources_from_a_ptxas_report(monkeypatch):
+    """The greedy line's registers and spills come from the main-path
+    instantiation's entry in the ptxas report, its warps per SM from the
+    occupancy query (blocks of 128 threads)."""
+    from asm_tpu_torch.kernels import greedy_cuda
+    from asm_tpu_torch.utils.build import ptxas_usage
+
+    usage = ptxas_usage(PTXAS_REPORT)
+    assert list(usage.values()) == [
+        dict(registers=96, spill_stores=0, spill_loads=0),
+        dict(registers=128, spill_stores=16, spill_loads=20)]
+    assert all("greedy_kernel" in k for k in usage)
+    monkeypatch.setattr(greedy_cuda, "occupancy", lambda *a, **kw: 5)
+    assert rl.greedy_resources(PTXAS_REPORT) == dict(
+        registers=96, spill_stores=0, spill_loads=0, blocks_per_sm=5,
+        warps_per_sm=20)
+    with pytest.raises(ValueError, match="0 kernels"):
+        rl.greedy_resources(PTXAS_REPORT.replace("ILi3ELi4E", "ILi2ELi4E"))
 
 
 def test_sass_listing_needs_cuobjdump(monkeypatch, tmp_path):
