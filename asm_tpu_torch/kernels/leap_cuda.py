@@ -39,6 +39,7 @@ from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
+THREADS = 128  # threads per block (csrc/leap.cu kThreads), one pair each
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "leap.cu")
 _KS = (2, 3, 4)  # band half-widths the kernel is instantiated for
@@ -74,8 +75,21 @@ def _load():
         lib.asm_leap_launch.argtypes = (
             [c.c_void_p] * 4 + [c.c_int] * 14 + [c.c_void_p] * 5
             + [c.c_int, c.c_void_p])
+        lib.asm_leap_occupancy.restype = c.c_int
+        lib.asm_leap_occupancy.argtypes = [c.c_int] * 3
         _lib = lib
     return _lib
+
+
+def occupancy(k: int = 3, max_len: int = 128, cigar: bool = False) -> int:
+    """Resident blocks of THREADS per SM of the lv_bag kernel built for
+    (k, max_len), unit penalties, in CIGAR mode or not, on the current CUDA
+    device, with the shared memory its launch uses
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    got = _load().asm_leap_occupancy(k, max_len // 32, int(cigar))
+    if got < 0:
+        raise RuntimeError(f"LEAP occupancy query failed: cudaError {-got}")
+    return got
 
 
 def history_words(cfg: AlignConfig) -> int:

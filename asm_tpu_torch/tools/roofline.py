@@ -28,10 +28,9 @@ Three measurements, one report:
 measured stream rate) and its recurrence bound (`utils.bounds`, the
 fewest operations at the card's issue limit), with the rate the run
 issued its count at and one trip of the main loop by category and by
-opcode. LEAP's count charges code lv_bag does not run, so its line marks
-the issue time as no bound. The greedy line also carries the main-path
-instantiation's registers and spill bytes (its ptxas report) and warps
-per SM (the occupancy query), `greedy_resources`. The rates of
+opcode. Each line also carries the main-path instantiation's registers
+and spill bytes (its ptxas report) and warps per SM (the occupancy
+query), `kernel_resources`. The rates of
 `utils/bounds.py` stay; this tool prints the measured ones beside them.
 
     python -m asm_tpu_torch.tools.roofline [micro greedy leap nw] [--pairs N]
@@ -463,10 +462,11 @@ def count_kernel(listing: str, trips, inner: float | None = None) -> dict:
 
 
 # the main-path instantiations: k = 3, L = 128 (W = 4); greedy on planes
-# with int16 records, LEAP in penalty mode with x = o = e = 1
+# with int16 records, LEAP in penalty mode (lv_bag, SEM 0) with x = o = e
+# = 1 on planes
 GREEDY_FN = "greedy_kernelILi3ELi4ELb1EsE"
 GREEDY_LANES = 7  # 2k + 1 at k = 3: the trips of each lane loop per step
-LEAP_FN = "leap_kernelILi3ELi4ELi1ELi1ELi1ELb0E"
+LEAP_FN = "leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1E"
 
 
 def greedy_counts(trips, lib_path: str | None = None) -> dict:
@@ -488,39 +488,58 @@ def greedy_counts(trips, lib_path: str | None = None) -> dict:
     return kc
 
 
-def greedy_resources(report: str | None = None) -> dict:
-    """The main-path instantiation's registers and spill bytes from its
-    ptxas report (text; default: the current build's) and, from the card,
-    its resident blocks and warps per SM (`greedy_cuda.occupancy`)."""
-    from asm_tpu_torch.kernels import greedy_cuda
-
+def kernel_resources(module, function: str, report: str | None = None
+                     ) -> dict:
+    """One instantiation's registers and spill bytes from its ptxas report
+    (text; default: the current build of `module`, a kernel module with
+    build_kernel, ptxas_report, occupancy and THREADS) and, from the card,
+    its resident blocks and warps per SM (`module.occupancy()`, the main
+    path's shape)."""
     if report is None:
-        greedy_cuda.build_kernel()
-        with open(greedy_cuda.ptxas_report()) as f:
+        module.build_kernel()
+        with open(module.ptxas_report()) as f:
             report = f.read()
-    hits = [v for k, v in ptxas_usage(report).items() if GREEDY_FN in k]
+    hits = [v for k, v in ptxas_usage(report).items() if function in k]
     if len(hits) != 1:
         raise ValueError(f"{len(hits)} kernels of the ptxas report match "
-                         f"{GREEDY_FN!r}")
-    blocks = greedy_cuda.occupancy()
+                         f"{function!r}")
+    blocks = module.occupancy()
     return dict(hits[0], blocks_per_sm=blocks,
-                warps_per_sm=blocks * greedy_cuda.THREADS // 32)
+                warps_per_sm=blocks * module.THREADS // 32)
+
+
+def greedy_resources(report: str | None = None) -> dict:
+    """`kernel_resources` of greedy's main-path instantiation."""
+    from asm_tpu_torch.kernels import greedy_cuda
+
+    return kernel_resources(greedy_cuda, GREEDY_FN, report)
+
+
+def leap_resources(report: str | None = None) -> dict:
+    """`kernel_resources` of LEAP's main-path instantiation."""
+    from asm_tpu_torch.kernels import leap_cuda
+
+    return kernel_resources(leap_cuda, LEAP_FN, report)
 
 
 def leap_counts(levels, lib_path: str | None = None) -> dict:
     """csrc/leap.cu's main-path instantiation (lv_bag penalty mode), its
     energy loop weighted by the levels each pair ran
-    (`utils.bounds.leap_levels`: one trip per level past e = 0).
-
-    The kernel picks its semantics and the SHD gate at run time, so the
-    instantiation's SASS holds the selection code of all three semantics
-    and the gate's prologue, of which lv_bag runs only part: the count is
-    no bound on lv_bag's issue time (report it with
-    issue_is_bound=False)."""
+    (`utils.bounds.leap_levels`: one trip per level past e = 0). The
+    semantics and the input route are template parameters and the mode
+    is selected without a branch, so the instantiation holds only code
+    the main path runs: its count bounds the issue time. Raises unless
+    the function holds exactly one loop, the energy loop: a second copy
+    (a loop compiled once per mode) would be charged once for nothing."""
     from asm_tpu_torch.kernels import leap_cuda
 
-    return count_kernel(sass_listing(lib_path or leap_cuda.build_kernel()[0],
-                                     LEAP_FN), levels)
+    kc = count_kernel(sass_listing(lib_path or leap_cuda.build_kernel()[0],
+                                   LEAP_FN), levels)
+    loops = kc["counts"]["mean"]["loops"]
+    if len(loops) != 1:
+        raise ValueError(f"the LEAP kernel holds {len(loops)} loops, not the "
+                         f"one energy loop the count weights: {loops}")
+    return kc
 
 
 # csrc/nw_band.cu's layout: BW/2 threads per pair (64/BW pairs per warp),
@@ -610,7 +629,7 @@ def report(name: str, kc: dict, bytes_per_pair: float, seconds: float,
     False marks a count that charges code the run does not reach: its
     issue time is then no bound, and the line states no binding wall, no
     headroom and no issued rate. `resources` (registers, spills, warps per
-    SM: `greedy_resources`) joins the line as it is."""
+    SM: `kernel_resources`) joins the line as it is."""
     per = {k: c["counts"] for k, c in kc["counts"].items()}
     insts = {k: sum(v.values()) for k, v in per.items()}
     issue_ns = {k: v / issue_rate * 1e9 for k, v in insts.items()}
@@ -737,7 +756,7 @@ def main(argv=None) -> None:
         nbytes = leap_work(n, n + int(levels.sum()))[1]
         report("leap", leap_counts(levels), nbytes / n, min(lp["rep_s"]), n,
                m["issue_ops_per_sec"], m["stream_bytes_per_sec"],
-               lp["bound"]["bound_ms"], issue_is_bound=False)
+               lp["bound"]["bound_ms"], resources=leap_resources())
     if "nw" in args.rows:
         from asm_tpu_torch import nw_headline
         from asm_tpu_torch.kernels import nw_band

@@ -41,7 +41,8 @@ line:
      plain PyTorch leap_align on the card — passed, penalty, lane_shift
      and, in CIGAR mode, the raw edit records and decoded CIGARs exactly
      equal — on the LEAP conformance corpora (three error profiles,
-     unequal lengths, edge pairs, L = 256 with full-length buffers), every
+     unequal lengths, edge pairs, L = 256 with full-length buffers, match
+     runs ending on word boundaries), every
      LeapMode, unit and affine penalties, lv_bag / simd_ed_lev with and
      without the SHD gate / simd_ed_affine, k = 2 and 4, a tight
      threshold, odd batch sizes;
@@ -50,7 +51,8 @@ line:
      1,000,000-pair headline corpus; the checksums, the passed count, the
      CIGAR pass's per-chunk energy bounds and the CIGAR digest must equal
      the pinned values, the kernel must have launched, and the plain
-     version must agree pair by pair;
+     version must agree pair by pair. The line carries the count, as
+     phase 4's does;
  10. the LEAP filter CLI (apps.leap_filter) on a 20,000-pair file written
      to a temporary directory, levenshtein + SHD gate and affine: both
      pass counts must equal the pinned values.
@@ -165,6 +167,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# csrc/leap.cu's SEM template parameter
+LEAP_SEMANTICS = ("lv_bag", "simd_ed_lev", "simd_ed_affine",
+                  "simd_ed_lev_gated")
+
+
 def _instance_name(name: str) -> str | None:
     """Short name of the kernel instantiation a mangled name stands for."""
     m = re.search(r"greedy_kernelILi(\d+)ELi(\d+)ELb(\d)", name)
@@ -176,11 +183,13 @@ def _instance_name(name: str) -> str | None:
     m = re.search(r"nw_kernelILi(\d+)ELb(\d)", name)
     if m:
         return f"{'nw_trace' if m[2] == '1' else 'nw'} W{m[1]}"
-    m = re.search(r"leap_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb(\d)",
-                  name)
+    m = re.search(r"leap_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi"
+                  r"(\d)ELb(\d)ELb(\d)", name)
     if m:
-        return (f"leap k{m[1]}/W{m[2]}/x{m[3]}o{m[4]}e{m[5]}"
-                f"{'/cigar' if m[6] == '1' else ''}")
+        return (f"leap k{m[1]}/W{m[2]}/x{m[3]}o{m[4]}e{m[5]}/"
+                f"{LEAP_SEMANTICS[int(m[6])]}"
+                f"{'/cigar' if m[7] == '1' else ''}/"
+                f"{'planes' if m[8] == '1' else 'codes'}")
     m = re.search(r"(issue_chain|stream_fold|probe_kernel|noop_kernel)", name)
     if m:
         return m[1]
@@ -606,6 +615,12 @@ def leap_conformance_cases():
     # empty, one-base and full-length (128) sequences on both sides
     reads = ["A", "ACGT" * 32, "ACGTACGT", "", "ACGT" * 25, "AC", ""]
     refs = ["ACGT" * 32, "A", "ACGTACGT", "ACG", "ACGT" * 25, "TGCA" * 20, ""]
+    # match runs that start inside a word, end on a word boundary or reach
+    # the buffer's end: lengths at L = 128's word boundaries, error 0, 0.01
+    parts = [generate_dataset_arrays(17, n, err, seed=n + int(100 * err))
+             for n in (31, 32, 33, 63, 64, 65, 127, 128)
+             for err in (0.0, 0.01)]
+    runs = tuple(np.concatenate([p[i] for p in parts]) for i in range(4))
     return [
         ("err0.05", generate_dataset_arrays(3001, 100, 0.05, 0.96, seed=21)),
         ("err0.2", generate_dataset_arrays(2001, 100, 0.2, 0.96, seed=22)),
@@ -618,6 +633,7 @@ def leap_conformance_cases():
                                                max_len=256)),
         ("max_len256/full", generate_dataset_arrays(501, 256, 0.01, 0.9,
                                                     seed=4, max_len=256)),
+        ("runs", runs),
     ]
 
 
@@ -776,6 +792,16 @@ def leap_main_path(dev, card, err) -> dict:
         hist, ccfg, ccfg.leap_energy_bound)).to(dev), "leap_cigar records"))
     rates = {k: MAIN_PAIRS / v / 1e3 for k, v in ms.items()}
     bounds = ", ".join(f"{res[k]['bound']['bound_ms']:.4f}" for k in ms)
+    # the count: registers, spills and warps per SM of the main-path
+    # instantiation, and the rate it issued its SASS at, the energy loop
+    # weighted by the levels each pair ran, in launch order
+    cat = {k: torch.cat([o[k] for o in lp["outs"]]).cpu().numpy()
+           for k in ("passed", "penalty", "lane_shift")}
+    levels = leap_levels(cat["passed"], cat["penalty"], cat["lane_shift"],
+                         cfg.leap_af_threshold)
+    counts = rl.leap_counts(levels)
+    use = rl.leap_resources()
+    insts = sum(counts["counts"]["warp"]["counts"].values())
     phase(f"[9 LEAP main path] {res['n_pairs']} pairs err 0.05: leap "
           f"checksum {lp['checksum']}, {lp['passed']} passed, leap_gated "
           f"checksum {lg['checksum']}, leap_cigar bounds "
@@ -788,20 +814,19 @@ def leap_main_path(dev, card, err) -> dict:
           f"ms ({rates['leap_gated']:.1f}M); bounds {bounds} ms; "
           f"plain version (leap) "
           f"{plain_ms:.3f} ms, equal on every pair (leap and leap_gated; "
-          f"records on 65,536 pairs), all on {card}")
+          f"records on 65,536 pairs), all on {card}; leap: "
+          f"{use['registers']} registers, {use['spill_stores']} B spill "
+          f"stores, {use['warps_per_sm']} warps per SM, {insts:.1f} SASS "
+          f"thread instructions per pair (warp weight) issued at "
+          f"{insts * res['n_pairs'] / ms['leap'] / 1e9:.2f} T/s")
     entry = dict(name="leap", route="cuda",
                  source="asm_tpu_torch/csrc/leap.cu",
                  replaces="asm_tpu/kernels/leap_pallas.py:49",
                  launches=launches, max_abs_err=float(err), ms=ms["leap"],
                  plain_ms=plain_ms, **lp["bound"])
-    # phase 12's roofline line: the energy loop's trips in launch order
-    cat = {k: torch.cat([o[k] for o in lp["outs"]]).cpu().numpy()
-           for k in ("passed", "penalty", "lane_shift")}
-    levels = leap_levels(cat["passed"], cat["penalty"], cat["lane_shift"],
-                         cfg.leap_af_threshold)
+    # phase 12's roofline line
     n = res["n_pairs"]
-    rows = dict(counts=rl.leap_counts(levels), resources=None,
-                seconds=ms["leap"] / 1e3, n=n,
+    rows = dict(counts=counts, resources=use, seconds=ms["leap"] / 1e3, n=n,
                 bound_ms=lp["bound"]["bound_ms"],
                 bytes=leap_work(n, n + int(levels.sum()))[1])
     return entry, rows
@@ -1045,13 +1070,11 @@ def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res) -> list[dict]:
           f"{stream['rate'] / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; dispatch "
           f"floor {line['dispatch_floor_us']:.2f} us; launches {launches}; "
           f"on {card}")
-    for name, rows, is_bound in (("greedy", greedy_rows, True),
-                                 ("leap", leap_rows, False)):
+    for name, rows in (("greedy", greedy_rows), ("leap", leap_rows)):
         with contextlib.redirect_stdout(io.StringIO()):
             got = rl.report(name, rows["counts"], rows["bytes"] / rows["n"],
                             rows["seconds"], rows["n"], issue["rate"],
                             stream["rate"], rows["bound_ms"],
-                            issue_is_bound=is_bound,
                             resources=rows["resources"])
         phase(f"[12c roofline {name}] {json.dumps(got)}")
     with contextlib.redirect_stdout(io.StringIO()):

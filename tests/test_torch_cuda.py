@@ -187,6 +187,15 @@ def _ragged_warps(n=4099, seed=21):
     return encode_batch(reads, refs, 128)
 
 
+def _leap_runs():
+    """17 pairs at each length 31, 32, 33, 63, 64, 65, 127 and 128 (word
+    boundaries of L = 128) and error rate 0 or 0.01."""
+    parts = [generate_dataset_arrays(17, n, err, seed=n + int(100 * err))
+             for n in (31, 32, 33, 63, 64, 65, 127, 128)
+             for err in (0.0, 0.01)]
+    return [np.concatenate([p[i] for p in parts]) for i in range(4)]
+
+
 def _nw_corpus(dev, kw):
     if kw is None:
         reads = ["A", "ACGT" * 32, "ACGTACGT", "", "ACGT" * 25, "AC"]
@@ -195,6 +204,8 @@ def _nw_corpus(dev, kw):
                 for a in encode_batch(reads, refs, 128)]
     if kw == "ragged_warps":
         return [torch.from_numpy(a).to(dev) for a in _ragged_warps()]
+    if kw == "leap_runs":
+        return [torch.from_numpy(a).to(dev) for a in _leap_runs()]
     return _corpus(dev, **kw)
 
 
@@ -280,6 +291,12 @@ LEAP_CASES = [
                         max_len=256)),
     ("max_len256-full", dict(num_reads=131, length=256, error_rate=0.01,
                              seed=4, max_len=256)),
+    # match runs that start inside a word, end on a word boundary or reach
+    # the buffer's end
+    ("runs", "leap_runs"),
+    # every SM holds several resident blocks; the last block is partial
+    ("many_blocks", dict(num_reads=200_003, length=100, error_rate=0.05,
+                         seed=23)),
 ]
 # (semantics, use_shd_gate, (x, o, e)); simd_ed_lev is unit-cost, af == k
 LEAP_VARIANTS = [
@@ -370,8 +387,31 @@ def test_leap_kernel_builds_every_instantiation(dev):
     assert path.endswith(".so")
     with open(leap_cuda.ptxas_report()) as f:
         report = f.read()
-    # k in {2, 3, 4} x W in {4, 8} x 2 penalty sets x {penalty, CIGAR}
-    assert report.count("Compiling entry function") == 24
+    # k in {2, 3, 4} x W in {4, 8} x 2 penalty sets x 4 semantics (lv_bag,
+    # simd_ed_lev with and without the gate, simd_ed_affine), and lv_bag's
+    # CIGAR mode at each k, W and penalty set, each on both input routes
+    assert report.count("Compiling entry function") == 120
+
+
+def test_leap_kernel_spills_and_occupancy(dev):
+    """No instantiation spills; the main path's line reads its registers
+    from the ptxas report and its warps per SM from the occupancy query."""
+    from asm_tpu_torch.kernels import leap_cuda
+    from asm_tpu_torch.tools import roofline as rl
+    from asm_tpu_torch.utils.build import ptxas_usage
+
+    leap_cuda.build_kernel()
+    with open(leap_cuda.ptxas_report()) as f:
+        usage = ptxas_usage(f.read())
+    assert len(usage) == 120
+    for name, u in usage.items():
+        assert u["spill_stores"] == u["spill_loads"] == 0, name
+    for k in (2, 3, 4):
+        for L in (128, 256):
+            for cigar in (False, True):
+                assert leap_cuda.occupancy(k, L, cigar) >= 1
+    got = rl.leap_resources()
+    assert got["warps_per_sm"] == 4 * leap_cuda.occupancy()
 
 
 def test_leap_kernel_refuses_unbuilt_shapes(dev):

@@ -402,6 +402,79 @@ def test_greedy_resources_from_a_ptxas_report(monkeypatch):
         rl.greedy_resources(PTXAS_REPORT.replace("ILi3ELi4E", "ILi2ELi4E"))
 
 
+# the LEAP kernel's main-path instantiation (k = 3, W = 4, x = o = e = 1,
+# lv_bag, penalty mode, planes) beside a CIGAR one and a simd_ed_affine one
+# on codes, as nvcc -Xptxas -v reports them
+LEAP_TAIL = "EEvPKjS2_PKiS4_NS_6ParamsEPhPiS8_S8_Pj"
+LEAP_NAMES = [f"_ZN12_GLOBAL__N_111leap_kernelILi{a}{LEAP_TAIL}" for a in (
+    "3ELi4ELi1ELi1ELi1ELi0ELb0ELb1", "3ELi4ELi1ELi1ELi1ELi0ELb1ELb1",
+    "4ELi8ELi2ELi3ELi1ELi2ELb0ELb0")]
+# LISTING with its second loop nest's back-edges gone: one loop
+ONE_LOOP = LISTING.replace("@P1 BRA `(.L_x_2) ;      ",
+                           "@P1 NOP ;              ").replace(
+    "@P2 BRA `(.L_x_3) ;      ", "@P2 NOP ;              ")
+LEAP_PTXAS = "".join(
+    f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+    f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    f"ptxas info    : Used {regs} registers, used 0 barriers\n"
+    for name, regs in zip(LEAP_NAMES, (48, 72, 56)))
+
+
+def test_leap_line_is_a_bound(monkeypatch, capsys):
+    """LEAP's count reads the main path's instantiation alone (lv_bag,
+    penalty mode, planes: template parameters) with its one loop, so its
+    line states a binding wall, a headroom and the rate it issued at, with
+    the instantiation's registers and warps per SM."""
+    from asm_tpu_torch.kernels import leap_cuda
+
+    assert rl.LEAP_FN in LEAP_NAMES[0]
+    assert sum(rl.LEAP_FN in name for name in LEAP_NAMES) == 1
+    asked = []
+    monkeypatch.setattr(rl, "sass_listing",
+                        lambda lib, fn: asked.append(fn) or ONE_LOOP)
+    kc = rl.leap_counts([1.0, 3.0], lib_path="lib.so")
+    assert asked == [rl.LEAP_FN]
+    assert kc["weights"] == {"mean": 2.0, "warp": 3.0}
+    monkeypatch.setattr(leap_cuda, "occupancy", lambda *a, **kw: 7)
+    use = rl.leap_resources(LEAP_PTXAS)
+    assert use == dict(registers=48, spill_stores=0, spill_loads=0,
+                       blocks_per_sm=7, warps_per_sm=28)
+    line = rl.report("leap", kc, 100.0, 1e-3, 10 ** 6, 1e10, 1e12, 0.5,
+                     resources=use)
+    insts = {k: sum(c["counts"].values()) for k, c in kc["counts"].items()}
+    assert line["issue_count_is_bound"] is True
+    assert line["binding_wall"] == "issue"
+    assert line["headroom_x"] == pytest.approx(10 / insts["warp"])
+    assert line["issued_thread_insts_per_sec"] == pytest.approx(
+        insts["warp"] * 1e9)
+    assert (line["registers"], line["warps_per_sm"]) == (48, 28)
+    assert '"kernel": "leap"' in capsys.readouterr().out
+    with pytest.raises(ValueError, match="0 kernels"):
+        rl.leap_resources(LEAP_PTXAS.replace("ELi0ELb0ELb1", "ELi0ELb0ELb0"))
+    # a second loop (the energy loop compiled once per mode) is refused
+    monkeypatch.setattr(rl, "sass_listing", lambda lib, fn: LISTING)
+    with pytest.raises(ValueError, match="holds 3 loops"):
+        rl.leap_counts([1.0, 3.0], lib_path="lib.so")
+
+
+def test_chip_smoke_names_every_instantiation():
+    """chip_smoke's ptxas summary names each kernel instantiation; LEAP's
+    carry the semantics (csrc/leap.cu's SEM) and the CIGAR mode."""
+    import chip_smoke
+
+    got = [chip_smoke._instance_name(n) for n in LEAP_NAMES]
+    assert got == ["leap k3/W4/x1o1e1/lv_bag/planes",
+                   "leap k3/W4/x1o1e1/lv_bag/cigar/planes",
+                   "leap k4/W8/x2o3e1/simd_ed_affine/codes"]
+    assert chip_smoke._instance_name(LEAP_NAMES[0].replace(
+        "ELi0ELb0", "ELi3ELb0")) == (
+        "leap k3/W4/x1o1e1/simd_ed_lev_gated/planes")
+    assert chip_smoke._instance_name(
+        "_ZN12_GLOBAL__N_113greedy_kernelILi3ELi4ELb1EsEEvPKj") == (
+        "greedy k3/W4/planes")
+    assert chip_smoke._instance_name("_Z11unknown_fnv") is None
+
+
 def test_sass_listing_needs_cuobjdump(monkeypatch, tmp_path):
     import importlib.util
 
