@@ -1,34 +1,42 @@
-// Exact NW/Gotoh penalty and traceback, one warp per pair (sm_90a).
+// Exact NW/Gotoh penalty and traceback by row strips (sm_90a).
 //
 // Replaces the Pallas TPU kernels asm_tpu/kernels/nw_pallas.py _nw_kernel
 // (wrapper nw_penalty_pallas) and _nw_trace_kernel (wrapper
-// nw_align_pallas). Anti-diagonal wavefront over cells i in [1, L] (the
-// i == 0 top border is virtual: closed form o + (d-1)*e, entering as the
-// fill of the i-1 shift); thread t of the warp holds the C = L/32
-// consecutive cells i = C*t + 1 .. C*t + C. Per diagonal d the shifted
-// (i-1) values cross thread boundaries by __shfl_up_sync: one shuffle for
-// H and one for E, since the i-1 value of H two diagonals back is last
-// step's shifted H (the TPU kernel's pipelined rows). The reversed-ref
-// window the TPU kernel rolls through a [2L] buffer becomes an index into
-// the pair's ref codes in shared memory, with the window's sentinel (-2)
-// for j outside [1, L]. The warp loops to its own pair's m+n.
+// nw_align_pallas). G threads per pair (G in {8, 16, 32}, a template
+// parameter: 32/G pairs per warp); thread t keeps the R = L/G consecutive
+// rows i = R*t + 1 .. R*t + R in registers (H and F of the last column,
+// and the read codes) and sweeps the columns j = 1..n with a lag of one
+// column per thread: at step s it computes column j = s - t. The strip's
+// top row takes H and E of row R*t at column j from thread t-1, which
+// computed them one step earlier, by one __shfl_up_sync each; the H
+// received one step earlier is the diagonal input. E, the gap down the
+// column, chains the R cells of the column inside the thread; F, the gap
+// along the row, stays in the thread. Only cells with 1 <= j <= n are
+// computed: the left border (j == 0) is the initial state, the top border
+// (i == 0) enters at thread 0 in closed form (o + (j-1)*e, E infinite),
+// and the ref code of column j is one shared-memory byte per step. A
+// warp runs to the largest n + (m-1)/R among its pairs; H(m, n) is read
+// once, after the sweep, from the thread that holds row m.
 //
-// What bounds it on Hopper: integer throughput (~20 ops per cell per
-// diagonal, C cells per thread) and, for the trace kernel, the pointer
-// bytes: 2L x L bytes per pair (32 KiB at L = 128), far beyond shared
-// memory for a warp per pair, so they go to a per-launch global scratch
-// the wrapper sizes (one coalesced store of C bytes per thread and
-// diagonal), and the traceback is one dependent walk per pair (one
-// thread, up to 2L scratch reads that mostly hit L2). The penalty kernel touches memory only for
-// 2L code bytes in and 4 bytes out per pair.
+// What bounds it on Hopper: integer issue (the 11 operations of a Gotoh
+// cell; the rows past m of a strip and the G-1 steps of lag are the
+// slots spent on no real cell), and the chain of the column: each step
+// waits on the row above through the R cells of the strip and a shuffle,
+// so fewer rows per thread (larger G) shorten the chain and add lag.
 //
-// Traceback: exactly asm_tpu/kernels/nw.py's reverse replay (pointer
-// byte: bits 0-1 H source 0 sub / 1 E / 2 F, bit 2 E opened, bit 3 F
-// opened, bit 4 mismatch; ties prefer sub, then E, then F; at the left
-// border H comes from E, opened iff d == 1; the virtual i == 0 byte is
-// F, opened iff d == 1). The op of diagonal d goes to column 2L - d; every
-// other column holds OP_NONE. The '='-run match mask is kept as an L-bit
-// mask in registers and flushed at the end.
+// The trace kernel keeps 4 bits per cell (bits 0-1 H source 0 sub / 1 E /
+// 2 F, bit 2 E opened, bit 3 F opened), column-major, L/2 bytes a column
+// (thread t's R rows are R/2 bytes of it, one store per step). ROUTE
+// decides where: in shared memory (PTR_SHARED, one warp per block, L*L/2
+// bytes per pair beside its codes) or in a global scratch the wrapper
+// sizes (PTR_GLOBAL). Only columns 1..n are written. After
+// the sweep one thread per pair walks: exactly asm_tpu/kernels/nw.py's
+// reverse replay (ties prefer sub, then E, then F; the left border is E,
+// opened iff i == 1; the virtual i == 0 cell is F, opened iff j == 1), the
+// mismatch bit recomputed from the codes in shared memory. The op of
+// diagonal d goes to column 2L - d; every other column holds OP_NONE. The
+// '='-run match mask is kept as an L-bit mask in registers and flushed by
+// the pair's G threads at the end.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,17 +45,31 @@ namespace {
 
 constexpr int kInf = 1 << 29;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kWarps = 8;  // pairs per block
-constexpr int kThreads = 32 * kWarps;
 
 enum : int8_t { OP_NONE = 0, OP_EQ = 1, OP_X = 2, OP_I = 3, OP_D = 4 };
+// where the trace kernel keeps its pointer nibbles (none: the penalty)
+enum { PTR_NONE = 0, PTR_GLOBAL = 1, PTR_SHARED = 2 };
 
 struct Params {
     int B, x, o, e, thr;
 };
 
-__device__ __forceinline__ int h_top(int dd, int o, int e) {
-    return dd <= 0 ? (dd == 0 ? 0 : kInf) : o + (dd - 1) * e;
+// threads per block: one warp when the pointers take shared memory, so
+// that blocks pack the SM finely
+__host__ __device__ constexpr int block_threads(int route) { return route == PTR_SHARED ? 32 : 128; }
+
+// shared bytes per pair: its ref codes, with the trace its read codes, and
+// on the shared route its L * L / 2 pointer bytes, padded to 64 mod 128
+// so that two pairs' column stores fall on different banks
+__host__ __device__ constexpr int slot_bytes(int L, int route) {
+    return route == PTR_NONE     ? L
+           : route == PTR_GLOBAL ? 2 * L
+                                 : ((2 * L + L * L / 2 + 63) / 128) * 128 + 64;
+}
+
+template <int W, int G, int ROUTE>
+constexpr size_t smem_bytes() {
+    return (size_t)(block_threads(ROUTE) / G) * slot_bytes(32 * W, ROUTE);
 }
 
 // bits [lo, hi) of word w of an L-bit mask
@@ -59,173 +81,204 @@ __device__ __forceinline__ uint32_t span_bits(int lo, int hi, int w) {
     return ma & ~mb;
 }
 
-template <int W, bool kTrace>
-__global__ void __launch_bounds__(kThreads)
+// R nibbles (R / 8 words; R == 4: the low half-word) to R / 2 bytes at dst
+template <int R>
+__device__ __forceinline__ void store_nibbles(uint8_t* dst, const uint32_t* w) {
+    if constexpr (R == 4) {
+        *(uint16_t*)dst = (uint16_t)w[0];
+    } else if constexpr (R == 8) {
+        *(uint32_t*)dst = w[0];
+    } else if constexpr (R == 16) {
+        *(uint2*)dst = make_uint2(w[0], w[1]);
+    } else {
+        static_assert(R == 32, "rows per thread");
+        *(uint4*)dst = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+}
+
+template <int W, int G, int ROUTE>
+__global__ void __launch_bounds__(block_threads(ROUTE))
 nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
           const int* __restrict__ rl, const int* __restrict__ fl, Params P,
-          int* __restrict__ pen_out, int8_t* ops_out, int8_t* mask_out,
-          uint32_t* scratch) {  // scratch: written, then read back here
+          int* __restrict__ pen_out, int8_t* __restrict__ ops_out,
+          int8_t* __restrict__ mask_out, uint8_t* __restrict__ scratch) {
     constexpr int L = 32 * W;
-    constexpr int C = W;  // cells per thread
-    __shared__ __align__(16) int8_t s_ref[kWarps][L];  // stored as words
+    constexpr int R = L / G;  // rows per thread
+    constexpr int PPB = block_threads(ROUTE) / G;  // pairs per block
+    constexpr int COL = L / 2;  // pointer bytes of a column
+    constexpr bool kTrace = ROUTE != PTR_NONE;
+    constexpr int SLOT = slot_bytes(L, ROUTE);
+    static_assert(R % 4 == 0 && R <= 32, "rows per thread");
+    extern __shared__ __align__(16) uint8_t smem[];
 
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int64_t p = (int64_t)blockIdx.x * kWarps + warp;
-    if (p >= P.B) return;  // warp-uniform
+    const int t = threadIdx.x % G;  // the thread's strip
+    const int slot = threadIdx.x / G;
+    const int64_t p0 = (int64_t)blockIdx.x * PPB;
+    if (p0 + (threadIdx.x & ~31) / G >= P.B) return;  // the warp holds no pair
+    const int64_t p = p0 + slot;
+    const bool live = p < P.B;
     const int x = P.x, o = P.o, e = P.e;
-    const int m = min(rl[p], L), n = min(fl[p], L), mn = m + n;
+    const int m = live ? min(rl[p], L) : 0, n = live ? min(fl[p], L) : 0;
 
-    // read codes of this thread's cells; the pair's ref in shared memory
-    int a[C];
+    // the pair's ref (and read) codes in shared memory; this strip's read
+    // codes in registers
+    int8_t* s_ref = (int8_t*)smem + slot * SLOT;
+    int8_t* s_read = s_ref + L;
+    int a[R];
     {
-        const uint32_t* src = (const uint32_t*)(rc + p * L) + lane * (C / 4);
-        const uint32_t* ref = (const uint32_t*)(fc + p * L);
-        uint32_t* dst = (uint32_t*)s_ref[warp];
+        const uint32_t* src = (const uint32_t*)(rc + p * L) + t * (R / 4);
+        const uint32_t* ref = (const uint32_t*)(fc + p * L) + t * (R / 4);
 #pragma unroll
-        for (int w = 0; w < C / 4; w++) {
-            const uint32_t v = src[w];
+        for (int w = 0; w < R / 4; w++) {
+            const uint32_t v = live ? src[w] : 0u;
 #pragma unroll
             for (int b = 0; b < 4; b++) a[4 * w + b] = (int8_t)(v >> (8 * b));
-            dst[lane * (C / 4) + w] = ref[lane * (C / 4) + w];
+            ((uint32_t*)s_ref)[t * (R / 4) + w] = live ? ref[w] : 0u;
+            if (kTrace) ((uint32_t*)s_read)[t * (R / 4) + w] = v;
         }
     }
+    uint8_t* ptr = ROUTE == PTR_SHARED ? (uint8_t*)s_ref + 2 * L
+                   : ROUTE == PTR_GLOBAL ? scratch + p * (L * L / 2)
+                                         : nullptr;
     __syncwarp();
 
-    // state of diagonal d-1: h1, e-shift se1 (E at i-1), f1; sa / sb = H
-    // at i-1 on diagonals d-1 / d-2
-    int h1[C], sa[C], sb[C], se1[C], f1[C];
+    // column 0 (the left border): H = E = o + (i-1)*e, F infinite
+    int h[R], f[R];
 #pragma unroll
-    for (int c = 0; c < C; c++) {
-        h1[c] = kInf;
-        sa[c] = (lane == 0 && c == 0) ? 0 : kInf;  // fill h_top(0) = 0
-        sb[c] = kInf;
-        se1[c] = kInf;
-        f1[c] = kInf;
+    for (int r = 0; r < R; r++) {
+        h[r] = o + (R * t + r) * e;
+        f[r] = kInf;
     }
-    int pen = mn == 0 ? 0 : (m == 0 ? o + (mn - 1) * e : kInf);
-    uint32_t* ptr_row = kTrace ? scratch + (p * 2 * L) * (L / 4) : nullptr;
+    int hb = h[R - 1], eb = h[R - 1];  // bottom row's H and E, last column
+    int dg = 0;  // H(R*t, j-1); thread 0 starts at H(0, 0)
+    const int steps = (m > 0 && n > 0) ? n + (m - 1) / R : 0;
+    const int warp_steps = __reduce_max_sync(kFull, steps);
 
-    for (int d = 1; d <= mn; d++) {
-        int hn[C], en[C];
-        uint32_t bytes[C / 4];
+    for (int s = 1; s <= warp_steps; s++) {
+        const int j = s - t;
+        // row R*t at column j, from thread t-1's last step
+        int uh = __shfl_up_sync(kFull, hb, 1, G);
+        int ue = __shfl_up_sync(kFull, eb, 1, G);
+        if (t == 0) {  // the top border, H(0, j)
+            uh = o + (s - 1) * e;
+            ue = kInf;
+        }
+        const int top = uh;  // the diagonal input of column j + 1
+        if (j >= 1 && j <= n) {
+            const int b = s_ref[j - 1];
+            int hd = dg;
+            uint32_t nib[(R + 7) / 8];
 #pragma unroll
-        for (int w = 0; w < C / 4; w++) bytes[w] = 0;
-        const int bp = o + (d - 1) * e;
+            for (int w = 0; w < (R + 7) / 8; w++) nib[w] = 0u;
 #pragma unroll
-        for (int c = 0; c < C; c++) {
-            const int i = lane * C + c + 1;
-            const int jj = d - i - 1;  // ref index j - 1
-            const int b = (jj >= 0 && jj < L) ? s_ref[warp][jj] : -2;
-            const int mis = a[c] != b;
-            const int e_open = sa[c] + o, e_ext = se1[c] + e;
-            const int f_open = h1[c] + o, f_ext = f1[c] + e;
-            const int sub = sb[c] + x * mis;
-            int ev = min(e_open, e_ext);
-            int fv = min(f_open, f_ext);
-            int hv = min(sub, min(ev, fv));
-            const bool at_left = i == d;  // j == 0
-            if (at_left) {
-                hv = bp;
-                ev = bp;
-                fv = kInf;
+            for (int r = 0; r < R; r++) {
+                const int sub = hd + (a[r] != b ? x : 0);
+                const int e_open = uh + o, e_ext = ue + e;
+                const int f_open = h[r] + o, f_ext = f[r] + e;
+                const int ev = min(e_open, e_ext);
+                const int fv = min(f_open, f_ext);
+                const int hv = min(sub, min(ev, fv));
+                if (kTrace) {
+                    const uint32_t ph = hv == sub ? 0u : (hv == ev ? 1u : 2u);
+                    nib[r / 8] |= (ph | ((uint32_t)(e_open <= e_ext) << 2) |
+                                   ((uint32_t)(f_open <= f_ext) << 3))
+                                  << (4 * (r % 8));
+                }
+                hd = h[r];
+                h[r] = hv;
+                f[r] = fv;
+                uh = hv;
+                ue = ev;
             }
-            if (d == mn && i == m) pen = hv;
-            if (kTrace) {
-                const int ptr_h = at_left ? 1 : (hv == sub ? 0 : (hv == ev ? 1 : 2));
-                const int eo = at_left ? (d == 1) : (e_open <= e_ext);
-                const int fo = f_open <= f_ext;
-                const uint32_t byte = ptr_h | (eo << 2) | (fo << 3) | (mis << 4);
-                bytes[c / 4] |= byte << (8 * (c % 4));
-            }
-            hn[c] = hv;
-            en[c] = ev;
-            f1[c] = fv;
+            hb = uh;
+            eb = ue;
+            if (kTrace) store_nibbles<R>(ptr + (j - 1) * COL + t * (R / 2), nib);
         }
-        if (kTrace) {
-            uint32_t* row = ptr_row + (d - 1) * (L / 4) + lane * (C / 4);
-#pragma unroll
-            for (int w = 0; w < C / 4; w++) row[w] = bytes[w];
-        }
-        // i-1 neighbours for diagonal d+1
-        const int up_h = __shfl_up_sync(kFull, hn[C - 1], 1);
-        const int up_e = __shfl_up_sync(kFull, en[C - 1], 1);
-#pragma unroll
-        for (int c = C - 1; c >= 1; c--) {
-            sb[c] = sa[c];
-            sa[c] = hn[c - 1];
-            se1[c] = en[c - 1];
-        }
-        sb[0] = sa[0];
-        sa[0] = lane == 0 ? h_top(d, o, e) : up_h;
-        se1[0] = lane == 0 ? kInf : up_e;
-#pragma unroll
-        for (int c = 0; c < C; c++) h1[c] = hn[c];
+        dg = top;
     }
-
-    // the thread holding cell i == m has the result (m == 0: closed form)
-    if (m == 0 ? lane == 0 : (m - 1) / C == lane) pen_out[p] = pen;
+    if (live) {
+        if (m == 0) {
+            if (t == 0) pen_out[p] = n == 0 ? 0 : o + (n - 1) * e;
+        } else if (t == (m - 1) / R) {
+            int v = 0;
+#pragma unroll
+            for (int r = 0; r < R; r++) v = r == (m - 1) % R ? h[r] : v;
+            pen_out[p] = v;
+        }
+    }
     if (!kTrace) return;
 
     // ---- traceback ----
     int8_t* ops = ops_out + p * 2 * L;
-    {
-        uint32_t* o32 = (uint32_t*)ops;  // 2L bytes: 2C bytes per thread
+    if (live) {
 #pragma unroll
-        for (int w = 0; w < C / 2; w++) o32[lane * (C / 2) + w] = 0u;
+        for (int w = 0; w < R / 2; w++) ((uint32_t*)ops)[t * (R / 2) + w] = 0u;
     }
-    __syncwarp();  // pointer bytes and zeroed ops visible to lane 0
+    __syncwarp();  // pointer nibbles and zeroed ops visible to the walker
     uint32_t mk[W];
 #pragma unroll
     for (int w = 0; w < W; w++) mk[w] = 0u;
-    if (lane == 0) {
-        const uint8_t* ptr8 = (const uint8_t*)ptr_row;
-        const int thr = P.thr;
+    if (t == 0 && live) {
+        const int thr = P.thr < 0 ? 4 * L : P.thr;  // no mask: no run is long enough
         int i = m, j = n, st = 0, run = 0;
-        // every move lowers i + j, and the borders' bytes lead to (0, 0);
-        // the bounds only keep a corrupt byte from walking off the scratch
+        // every move lowers i + j, and the borders lead to (0, 0); the
+        // bounds only keep a corrupt nibble from walking off the matrix
         for (int step = 0; (i > 0 || j > 0) && i >= 0 && j >= 0 && step < 2 * L;
              step++) {
             const int d = i + j;
-            const int byte = i == 0 ? (2 | (d == 1 ? 8 : 0))
-                                    : ptr8[(int64_t)(d - 1) * L + (i - 1)];
-            const int ptr_h = byte & 3, e_open = (byte >> 2) & 1,
-                      f_open = (byte >> 3) & 1, mis = (byte >> 4) & 1;
+            int ptr_h, e_open, f_open, mis = 0;
+            if (i == 0) {  // the virtual top cell: F, opened iff j == 1
+                ptr_h = 2;
+                e_open = 0;
+                f_open = d == 1;
+            } else if (j == 0) {  // the left border: E, opened iff i == 1
+                ptr_h = 1;
+                e_open = i == 1;
+                f_open = 0;
+            } else {
+                const int byte = ptr[(j - 1) * COL + ((i - 1) >> 1)];
+                const int nb = (i - 1) & 1 ? byte >> 4 : byte;
+                ptr_h = nb & 3;
+                e_open = (nb >> 2) & 1;
+                f_open = (nb >> 3) & 1;
+                mis = s_read[i - 1] != s_ref[j - 1];
+            }
             const bool go_diag = st == 0 && ptr_h == 0;
             const bool go_e = (st == 0 && ptr_h == 1) || st == 1;
             const bool go_f = (st == 0 && ptr_h == 2) || st == 2;
             ops[2 * L - d] = go_diag ? (mis ? OP_X : OP_EQ) : (go_e ? OP_I : OP_D);
-            if (thr >= 0) {
-                // a '=' run ending at read cursor i covered [i, i + run)
-                const bool is_eq = go_diag && !mis;
-                if (!is_eq && run > 0 && run >= thr) {
+            // a '=' run ending at read cursor i covered [i, i + run)
+            const bool is_eq = go_diag && !mis;
+            if (!is_eq && run > 0 && run >= thr) {
 #pragma unroll
-                    for (int w = 0; w < W; w++) mk[w] |= span_bits(i, i + run, w);
-                }
-                run = is_eq ? run + 1 : 0;
+                for (int w = 0; w < W; w++) mk[w] |= span_bits(i, i + run, w);
             }
+            run = is_eq ? run + 1 : 0;
             const int new_st = go_diag ? 0 : (go_e ? (e_open ? 0 : 1) : (f_open ? 0 : 2));
             i -= (go_diag || go_e);
             j -= (go_diag || go_f);
             st = new_st;
         }
         // flush a run still open at the start of the alignment
-        if (thr >= 0 && run > 0 && run >= thr) {
+        if (run > 0 && run >= thr) {
 #pragma unroll
             for (int w = 0; w < W; w++) mk[w] |= span_bits(i, i + run, w);
         }
     }
     if (mask_out == nullptr) return;
-    // broadcast the mask; thread t writes positions C*t .. C*t + C-1
+    // the walker's mask to its pair's threads; thread t writes positions
+    // R*t .. R*t + R-1, which lie in one word
+    const int src = (threadIdx.x & 31) - t;
     uint32_t mine = 0;
 #pragma unroll
     for (int w = 0; w < W; w++) {
-        const uint32_t v = __shfl_sync(kFull, mk[w], 0);
-        if (w == (lane * C) / 32) mine = v >> ((lane * C) % 32);
+        const uint32_t v = __shfl_sync(kFull, mk[w], src);
+        if (w == (R * t) / 32) mine = v >> ((R * t) % 32);
     }
-    uint32_t* m32 = (uint32_t*)(mask_out + p * L) + lane * (C / 4);
+    if (!live) return;
+    uint32_t* m32 = (uint32_t*)(mask_out + p * L) + t * (R / 4);
 #pragma unroll
-    for (int w = 0; w < C / 4; w++) {
+    for (int w = 0; w < R / 4; w++) {
         uint32_t out = 0;
 #pragma unroll
         for (int b = 0; b < 4; b++) out |= ((mine >> (4 * w + b)) & 1u) << (8 * b);
@@ -233,43 +286,104 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
     }
 }
 
-template <int W>
-cudaError_t launch(const void* rc, const void* fc, const void* rl,
-                   const void* fl, const Params& P, void* pen, void* ops,
-                   void* mask, void* scratch, cudaStream_t s) {
-    const int blocks = (P.B + kWarps - 1) / kWarps;
-    if (ops == nullptr) {
-        nw_kernel<W, false><<<blocks, kThreads, 0, s>>>(
-            (const int8_t*)rc, (const int8_t*)fc, (const int*)rl,
-            (const int*)fl, P, (int*)pen, nullptr, nullptr, nullptr);
-    } else {
-        nw_kernel<W, true><<<blocks, kThreads, 0, s>>>(
-            (const int8_t*)rc, (const int8_t*)fc, (const int*)rl,
-            (const int*)fl, P, (int*)pen, (int8_t*)ops, (int8_t*)mask,
-            (uint32_t*)scratch);
+// The instantiations the wrappers launch, by W = L / 32 and kernel: G
+// threads per pair, each the fastest of 8, 16 and 32 on the card (PERF.md
+// section 5), and where the trace kernel keeps its pointers: in shared
+// memory at L = 128 (12 warps per SM at G = 16), in the global scratch at
+// L = 256 (32 KB per pair in shared memory leaves at most 6 warps per SM;
+// the fastest shared-memory variant, G = 32, ran 1.5x slower there).
+template <int W, bool TRACE> struct Inst;
+template <> struct Inst<4, false> { static constexpr int G = 8, ROUTE = PTR_NONE; };
+template <> struct Inst<8, false> { static constexpr int G = 8, ROUTE = PTR_NONE; };
+template <> struct Inst<4, true> { static constexpr int G = 16, ROUTE = PTR_SHARED; };
+template <> struct Inst<8, true> { static constexpr int G = 8, ROUTE = PTR_GLOBAL; };
+
+struct Launch {
+    const void *rc, *fc, *rl, *fl;
+    Params P;
+    void *pen, *ops, *mask, *scratch;
+    cudaStream_t stream;
+};
+
+// launches the instantiation of (W, TRACE), or with L == nullptr stores its
+// resident warps per SM in *warps
+template <int W, bool TRACE>
+cudaError_t run(const Launch* L, int* warps) {
+    constexpr int G = Inst<W, TRACE>::G, ROUTE = Inst<W, TRACE>::ROUTE;
+    static_assert(TRACE == (ROUTE != PTR_NONE), "route");
+    auto* kernel = nw_kernel<W, G, ROUTE>;
+    constexpr int threads = block_threads(ROUTE);
+    constexpr size_t smem = smem_bytes<W, G, ROUTE>();
+    // max dynamic shared memory and the carveout that gives shared memory
+    // the most of the SM, once per instantiation
+    static const cudaError_t prepared = [&] {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    (int)cudaSharedmemCarveoutMaxShared);
+    }();
+    if (prepared != cudaSuccess) return prepared;
+    if (L == nullptr) {
+        int blocks = 0;
+        const cudaError_t err =
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+        *warps = blocks * threads / 32;
+        return err;
     }
+    if (ROUTE == PTR_GLOBAL && L->scratch == nullptr) return cudaErrorInvalidValue;
+    constexpr int ppb = threads / G;
+    const int blocks = (L->P.B + ppb - 1) / ppb;
+    kernel<<<blocks, threads, smem, L->stream>>>(
+        (const int8_t*)L->rc, (const int8_t*)L->fc, (const int*)L->rl,
+        (const int*)L->fl, L->P, (int*)L->pen, (int8_t*)L->ops,
+        (int8_t*)L->mask, (uint8_t*)L->scratch);
     return cudaGetLastError();
+}
+
+cudaError_t dispatch(int W, bool trace, const Launch* L, int* warps) {
+    if (W == 4) return trace ? run<4, true>(L, warps) : run<4, false>(L, warps);
+    if (W == 8) return trace ? run<8, true>(L, warps) : run<8, false>(L, warps);
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// rc/fc: int8 codes [B, 32W] (rows 4-byte aligned); rl/fl: int32[B];
-// pen: int32[B] out. ops == NULL: penalty only. Else the trace kernel:
-// ops int8[B, 64W] out, mask (NULL, or bool[B, 32W] out, written when
-// thr >= 0) and scratch, uint8[B, 64W, 32W] of pointer bytes. Returns the
+// rc/fc: int8 codes [B, 32W] (rows 4-byte aligned); rl/fl: int32[B]; pen:
+// int32[B] out. trace 0: the penalty only (ops, mask, scratch unused).
+// trace 1: ops int8[B, 64W] out, mask (NULL, or bool[B, 32W] out), and
+// where the instantiation keeps its pointers in the global scratch,
+// scratch uint8[B, 32W * 16W] (written before it is read). Returns the
 // launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int asm_nw_launch(const void* rc, const void* fc, const void* rl,
-                             const void* fl, int B, int W, int x, int o,
-                             int e, int thr, void* pen, void* ops,
-                             void* mask, void* scratch, int device,
-                             void* stream) {
+                             const void* fl, int B, int W, int trace, int x,
+                             int o, int e, int thr, void* pen, void* ops,
+                             void* mask, void* scratch, int device, void* stream) {
     if (B <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (ops != nullptr && scratch == nullptr) return (int)cudaErrorInvalidValue;
-    const Params P{B, x, o, e, thr};
-    cudaStream_t s = (cudaStream_t)stream;
-    if (W == 4) return (int)launch<4>(rc, fc, rl, fl, P, pen, ops, mask, scratch, s);
-    if (W == 8) return (int)launch<8>(rc, fc, rl, fl, P, pen, ops, mask, scratch, s);
-    return (int)cudaErrorInvalidValue;
+    if (trace && ops == nullptr) return (int)cudaErrorInvalidValue;
+    const Launch L{rc, fc, rl, fl, Params{B, x, o, e, thr}, pen, ops, mask,
+                   scratch, (cudaStream_t)stream};
+    return (int)dispatch(W, trace != 0, &L, nullptr);
+}
+
+// the instantiation of (W, trace): G threads per pair and its route (0 the
+// penalty, 1 the global scratch, 2 shared memory); 0, or cudaErrorInvalidValue
+// for a W that is not built
+extern "C" int asm_nw_instance(int W, int trace, int* G, int* route) {
+    if (W == 4 && !trace) *G = Inst<4, false>::G, *route = Inst<4, false>::ROUTE;
+    else if (W == 8 && !trace) *G = Inst<8, false>::G, *route = Inst<8, false>::ROUTE;
+    else if (W == 4) *G = Inst<4, true>::G, *route = Inst<4, true>::ROUTE;
+    else if (W == 8) *G = Inst<8, true>::G, *route = Inst<8, true>::ROUTE;
+    else return (int)cudaErrorInvalidValue;
+    return 0;
+}
+
+// resident warps per SM of the instantiation of (W, trace) on the current
+// device, with the shared memory its launch uses; -cudaError on failure
+extern "C" int asm_nw_occupancy(int W, int trace) {
+    int warps = 0;
+    const cudaError_t err = dispatch(W, trace != 0, nullptr, &warps);
+    return err == cudaSuccess ? warps : -(int)err;
 }

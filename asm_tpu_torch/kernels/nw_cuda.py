@@ -1,23 +1,32 @@
 """Exact NW through the hand-written CUDA kernels of csrc/nw.cu, the port
 of `asm_tpu.kernels.nw_pallas`:
 
-  nw_penalty_cuda   full anti-diagonal Gotoh penalty (`_nw_kernel`)
-  nw_align_cuda     the same forward pass with pointer bytes, then the
+  nw_penalty_cuda   full Gotoh penalty (`_nw_kernel`)
+  nw_align_cuda     the same sweep with 4 pointer bits per cell, then the
                     traceback and the '='-run match mask
                     (`_nw_trace_kernel`)
+  occupancy         resident warps per SM of an instantiation
 
 Both take int8 codes [B, L] and int32 lengths. On a CUDA tensor they
 launch the kernel on the current stream (unsynchronised) or raise; on a
 CPU tensor they run the plain version (`kernels/nw.py`). `LAUNCHES`
 counts launches per kernel. The library is compiled with nvcc for sm_90a
 at first use into asm_tpu_torch/build/ and bound with ctypes.
+
+Each (kernel, max_len) has one instantiation, its G threads per pair and
+the trace kernel's pointer route fixed in csrc/nw.cu (`instance`): at
+L = 128 the trace kernel keeps its pointers in shared memory and runs in
+one launch; at L = 256 it keeps them in a global scratch of L * L / 2
+bytes per pair, its launches cut at TRACE_SCRATCH_BYTES.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
+import numpy as np
 import torch
 
 from asm_tpu_torch.kernels.greedy_cuda import check_tensor
@@ -29,10 +38,43 @@ LAUNCHES = {"nw": 0, "nw_trace": 0}
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "nw.cu")
 _WS = (4, 8)  # L / 32 the kernels are instantiated for (max_len 128, 256)
-# the trace kernel parks 2L * L pointer bytes per pair in a per-launch
-# scratch; launches are cut so it stays within this many bytes
+# csrc/nw.cu's ROUTE: where the trace kernel keeps its pointer nibbles
+ROUTE_NONE, ROUTE_GLOBAL, ROUTE_SHARED = 0, 1, 2
+# the global route parks L * L / 2 pointer bytes per pair in a per-launch
+# scratch; its launches are cut so it stays within this many bytes
 TRACE_SCRATCH_BYTES = 256 << 20
 _lib = None
+
+
+@functools.cache
+def instance(trace: bool, L: int) -> tuple[int, int]:
+    """(G threads per pair, pointer route) of csrc/nw.cu's instantiation
+    for the kernel (`trace`) at max_len L."""
+    G, route = ctypes.c_int(), ctypes.c_int()
+    err = _load().asm_nw_instance(L // 32, int(trace), ctypes.byref(G),
+                                  ctypes.byref(route))
+    if err != 0:
+        raise NotImplementedError(f"no NW kernel is built for max_len {L}")
+    return G.value, route.value
+
+
+def function_name(trace: bool, L: int) -> str:
+    """The mangled name of the instantiation nw_kernel<L/32, G, ROUTE>."""
+    G, route = instance(trace, L)
+    return f"nw_kernelILi{L // 32}ELi{G}ELi{route}E"
+
+
+def warp_steps(m, n, L: int, G: int) -> np.ndarray:
+    """Column steps each warp of 32 / G pairs (launch order) runs: the
+    largest n + (m-1) // (L/G) among its pairs, 0 for a pair with an empty
+    side; lengths clamped to L as the kernel clamps them."""
+    m = np.minimum(np.asarray(m, np.int64), L)
+    n = np.minimum(np.asarray(n, np.int64), L)
+    steps = np.where((m > 0) & (n > 0), n + (m - 1) // (L // G), 0)
+    ppw = 32 // G
+    pad = -steps.size % ppw
+    return np.concatenate([steps, np.zeros(pad, np.int64)]).reshape(
+        -1, ppw).max(1)
 
 
 def ptxas_report() -> str:
@@ -53,10 +95,24 @@ def _load():
         c = ctypes
         lib.asm_nw_launch.restype = c.c_int
         lib.asm_nw_launch.argtypes = (
-            [c.c_void_p] * 4 + [c.c_int] * 6 + [c.c_void_p] * 4
+            [c.c_void_p] * 4 + [c.c_int] * 7 + [c.c_void_p] * 4
             + [c.c_int, c.c_void_p])
+        lib.asm_nw_instance.restype = c.c_int
+        lib.asm_nw_instance.argtypes = [c.c_int] * 2 + [c.c_void_p] * 2
+        lib.asm_nw_occupancy.restype = c.c_int
+        lib.asm_nw_occupancy.argtypes = [c.c_int] * 2
         _lib = lib
     return _lib
+
+
+def occupancy(trace: bool = False, max_len: int = 128) -> int:
+    """Resident warps per SM of the instantiation the wrapper launches for
+    (trace, max_len) on the current CUDA device, with the shared memory
+    its launch uses."""
+    got = _load().asm_nw_occupancy(max_len // 32, int(trace))
+    if got < 0:
+        raise RuntimeError(f"NW occupancy query failed: cudaError {-got}")
+    return got
 
 
 def _checked(read, read_len, ref, ref_len):
@@ -86,8 +142,8 @@ def _launch(read, read_len, ref, ref_len, x, o, e, thr, pen, ops, mask,
     B, L = read.shape
     err = _load().asm_nw_launch(
         read.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
-        ref_len.data_ptr(), B, L // 32, x, o, e, thr, pen.data_ptr(),
-        0 if ops is None else ops.data_ptr(),
+        ref_len.data_ptr(), B, L // 32, int(ops is not None), x, o, e, thr,
+        pen.data_ptr(), 0 if ops is None else ops.data_ptr(),
         0 if mask is None else mask.data_ptr(),
         0 if scratch is None else scratch.data_ptr(), read.device.index,
         stream)
@@ -117,8 +173,8 @@ def nw_align_cuda(read, read_len, ref, ref_len, x=1, o=1, e=1,
     alignment order, OP_NONE-padded, the op of diagonal d in column
     2L - d; with match_mask_threshold also bool[B, L], the read positions
     inside '=' runs of at least that length. Bit-equal to `nw.nw_align`.
-    Launches are cut into pieces of at most TRACE_SCRATCH_BYTES of
-    pointer scratch."""
+    One launch on the shared route; on the global route launches are cut
+    into pieces of at most TRACE_SCRATCH_BYTES of pointer scratch."""
     device, B, L = _checked(read, read_len, ref, ref_len)
     want_mask = match_mask_threshold is not None
     if want_mask and match_mask_threshold < 0:
@@ -130,9 +186,11 @@ def nw_align_cuda(read, read_len, ref, ref_len, x=1, o=1, e=1,
     pen = torch.empty(B, dtype=torch.int32, device=device)
     ops = torch.empty((B, 2 * L), dtype=torch.int8, device=device)
     mask = torch.empty((B, L), dtype=torch.bool, device=device)
-    piece = max(1, TRACE_SCRATCH_BYTES // (2 * L * L))
-    scratch = torch.empty((min(piece, B), 2 * L, L), dtype=torch.uint8,
-                          device=device) if B else None
+    piece, scratch = max(B, 1), None
+    if B and instance(True, L)[1] == ROUTE_GLOBAL:
+        piece = max(1, TRACE_SCRATCH_BYTES // (L * L // 2))
+        scratch = torch.empty((min(piece, B), L * L // 2), dtype=torch.uint8,
+                              device=device)
     for lo in range(0, B, piece):
         hi = min(lo + piece, B)
         _launch(read[lo:hi], read_len[lo:hi], ref[lo:hi], ref_len[lo:hi],

@@ -584,6 +584,117 @@ def nw_band_loop(listing: str, bw: int, lens_sum) -> dict:
                 mn_divergence_x=warp / mean if mean else 1.0)
 
 
+# csrc/nw.cu's full and trace kernels: two shuffles per step of the main
+# loop (in the one-warp-per-pair layout: per diagonal), in either layout
+NW_SHFL_PER_STEP = 2
+
+
+def nw_loop_counts(listing: str, warp_steps, cells: float,
+                   lanes_per_pair: int, rows_per_thread: int,
+                   walk_steps=None) -> dict:
+    """The main loop of one NW full or trace instantiation (the one loop of
+    its SASS that holds shuffles) and, with `walk_steps` (the traceback's
+    steps per pair, launch order), the walk loop (the one other outermost
+    loop that stores to global memory). `warp_steps`: the main loop's steps
+    each warp ran (csrc/nw.cu: `nw_cuda.warp_steps`; the one-warp-per-pair layout,
+    one pair per warp: m + n); `cells`: the run's existing cells, sum of
+    m * n; each step a thread computes `rows_per_thread` cell slots.
+
+    Returns the loop's instructions per trip (by category and opcode), the
+    steps a trip covers (its shuffles over NW_SHFL_PER_STEP: an unrolled
+    loop counts right), instructions per step and per cell slot, the
+    share of the slots that are existing cells, and the thread
+    instructions the main loop issues per existing cell (32 lanes x the
+    warps' steps x instructions per step / cells); with the walk, its
+    instructions per step and the steps per pair (mean, and the mean of
+    the warp maximum over the 32 / lanes_per_pair walkers of a warp)."""
+    loops = count_sass(listing)["loops"]
+    main = [lp for lp in loops
+            if any(op.startswith("SHFL") for op in lp["opcodes"])]
+    if len(main) != 1:
+        raise ValueError(f"expected one loop with shuffles, got {main}")
+    lp = main[0]
+    shfl = sum(v for op, v in lp["opcodes"].items() if op.startswith("SHFL"))
+    steps_per_trip = shfl / NW_SHFL_PER_STEP
+    insts = sum(lp["body"].values())
+    per_step = insts / steps_per_trip
+    total = float(np.sum(np.asarray(warp_steps, dtype=np.float64)))
+    slots = 32 * rows_per_thread * total
+    out = dict(function=find_kernels(listing)[0],
+               lanes_per_pair=lanes_per_pair,
+               rows_per_thread=rows_per_thread,
+               loop_insts=insts, steps_per_trip=steps_per_trip,
+               loop_body={k: v for k, v in lp["body"].items() if v},
+               loop_opcodes=lp["opcodes"], insts_per_step=per_step,
+               insts_per_slot=per_step / rows_per_thread,
+               warp_steps=total, existing_cells=float(cells),
+               existing_share=float(cells) / slots if slots else 0.0,
+               insts_per_existing_cell=32 * total * per_step / cells
+               if cells else 0.0)
+    if walk_steps is None:
+        return out
+    walks = [w for w in loops if w is not lp and w["depth"] == 0
+             and any(op.startswith(("STG", "ST.")) for op in w["opcodes"])
+             and not any(op.startswith("SHFL") for op in w["opcodes"])]
+    if len(walks) != 1:
+        raise ValueError(f"expected one walk loop, got {walks}")
+    ws = np.asarray(walk_steps, dtype=np.float64)
+    out.update(walk_insts_per_step=float(sum(walks[0]["body"].values())),
+               walk_body={k: v for k, v in walks[0]["body"].items() if v},
+               walk_opcodes=walks[0]["opcodes"],
+               walk_steps_mean=float(ws.mean()) if ws.size else 0.0,
+               walk_steps_warp_max_mean=warp_max_mean(
+                   ws, 32 // lanes_per_pair))
+    return out
+
+
+def nw_resources(trace: bool, L: int = 128,
+                 report: str | None = None) -> dict:
+    """Registers and spill bytes (ptxas report; default: the current
+    build's) and resident warps per SM (`nw_cuda.occupancy`) of the NW
+    instantiation the wrapper launches for (trace, L)."""
+    from asm_tpu_torch.kernels import nw_cuda
+
+    if report is None:
+        nw_cuda.build_kernel()
+        with open(nw_cuda.ptxas_report()) as f:
+            report = f.read()
+    fn = nw_cuda.function_name(trace, L)
+    hits = [v for k, v in ptxas_usage(report).items() if fn in k]
+    if len(hits) != 1:
+        raise ValueError(f"{len(hits)} kernels of the ptxas report match "
+                         f"{fn!r}")
+    return dict(hits[0], warps_per_sm=nw_cuda.occupancy(trace, L))
+
+
+def nw_line(name: str, m, n, ms: float, bound: dict, ops=None) -> dict:
+    """The roofline line of the NW full (`name` "nw") or trace
+    ("nw_trace", with its `ops` int8[B, 2L] for the walk's steps) kernel
+    on one launch's pairs: lengths m, n (launch order, max_len L read from
+    ops or 128), its measured ms and its bound (`utils.bounds.
+    bound_entry`): `nw_loop_counts` of the instantiation the wrapper
+    launches, `nw_resources`, and the time over the bound."""
+    from asm_tpu_torch.kernels import nw_cuda
+
+    trace = name == "nw_trace"
+    L = ops.shape[1] // 2 if ops is not None else 128
+    G, route = nw_cuda.instance(trace, L)
+    m = np.minimum(np.asarray(m, np.int64), L)
+    n = np.minimum(np.asarray(n, np.int64), L)
+    walk = (np.asarray(ops) != 0).sum(1) if trace else None
+    counts = nw_loop_counts(
+        sass_listing(nw_cuda.build_kernel()[0],
+                     nw_cuda.function_name(trace, L)),
+        nw_cuda.warp_steps(m, n, L, G), float(np.sum(m * n)), G, L // G,
+        walk)
+    line = dict(kernel=name, max_len=L, G=G, route=route, pairs=int(m.size),
+                **counts, **nw_resources(trace, L), ms=ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                bound_share=bound["bound_ms"] / ms)
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def plan_max_len(plan) -> int:
     """max_len L of an NW plan's chunks: planes [L/16, b] or codes [b, L]."""
     rc = plan.chunks[0][0]

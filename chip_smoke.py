@@ -36,7 +36,9 @@ line:
   7. coverage: the harness's coverage loop (trace kernel + greedy kernel +
      positional certificate + native fallback) on 65,536 native pairs at
      err 0.10; both counts must equal the pinned values and the trace
-     kernel must have launched.
+     kernel must have launched; then (7b) the full and trace kernels at
+     max_len 256 on 8,192 pairs of 200 bases, exactly equal to the plain
+     version, timed against their bound.
   8. LEAP kernel vs plain: leap_align_cuda in both input forms against the
      plain PyTorch leap_align on the card — passed, penalty, lane_shift
      and, in CIGAR mode, the raw edit records and decoded CIGARs exactly
@@ -74,7 +76,12 @@ line:
      above 105% of its published limit, the greedy and LEAP roofline
      lines of phases 4 and 9's runs, and the NW band kernel's diagonal
      loop (SASS instructions per existing cell, the warp maximum of m+n
-     against its mean) per band width of phase 6's 1M run.
+     against its mean) per band width of phase 6's 1M run; the NW full
+     and trace kernels' lines (tools/roofline.nw_line: the step loop's
+     SASS per step, per cell slot and per existing cell, the share of
+     slots that are existing cells, the walk's SASS per step, registers,
+     spills, warps per SM, time against the bound) from phase 6b's
+     residue and phase 7's chunk.
 Prints a JSON line of per-kernel results (time, plain version's time,
 bound, launches), the card line, and last {"ok": true, "device": {...}}.
 Any failure raises (exit code != 0).
@@ -180,9 +187,10 @@ def _instance_name(name: str) -> str | None:
     m = re.search(r"band_kernelILi(\d+)ELi(\d+)E", name)
     if m:
         return f"nw_band BW{m[1]}/W{m[2]}"
-    m = re.search(r"nw_kernelILi(\d+)ELb(\d)", name)
+    m = re.search(r"nw_kernelILi(\d+)ELi(\d+)ELi(\d)E", name)
     if m:
-        return f"{'nw_trace' if m[2] == '1' else 'nw'} W{m[1]}"
+        route = ("", "/global", "/shared")[int(m[3])]
+        return f"{'nw_trace' if route else 'nw'} W{m[1]}/G{m[2]}{route}"
     m = re.search(r"leap_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi"
                   r"(\d)ELb(\d)ELb(\d)", name)
     if m:
@@ -474,9 +482,17 @@ def nw_conformance(dev, name) -> dict:
     return err
 
 
-def nw_main_path(dev, card, err) -> tuple[list[dict], dict]:
-    """Phase 6; returns the band and full kernels' JSON entries and the 1M
-    run (`nw_headline.run`'s result) for the roofline."""
+def nw_instance(trace: bool, L: int = 128) -> str:
+    """Short name of the NW instantiation the wrapper launches at L."""
+    from asm_tpu_torch.kernels import nw_cuda
+
+    return _instance_name(nw_cuda.function_name(trace, L))
+
+
+def nw_main_path(dev, card, err) -> tuple[list[dict], dict, dict]:
+    """Phase 6; returns the band and full kernels' JSON entries, the 1M
+    run (`nw_headline.run`'s result) and the full kernel's residue run
+    for the roofline."""
     from asm_tpu_torch import nw_headline
     from asm_tpu_torch.kernels import nw, nw_band, nw_cuda
     from asm_tpu_torch.kernels.nw_band import banded_plain, codes_from_planes
@@ -553,13 +569,16 @@ def nw_main_path(dev, card, err) -> tuple[list[dict], dict]:
              ms=band_ms, plain_ms=band_plain_ms, **band_bound),
         dict(name="nw", route="cuda", source="asm_tpu_torch/csrc/nw.cu",
              replaces="asm_tpu/kernels/nw_pallas.py:88",
+             instantiation=nw_instance(False),
              launches=full_launches, max_abs_err=float(err["nw"]),
              ms=full_ms, plain_ms=full_plain_ms, **full_bound),
-    ], main_res
+    ], main_res, dict(m=b.cpu().numpy(), n=d.cpu().numpy(), ms=full_ms,
+                      bound=full_bound)
 
 
-def coverage_path(dev, card, err) -> dict:
-    """Phase 7; returns the trace kernel's JSON entry."""
+def coverage_path(dev, card, err) -> tuple[dict, dict]:
+    """Phase 7; returns the trace kernel's JSON entry and its chunk's run
+    for the roofline."""
     from asm_tpu_torch import headline
     from asm_tpu_torch.config import AlignConfig
     from asm_tpu_torch.kernels import greedy_cuda, nw, nw_cuda
@@ -596,14 +615,48 @@ def coverage_path(dev, card, err) -> dict:
           f"(both pinned), {trace_launches} trace kernel launches, "
           f"{wall:.2f} s wall; trace kernel on 8192 pairs {trace_ms:.3f} ms, "
           f"plain version {plain_ms:.3f} ms, both on {card}")
+    bound = bound_entry(*nw_full_work(args[1].clamp(max=128).cpu().numpy(),
+                                      args[3].clamp(max=128).cpu().numpy(),
+                                      trace=True))
+    nw_at_256(dev, card, err)
     return dict(name="nw_trace", route="cuda",
                 source="asm_tpu_torch/csrc/nw.cu",
                 replaces="asm_tpu/kernels/nw_pallas.py:218",
+                instantiation=nw_instance(True),
                 launches=trace_launches, max_abs_err=float(err["nw_trace"]),
-                ms=trace_ms, plain_ms=plain_ms,
-                **bound_entry(*nw_full_work(
-                    args[1].clamp(max=128).cpu().numpy(),
-                    args[3].clamp(max=128).cpu().numpy(), trace=True)))
+                ms=trace_ms, plain_ms=plain_ms, **bound), dict(
+        m=args[1].cpu().numpy(), n=args[3].cpu().numpy(), ms=trace_ms,
+        bound=bound, ops=got[1].cpu().numpy())
+
+
+def nw_at_256(dev, card, err) -> None:
+    """Phase 7b: the full and trace kernels at max_len 256 (the harness's
+    and the NW headline's other width) on 8,192 pairs of 200 bases at err
+    0.10, exactly equal to the plain version, timed against their bound."""
+    from asm_tpu_torch.data.generator import generate_dataset_native
+    from asm_tpu_torch.kernels import nw, nw_cuda
+    from asm_tpu_torch.utils.bounds import bound_entry, nw_full_work
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            generate_dataset_native(1 << 13, 200, 0.10, seed=7, max_len=256)]
+    want = nw.nw_align(*args, match_mask_threshold=3)
+    nw_ms, pen = cuda_ms(lambda: nw_cuda.nw_penalty_cuda(*args), 3)
+    trace_ms, got = cuda_ms(
+        lambda: nw_cuda.nw_align_cuda(*args, match_mask_threshold=3), 3)
+    err["nw"] = max(err["nw"], max_diff(pen, want[0], "L = 256 chunk: nw"))
+    for g, w, key in zip(got, want, ("pen", "ops", "mask")):
+        err["nw_trace"] = max(err["nw_trace"], max_diff(
+            g, w, f"L = 256 chunk: nw_trace {key}"))
+    m, n = (args[i].cpu().numpy() for i in (1, 3))
+    parts = []
+    for name, trace, ms in (("nw", False, nw_ms),
+                            ("nw_trace", True, trace_ms)):
+        bound = bound_entry(*nw_full_work(m, n, trace=trace))
+        parts.append(f"{name} ({nw_instance(trace, 256)}) {ms:.4f} ms, "
+                     f"bound {bound['bound_ms']:.4f} ({bound['bound_by']}, "
+                     f"{100 * bound['bound_ms'] / ms:.1f}%)")
+    phase(f"[7b nw L=256] 8192 pairs of 200 bases err 0.10, equal to the "
+          f"plain version: {'; '.join(parts)}; on {card}")
 
 
 def leap_conformance_cases():
@@ -991,7 +1044,8 @@ def roofline_counter_checks(lib: str) -> str:
             f"instructions, opcodes {lp['opcodes']}")
 
 
-def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res) -> list[dict]:
+def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
+                   nw_rows) -> list[dict]:
     """Phase 12; returns the three roofline kernels' JSON entries."""
     import contextlib
     import io
@@ -1081,6 +1135,11 @@ def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res) -> list[dict]:
         lines = rl.nw_band_lines(nw_res, nw_band.build_kernel()[0])
     for got in lines:
         phase(f"[12d roofline nw_band BW{got['bw']}] {json.dumps(got)}")
+    for name, row in nw_rows.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = rl.nw_line(name, row["m"], row["n"], row["ms"],
+                             row["bound"], row.get("ops"))
+        phase(f"[12e roofline {name}] {json.dumps(got)}")
 
     threads = seeds.shape[0]
     common = dict(route="cuda", source="asm_tpu_torch/csrc/roofline.cu")
@@ -1142,15 +1201,17 @@ def main() -> int:
     entry, greedy_rows = greedy_phases(dev, name, card)
     entries = [entry]
     err = nw_conformance(dev, name)
-    got, nw_res = nw_main_path(dev, card, err)
+    got, nw_res, full_row = nw_main_path(dev, card, err)
     entries += got
-    entries.append(coverage_path(dev, card, err))
+    entry, trace_row = coverage_path(dev, card, err)
+    entries.append(entry)
     leap_err = leap_conformance(dev, name)
     entry, leap_rows = leap_main_path(dev, card, leap_err)
     entries.append(entry)
     filter_cli(card)
     harness_path(dev, card)
-    entries += roofline_phase(dev, card, greedy_rows, leap_rows, nw_res)
+    entries += roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
+                              dict(nw=full_row, nw_trace=trace_row))
 
     print(json.dumps({"kernels": entries}))
     print(card_line(), flush=True)

@@ -163,6 +163,7 @@ NW_CASES = [
     ("ragged_warps", "ragged_warps"),
     ("max_len256", dict(num_reads=301, length=200, error_rate=0.1, seed=3,
                         max_len=256)),
+    ("edges256", "edges256"),
 ]
 
 
@@ -196,12 +197,27 @@ def _leap_runs():
     return [np.concatenate([p[i] for p in parts]) for i in range(4)]
 
 
+def _nw_edges(L):
+    """Lengths 0, 1 and L on both sides, each against each, and a few
+    short and near-full pairs."""
+    rng = np.random.default_rng(L)
+    seqs = ["", "A", "".join("ACGT"[c] for c in rng.integers(0, 4, L))]
+    reads = [a for a in seqs for _ in seqs] + ["ACGTACGT", "ACGT" * 25, "AC"]
+    refs = [b for _ in seqs for b in seqs] + ["ACGTACGT", "ACGT" * 25,
+                                              "TGCA" * 20]
+    reads.append(seqs[2][:L - 1])
+    refs.append(seqs[2][1:])
+    return encode_batch(reads, refs, L)
+
+
 def _nw_corpus(dev, kw):
     if kw is None:
         reads = ["A", "ACGT" * 32, "ACGTACGT", "", "ACGT" * 25, "AC"]
         refs = ["ACGT" * 32, "A", "ACGTACGT", "ACG", "ACGT" * 25, "TGCA" * 20]
-        return [torch.from_numpy(a).to(dev)
-                for a in encode_batch(reads, refs, 128)]
+        return [torch.from_numpy(np.concatenate([a, b])).to(dev) for a, b in
+                zip(encode_batch(reads, refs, 128), _nw_edges(128))]
+    if kw == "edges256":
+        return [torch.from_numpy(a).to(dev) for a in _nw_edges(256)]
     if kw == "ragged_warps":
         return [torch.from_numpy(a).to(dev) for a in _ragged_warps()]
     if kw == "leap_runs":
@@ -248,17 +264,78 @@ def test_nw_full_and_trace_kernels_match_plain(dev, label, kw):
 
 
 def test_nw_trace_kernel_in_pieces(dev, monkeypatch):
-    """A launch larger than the pointer scratch runs in pieces."""
-    rc, rl, fc, fl = _corpus(dev, num_reads=300, length=100,
+    """At L = 128 the pointers live in shared memory: a batch larger than
+    the global scratch of the old layout (256 MiB of 2L * L bytes per
+    pair: 8,192 pairs) runs in one launch, whatever the scratch limit."""
+    rc, rl, fc, fl = _corpus(dev, num_reads=9001, length=100,
                              error_rate=0.1, seed=9)
     want = nw.nw_align(rc, rl, fc, fl, match_mask_threshold=3)
+    assert nw_cuda.instance(True, 128)[1] == nw_cuda.ROUTE_SHARED
     monkeypatch.setattr(nw_cuda, "TRACE_SCRATCH_BYTES", 2 * 128 * 128 * 64)
+    before = nw_cuda.LAUNCHES["nw_trace"]
+    got = nw_cuda.nw_align_cuda(rc, rl, fc, fl, match_mask_threshold=3)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_trace"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_nw_trace_kernel_in_pieces_at_256(dev, monkeypatch):
+    """At L = 256 the pointers take the global scratch: a launch larger
+    than TRACE_SCRATCH_BYTES runs in pieces."""
+    rc, rl, fc, fl = _corpus(dev, num_reads=300, length=200,
+                             error_rate=0.1, seed=9, max_len=256)
+    want = nw.nw_align(rc, rl, fc, fl, match_mask_threshold=3)
+    assert nw_cuda.instance(True, 256)[1] == nw_cuda.ROUTE_GLOBAL
+    monkeypatch.setattr(nw_cuda, "TRACE_SCRATCH_BYTES", 256 * 256 // 2 * 64)
     before = nw_cuda.LAUNCHES["nw_trace"]
     got = nw_cuda.nw_align_cuda(rc, rl, fc, fl, match_mask_threshold=3)
     torch.cuda.synchronize()
     assert nw_cuda.LAUNCHES["nw_trace"] == before + 5  # ceil(300 / 64)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_nw_kernels_many_blocks(dev):
+    """200,003 pairs, many waves of blocks, in one launch each."""
+    rc, rl, fc, fl = _corpus(dev, num_reads=200_003, length=100,
+                             error_rate=0.1, seed=12)
+    pen, ops, mask = nw.nw_align(rc, rl, fc, fl, match_mask_threshold=3)
+    before = dict(nw_cuda.LAUNCHES)
+    assert torch.equal(nw_cuda.nw_penalty_cuda(rc, rl, fc, fl), pen)
+    got = nw_cuda.nw_align_cuda(rc, rl, fc, fl, match_mask_threshold=3)
+    torch.cuda.synchronize()
+    for g, w in zip(got, (pen, ops, mask)):
+        assert torch.equal(g, w)
+    assert nw_cuda.LAUNCHES == dict(nw=before["nw"] + 1,
+                                    nw_trace=before["nw_trace"] + 1)
+
+
+def test_nw_kernels_spills_and_occupancy(dev):
+    """The library holds the four instantiations the wrappers launch
+    (penalty and trace, L = 128 and 256) and no other; each builds
+    without spills and resides on the SM, the trace kernel at L = 128
+    (pointers in shared memory) with at least 8 warps per SM; the
+    roofline's resources read the launched instantiation."""
+    from asm_tpu_torch.tools import roofline as rl
+    from asm_tpu_torch.utils.build import ptxas_usage
+
+    nw_cuda.build_kernel()
+    with open(nw_cuda.ptxas_report()) as f:
+        usage = ptxas_usage(f.read())
+    names = [nw_cuda.function_name(t, L) for t in (False, True)
+             for L in (128, 256)]
+    assert len([k for k in usage if "nw_kernel" in k]) == len(names)
+    for fn in names:
+        hits = [u for k, u in usage.items() if fn in k]
+        assert len(hits) == 1, fn
+        assert hits[0]["spill_stores"] == hits[0]["spill_loads"] == 0
+    for trace in (False, True):
+        for L in (128, 256):
+            assert nw_cuda.occupancy(trace, L) >= 1
+    assert nw_cuda.occupancy(True, 128) >= 8
+    got = rl.nw_resources(True, 128)
+    assert got["warps_per_sm"] == nw_cuda.occupancy(True, 128)
 
 
 def test_nw_kernels_refuse_unbuilt_shapes(dev):

@@ -7,6 +7,8 @@ pack_planes_t against asm_tpu.encoding's.
 Tolerance everywhere: exact equality (integer DP, no rounding) of
 penalties, traceback ops and match masks."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,3 +124,84 @@ def test_pack_planes_t_matches_jax(L):
             assert g.dtype == torch.int32
             np.testing.assert_array_equal(g.numpy(),
                                           np.asarray(w).view(np.int32))
+
+
+def _nw_cu_instances():
+    """csrc/nw.cu's table of instantiations: {(W, trace): (G, route)}."""
+    with open(nw_cuda.SOURCE) as f:
+        src = f.read()
+    routes = dict(PTR_NONE=nw_cuda.ROUTE_NONE, PTR_GLOBAL=nw_cuda.ROUTE_GLOBAL,
+                  PTR_SHARED=nw_cuda.ROUTE_SHARED)
+    return {(int(w), t == "true"): (int(g), routes[r]) for w, t, g, r in
+            re.findall(r"struct Inst<(\d+), (true|false)> \{ static constexpr "
+                       r"int G = (\d+), ROUTE = (\w+); \}", src)}
+
+
+class _FakeLib:
+    """asm_nw_instance over csrc/nw.cu's table, as ctypes calls it."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def asm_nw_instance(self, W, trace, G, route):
+        if (W, bool(trace)) not in self.table:
+            return 1
+        G._obj.value, route._obj.value = self.table[W, bool(trace)]
+        return 0
+
+
+@pytest.mark.parametrize("trace", [False, True], ids=["nw", "nw_trace"])
+@pytest.mark.parametrize("L", [128, 256])
+def test_nw_cu_instance_table(L, trace):
+    """csrc/nw.cu builds one instantiation per kernel and max_len: R = L/G
+    rows per thread a multiple of 4 and at most 32, the route ids the
+    ones nw_cuda names (no pointers for the penalty; the trace kernel's
+    in shared memory at L = 128, in the global scratch at L = 256), and
+    `function_name` the instantiation's mangled name."""
+    table = _nw_cu_instances()
+    assert sorted(table) == [(4, False), (4, True), (8, False), (8, True)]
+    G, route = table[L // 32, trace]
+    assert G in (8, 16, 32) and (L // G) % 4 == 0 and L // G <= 32
+    assert route == (nw_cuda.ROUTE_NONE if not trace else
+                     {128: nw_cuda.ROUTE_SHARED, 256: nw_cuda.ROUTE_GLOBAL}[L])
+    with open(nw_cuda.SOURCE) as f:
+        src = f.read()
+    assert re.search(r"enum \{ PTR_NONE = 0, PTR_GLOBAL = 1, PTR_SHARED = 2 \}",
+                     src)
+    nw_cuda.instance.cache_clear()
+    try:
+        nw_cuda._lib = _FakeLib(table)
+        assert nw_cuda.instance(trace, L) == (G, route)
+        assert nw_cuda.function_name(trace, L) == (
+            f"nw_kernelILi{L // 32}ELi{G}ELi{route}E")
+        with pytest.raises(NotImplementedError):
+            nw_cuda.instance(trace, 96)
+    finally:
+        nw_cuda._lib = None
+        nw_cuda.instance.cache_clear()
+
+
+def test_trace_scratch_pieces_follow_the_route(monkeypatch):
+    """Only the global route cuts a launch into scratch-sized pieces:
+    L * L / 2 bytes a pair, TRACE_SCRATCH_BYTES a piece."""
+    calls = []
+    monkeypatch.setattr(nw_cuda, "LAUNCHES", {"nw": 0, "nw_trace": 0})
+    monkeypatch.setattr(nw_cuda, "_launch", lambda *a: calls.append(
+        (a[0].shape[0], a[11] is None or a[11].shape)))
+    monkeypatch.setattr(nw_cuda, "instance", lambda trace, L: (
+        16, nw_cuda.ROUTE_SHARED if L == 128 else nw_cuda.ROUTE_GLOBAL))
+    monkeypatch.setattr(nw_cuda, "_checked", lambda rc, rl, fc, fl: (
+        torch.device("cuda", 0), rc.shape[0], rc.shape[1]))
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: torch.zeros(
+        *a, **{k: v for k, v in kw.items() if k != "device"}))
+    for L in (128, 256):
+        rc, rl, fc, fl = _t(generate_dataset_arrays(300, L - 30, 0.1, seed=2,
+                                                    max_len=L))
+        monkeypatch.setattr(nw_cuda, "TRACE_SCRATCH_BYTES", L * L // 2 * 64)
+        calls.clear()
+        nw_cuda.nw_align_cuda(rc, rl, fc, fl, match_mask_threshold=3)
+        if L == 128:
+            assert calls == [(300, True)]
+        else:
+            assert calls == [(n, (64, L * L // 2))
+                             for n in (64, 64, 64, 64, 44)]

@@ -457,6 +457,125 @@ def test_leap_line_is_a_bound(monkeypatch, capsys):
         rl.leap_counts([1.0, 3.0], lib_path="lib.so")
 
 
+# LISTING as an NW kernel: the first loop holds the two shuffles of a
+# step (its LDS and STS become SHFL.UP), the second loop nest stores the
+# walk's op (its SHF becomes an STG.E.U8)
+NW_LISTING = LISTING.replace(
+    "LDS R3, [R0] ;                         /* 0x0",
+    "SHFL.UP PT, R3, R3, 0x1, RZ ;          /* 0x0", 1).replace(
+    "STS [R0], R3 ;                         /* 0x0",
+    "SHFL.UP PT, R7, R3, 0x1, RZ ;          /* 0x0", 1).replace(
+    "SHF.L.U32 R10, R9, 0x2, RZ ;           /* 0x0",
+    "STG.E.U8 desc[UR4][R4.64], R9 ;        /* 0x0", 1)
+
+
+@pytest.mark.parametrize("layout", ["warp", "G8", "G16", "G32"])
+def test_nw_loop_counts_on_synthetic_listing(layout):
+    """The NW main loop is the one that holds shuffles (two a step), the
+    walk the other outermost loop that stores to global memory. The count
+    weights the loop by the warps' steps: one pair per warp and m + n
+    steps in the one-warp-per-pair layout (rows W = L/32 per thread),
+    32/G pairs per warp and `nw_cuda.warp_steps` in the strips' (rows
+    L/G)."""
+    from asm_tpu_torch.kernels import nw_cuda
+
+    rng = np.random.default_rng(3)
+    m = rng.integers(0, 129, 37)
+    n = rng.integers(0, 129, 37)
+    m[:3], n[:3] = (0, 5, 128), (7, 0, 128)
+    walk = m + n - rng.integers(0, 20, 37).clip(max=np.minimum(m, n))
+    if layout == "warp":
+        lanes, rows, steps = 32, 4, m + n
+    else:
+        lanes = int(layout[1:])
+        rows, steps = 128 // lanes, nw_cuda.warp_steps(m, n, 128, lanes)
+    cells = float(np.sum(m * n))
+    got = rl.nw_loop_counts(NW_LISTING, steps, cells, lanes, rows, walk)
+    # the first loop: SHFL.UP x2, VIADD x2, ISETP, BRA
+    assert got["loop_insts"] == 6 and got["steps_per_trip"] == 1.0
+    assert got["insts_per_step"] == 6.0
+    assert got["insts_per_slot"] == 6.0 / rows
+    assert got["loop_body"] == dict(arith=2, selcmp=1, other=2, skip=1)
+    assert got["warp_steps"] == float(np.sum(steps))
+    # 32 lanes issue every step of every warp
+    assert got["insts_per_existing_cell"] == pytest.approx(
+        32 * np.sum(steps) * 6.0 / cells)
+    assert got["existing_share"] == pytest.approx(
+        cells / (32 * rows * np.sum(steps)))
+    # the walk: the outer loop's own body (STG, MOV, IADD3, ISETP, BRA)
+    assert got["walk_insts_per_step"] == 5.0
+    assert got["walk_body"] == dict(arith=1, selcmp=1, mem=1, skip=2)
+    assert got["walk_steps_mean"] == pytest.approx(walk.mean())
+    assert got["walk_steps_warp_max_mean"] == pytest.approx(
+        rl.warp_max_mean(walk, 32 // lanes))
+    # the penalty kernel: no walk asked, none looked for
+    assert "walk_insts_per_step" not in rl.nw_loop_counts(
+        NW_LISTING, steps, cells, lanes, rows)
+    with pytest.raises(ValueError, match="shuffles"):
+        rl.nw_loop_counts(LISTING, steps, cells, lanes, rows)
+    with pytest.raises(ValueError, match="walk loop"):
+        rl.nw_loop_counts(NW_LISTING.replace("STG.E.U8", "LDS.U8"), steps,
+                          cells, lanes, rows, walk)
+
+
+def test_nw_warp_steps_against_a_direct_count():
+    """A warp of 32/G pairs runs until its last pair's thread holding row
+    m has swept column n: max over its pairs of n + (m-1) // (L/G), 0 for
+    a pair with an empty side; lengths clamped to L."""
+    from asm_tpu_torch.kernels import nw_cuda
+
+    rng = np.random.default_rng(5)
+    for L in (128, 256):
+        m = rng.integers(0, L + 9, 101)
+        n = rng.integers(0, L + 9, 101)
+        for G in (8, 16, 32):
+            want = []
+            for w in range(0, 101, 32 // G):
+                best = 0
+                for i in range(w, min(w + 32 // G, 101)):
+                    mi, ni = min(m[i], L), min(n[i], L)
+                    if mi and ni:
+                        best = max(best, ni + (mi - 1) // (L // G))
+                want.append(best)
+            assert nw_cuda.warp_steps(m, n, L, G).tolist() == want
+
+
+# the NW instantiations as nvcc -Xptxas -v reports them: (W, G, route)
+NW_TAIL = "EEvPKaS1_PKiS3_NS_6ParamsEPiPaS6_Ph"
+NW_INSTANCES = {(4, False): (8, 0), (4, True): (16, 2), (8, False): (8, 0),
+                (8, True): (8, 1)}
+NW_PTXAS = "".join(
+    f"ptxas info    : Compiling entry function "
+    f"'_ZN12_GLOBAL__N_19nw_kernelILi{w}ELi{g}ELi{r}{NW_TAIL}' for 'sm_90a'\n"
+    f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    f"ptxas info    : Used {regs} registers, used 0 barriers\n"
+    for ((w, _), (g, r)), regs in zip(NW_INSTANCES.items(),
+                                      (72, 64, 40, 56)))
+
+
+def test_nw_resources_from_a_ptxas_report(monkeypatch):
+    """The NW lines' registers and spills come from the launched
+    instantiation's entry (W, G and route in its name), its warps per SM
+    from `nw_cuda.occupancy`."""
+    from asm_tpu_torch.kernels import nw_cuda
+
+    table = dict(NW_INSTANCES)
+    monkeypatch.setattr(nw_cuda, "instance",
+                        lambda trace, L: table[L // 32, trace])
+    asked = []
+    monkeypatch.setattr(nw_cuda, "occupancy",
+                        lambda *a: asked.append(a) or 12)
+    assert rl.nw_resources(False, 128, report=NW_PTXAS) == dict(
+        registers=72, spill_stores=0, spill_loads=0, warps_per_sm=12)
+    assert rl.nw_resources(True, 128, report=NW_PTXAS)["registers"] == 64
+    assert rl.nw_resources(False, 256, report=NW_PTXAS)["registers"] == 40
+    assert rl.nw_resources(True, 256, report=NW_PTXAS)["registers"] == 56
+    assert asked == [(False, 128), (True, 128), (False, 256), (True, 256)]
+    table[4, False] = (32, 0)  # an instantiation the library does not hold
+    with pytest.raises(ValueError, match="0 kernels"):
+        rl.nw_resources(False, 128, report=NW_PTXAS)
+
+
 def test_chip_smoke_names_every_instantiation():
     """chip_smoke's ptxas summary names each kernel instantiation; LEAP's
     carry the semantics (csrc/leap.cu's SEM) and the CIGAR mode."""
@@ -472,6 +591,11 @@ def test_chip_smoke_names_every_instantiation():
     assert chip_smoke._instance_name(
         "_ZN12_GLOBAL__N_113greedy_kernelILi3ELi4ELb1EsEEvPKj") == (
         "greedy k3/W4/planes")
+    # the NW full and trace kernels: W, G threads per pair, the route
+    got = [chip_smoke._instance_name(ln.split("'")[1])
+           for ln in NW_PTXAS.splitlines() if "Compiling" in ln]
+    assert got == ["nw W4/G8", "nw_trace W4/G16/shared", "nw W8/G8",
+                   "nw_trace W8/G8/global"]
     assert chip_smoke._instance_name("_Z11unknown_fnv") is None
 
 
