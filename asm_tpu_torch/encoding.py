@@ -46,6 +46,16 @@ def decode_string(codes: np.ndarray, length: int | None = None) -> str:
     return "".join(_CODE_TO_BASE[codes])
 
 
+def decode_batch(codes: np.ndarray, lens: np.ndarray) -> list[str]:
+    """`decode_string` over a whole [N, L] batch: one table gather, then a
+    per-row tobytes().decode() (codes above 3 decode as 'N')."""
+    codes = np.asarray(codes)
+    lut = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    ch = lut[np.clip(codes, 0, 4)]
+    return [ch[i, : int(lens[i])].tobytes().decode()
+            for i in range(codes.shape[0])]
+
+
 def encode_batch(
     reads: list[str],
     refs: list[str],

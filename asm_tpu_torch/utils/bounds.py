@@ -42,7 +42,8 @@ def bound_entry(ops: float, nbytes: float) -> dict:
                 library_ms=None)
 
 
-def greedy_work(steps, bounds, chunk, k=3, L=128) -> tuple[float, float]:
+def greedy_work(steps, bounds, chunk, k=3, L=128,
+                codes=False) -> tuple[float, float]:
     """csrc/greedy.cu. Per pair, for each of the 2k+1 lanes and W = L/32
     words: the hurdle row (shift, XOR, OR: 4) and its denoise (two shifts,
     OR, AND: 4). Per step (the pair's own count), for each lane: per word
@@ -50,14 +51,14 @@ def greedy_work(steps, bounds, chunk, k=3, L=128) -> tuple[float, float]:
     bit: 4) and two popcount windows (AND, popcount, add: 3 each), and 12
     for the highway's start, end and clamp (4), the switch penalty (2),
     the selection compare (2) and the choice test (4). Bytes: 2 x L/4 of
-    planes, 8 of lengths, 8 of cost and steps, and each chunk's (T+1)
-    int16 records."""
+    planes (with codes, the int8 codes route's 2 x L), 8 of lengths, 8 of
+    cost and steps, and each chunk's (T+1) int16 records."""
     NL, W = 2 * k + 1, L // 32
     n = len(steps)
     ops = n * NL * W * 8 + float(np.sum(steps)) * NL * (10 * W + 12)
     rec = sum(min(chunk, n - i * chunk) * (b + 1) * 2
               for i, b in enumerate(bounds))
-    return ops, n * (2 * (L // 4) + 16) + rec
+    return ops, n * (2 * (L if codes else L // 4) + 16) + rec
 
 
 def band_cells(m, n, bw: int) -> np.ndarray:

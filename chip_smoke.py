@@ -82,6 +82,15 @@ line:
      slots that are existing cells, the walk's SASS per step, registers,
      spills, warps per SM, time against the bound) from phase 6b's
      residue and phase 7's chunk.
+ 13. mapper main path: tools/mapper_eval's corpus (a 50 Mbp genome, seed
+     7; 100,000 reads of 100 bp at the real-profile error rates) through
+     the FM-index and `mapper.map_reads(impl="cuda")` at batch 8192,
+     after an 8-read warm-up; the greedy kernel must have launched at
+     least once per batch, the plain version (impl="torch", on the card)
+     must write the same SAM text and best hits, and recall, eligible
+     recall, unmapped reads, the cost sum and the SAM digest must equal
+     the pinned values. The line carries reads/s, the stage profile,
+     kernel_ms, the launches and their bound.
 Prints a JSON line of per-kernel results (time, plain version's time,
 bound, launches), the card line, and last {"ok": true, "device": {...}}.
 Any failure raises (exit code != 0).
@@ -155,6 +164,20 @@ HARNESS_GREEDY_EQ = 931265
 HARNESS_LEAP_EQ = 997619
 HARNESS_COVERED = 975809
 HARNESS_PREFIX = 65_536
+# The mapper on tools/mapper_eval's corpus (rng = default_rng(7); a
+# 50,000,000-base genome rng.integers(0, 4, dtype=int8); 100,000 reads of
+# 100 bp from sample_reads(genome, 100000, 100, rng) at its default
+# rates; MapperConfig(max_errors=3, batch=8192)), computed with the JAX
+# package on the CPU: asm_tpu.mapper.map_reads. Reads within 5 bases of
+# their origin, reads with <= 3 injected errors and those of them placed
+# so, unmapped reads, the sum of best costs, and sha256 of the SAM text
+# with its @PG line removed.
+MAPPER_GENOME = 50_000_000
+MAPPER_READS = 100_000
+MAPPER_PINS = dict(
+    n_ok=94922, n_elig=74901, n_elig_ok=74901, unmapped=5078,
+    cost_sum=328650, n_jobs=96998, sam_sha256=(
+        "1333a86748d6960cd3fdca76074e3f394c66a2822fe7e9516f1e176f5eb7ac81"))
 # phase 12: the check's issue_chain iterations and stream size (the
 # measurement takes tools/roofline.micro's) and the probe's loop trips
 ISSUE_CHECK_ITERS = 16
@@ -317,6 +340,26 @@ def cuda_ms(fn, reps: int) -> tuple[float, object]:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best, out
+
+
+def queued_ms(fn, launches: int, reps: int = 3) -> float:
+    """Best device milliseconds per call of fn() over `launches` calls
+    queued behind a spin of the card (torch.cuda._sleep), so that the
+    host's enqueue time does not show between them; after one warm-up
+    call."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda._sleep(40_000_000)  # ~20 ms at 1.98 GHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / launches)
+    return best
 
 
 def max_diff(got, want, what: str) -> int:
@@ -998,6 +1041,109 @@ def harness_path(dev, card) -> None:
           f"{card}")
 
 
+def sam_digest(sam: str) -> str:
+    """sha256 of a SAM text without its @PG line (which names the
+    package)."""
+    import hashlib
+
+    body = "\n".join(ln for ln in sam.split("\n") if not ln.startswith("@PG"))
+    return hashlib.sha256(body.encode()).hexdigest()
+
+
+def mapper_path(dev, card) -> dict:
+    """Phase 13: the read mapper on mapper_eval's 50 Mbp corpus. Returns
+    the greedy kernel's numbers on this path."""
+    from asm_tpu_torch.kernels import greedy_cuda
+    from asm_tpu_torch.mapper import MapperConfig, build_index, map_reads
+    from asm_tpu_torch.mapper.simulate import sample_reads
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    genome = rng.integers(0, 4, size=MAPPER_GENOME, dtype=np.int8)
+    idx = build_index(genome)
+    t_index = time.perf_counter() - t0
+    reads, lens, origins, nerr = sample_reads(genome, MAPPER_READS, 100, rng)
+    t_setup = time.perf_counter() - t0
+    mcfg = MapperConfig(max_errors=3, batch=8192)
+    map_reads(idx, genome, reads[:8], lens[:8], mcfg=mcfg, device=dev)
+
+    greedy_cuda.LAUNCHES = 0
+    prof = {}
+    t0 = time.perf_counter()
+    best, sam = map_reads(idx, genome, reads, lens, mcfg=mcfg, profile=prof,
+                          device=dev, impl="cuda")
+    wall = time.perf_counter() - t0
+    launches = greedy_cuda.LAUNCHES
+    batches = prof["p1_batches"] + prof.get("p2_batches", 0)
+    if launches < batches:
+        raise AssertionError(f"the mapper launched the greedy kernel "
+                             f"{launches} times for {batches} batches")
+    plain = {}
+    t0 = time.perf_counter()
+    pbest, psam = map_reads(idx, genome, reads, lens, mcfg=mcfg,
+                            profile=plain, device=dev, impl="torch")
+    plain_wall = time.perf_counter() - t0
+    if psam != sam or pbest != best:
+        raise AssertionError("mapper: impl torch and cuda write different "
+                             "SAM text or best hits")
+    ok = np.array([b is not None and abs(b["pos"] - int(o)) <= 5
+                   for b, o in zip(best, origins)])
+    elig = nerr <= mcfg.max_errors
+    pins = dict(n_ok=int(ok.sum()), n_elig=int(elig.sum()),
+                n_elig_ok=int(ok[elig].sum()),
+                unmapped=sum(b is None for b in best),
+                cost_sum=sum(b["cost"] for b in best if b is not None),
+                n_jobs=prof["n_jobs"], sam_sha256=sam_digest(sam))
+    if pins != MAPPER_PINS:
+        raise AssertionError(f"mapper {pins} != pinned {MAPPER_PINS}")
+    # one batch of the mapper's shape, the first 8,192 reads at their
+    # origins, timed apart from the host and held against the plain
+    # version
+    from asm_tpu_torch.kernels.greedy import greedy_align
+    from asm_tpu_torch.mapper.core import stage_reads, window_batch
+    from asm_tpu_torch.utils.bounds import bound_entry, greedy_work
+
+    cfg, B = mcfg.align, mcfg.batch
+    reads_d, lens_d = stage_reads(reads, lens, dev)
+    args = window_batch(torch.from_numpy(genome).to(dev), reads_d, lens_d,
+                        torch.arange(B, device=dev),
+                        torch.from_numpy(origins[:B]).to(dev), cfg.max_len)
+    launch_ms = queued_ms(lambda: greedy_cuda.greedy_align_cuda(
+        *args, cfg, want_cigar=False), launches=20)
+    got = greedy_cuda.greedy_align_cuda(*args, cfg, want_cigar=False)
+    plain_ms, want = cuda_ms(lambda: greedy_align(*args, cfg, records=True),
+                             reps=2)
+    err = max(max_diff(got[k], want[k], f"mapper batch {k}")
+              for k in ("cost", "steps", "step_rec"))
+    launch_bound = bound_entry(*greedy_work(
+        got["steps"].cpu().numpy(), [cfg.steps_bound], B, codes=True))
+    stages = {k[:-2]: round(v, 4) for k, v in prof.items()
+              if k.endswith("_s")}
+    phase(f"[13 mapper] {MAPPER_READS} reads on a {MAPPER_GENOME / 1e6:.0f} "
+          f"Mbp genome (index {t_index:.1f} s, with sampling "
+          f"{t_setup:.1f} s): recall {pins['n_ok'] / MAPPER_READS:.5f}, "
+          f"eligible {pins['n_elig_ok'] / pins['n_elig']:.5f}, unmapped "
+          f"{pins['unmapped']}, cost sum {pins['cost_sum']}, SAM digest "
+          f"{pins['sam_sha256'][:8]}... (all pinned); impl torch writes the "
+          f"same SAM; {MAPPER_READS / wall:.1f} reads/s ({wall:.3f} s wall; "
+          f"plain version {MAPPER_READS / plain_wall:.1f} reads/s); "
+          f"{prof['n_jobs']} jobs in {batches} batches, two_phase "
+          f"{prof['two_phase']}; stages (s) {json.dumps(stages)}; kernel_ms "
+          f"{prof['kernel_ms']:.4f} ({prof['kernel_ms'] / 1e3 / wall:.2%} of "
+          f"the wall) over {launches} launches, bound {prof['bound_ms']:.5f} "
+          f"ms ({prof['bound_by']}); plain rescoring {plain['kernel_ms']:.3f}"
+          f" ms; one {B}-pair batch queued: kernel {launch_ms:.4f} ms, bound "
+          f"{launch_bound['bound_ms']:.5f} ms ({launch_bound['bound_by']}), "
+          f"plain {plain_ms:.3f} ms, equal to it (max abs err {err}); all "
+          f"on {card}")
+    return dict(reads=MAPPER_READS, genome=MAPPER_GENOME, batch=B,
+                launches=launches, kernel_ms=prof["kernel_ms"],
+                run_bound_ms=prof["bound_ms"], ms=launch_ms,
+                plain_ms=plain_ms, bound_ms=launch_bound["bound_ms"],
+                bound_by=launch_bound["bound_by"], max_abs_err=float(err),
+                reads_per_sec=MAPPER_READS / wall)
+
+
 INT_CATEGORIES = ("arith", "shift", "popcount", "selcmp")
 
 
@@ -1212,6 +1358,8 @@ def main() -> int:
     harness_path(dev, card)
     entries += roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
                               dict(nw=full_row, nw_trace=trace_row))
+    # the greedy kernel on the mapper's path, beside its main path's numbers
+    entries[0]["mapper"] = mapper_path(dev, card)
 
     print(json.dumps({"kernels": entries}))
     print(card_line(), flush=True)

@@ -12,7 +12,9 @@ Tolerance: exact equality of cost, steps, raw step records, the trips
 read from them and the decoded CIGARs (greedy);
 of penalties, ops and match masks (NW); of passed, penalty, lane_shift and
 raw edit records (LEAP); of the roofline kernels' words; of the harness's
-counts and the pipeline step's outputs."""
+counts and the pipeline step's outputs; of the mapper's best hits and SAM
+text. The mapper corpora below (numpy only) serve
+tests/test_torch_mapper.py too."""
 
 import numpy as np
 import pytest
@@ -573,3 +575,110 @@ def test_pipeline_step_cuda_matches_torch(dev):
     want = make_pipeline_step(AlignConfig(), dev, "torch")(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---- the read mapper -------------------------------------------------------
+
+def mapper_planted(seed=11, n_genome=20000, n_reads=40, rlen=100):
+    """tests/test_native_mapper.py's end-to-end corpus: reads cut from a
+    random genome at known starts, two substitutions each."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=n_genome).astype(np.int8)
+    starts = rng.integers(0, genome.shape[0] - rlen - 5, size=n_reads)
+    reads = np.full((n_reads, 128), 4, np.int8)
+    lens = np.full(n_reads, rlen, np.int32)
+    for i, s in enumerate(starts):
+        r = genome[s: s + rlen].copy()
+        for _ in range(2):
+            p = int(rng.integers(0, rlen))
+            r[p] = (r[p] + 1 + rng.integers(0, 3)) % 4
+        reads[i, :rlen] = r
+    return genome, reads, lens
+
+
+def mapper_repeat():
+    """A read whose every pigeonhole seed lies in a 64-copy repeat
+    (tests/test_native_mapper.py), with a candidate cap below the copies."""
+    from asm_tpu_torch.encoding import PAD_READ, encode_string
+
+    unit = "ACGTTGCATCGATCAGGTCCAATGCCGTAGGACTTACGGA"
+    genome = encode_string(unit * 64, 40 * 64, pad=5)
+    read = unit * 2
+    reads = encode_string(read, 128, pad=PAD_READ)[None, :]
+    return genome, reads, np.array([len(read)], np.int32)
+
+
+def mapper_edges(seed=4, n_genome=6000):
+    """Reads cut at the genome's last bases (windows clipped at its end),
+    reads of 60-100 bases, random reads with no candidate, reads shorter
+    than the seed count, and an empty read."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=n_genome).astype(np.int8)
+    rows = []
+    for back in (100, 101, 103, 90, 70):  # ends at or near the last base
+        r = genome[n_genome - back: n_genome - back + min(back, 100)].copy()
+        r[5] = (r[5] + 1) % 4
+        rows.append(r)
+    for rlen in (60, 75, 99, 100):
+        s = int(rng.integers(0, n_genome - rlen))
+        r = genome[s: s + rlen].copy()
+        r[rlen // 2] = (r[rlen // 2] + 2) % 4
+        rows.append(r)
+    rows += [rng.integers(0, 4, size=100).astype(np.int8) for _ in range(4)]
+    rows += [genome[:3].copy(), genome[10:12].copy(), genome[:0].copy()]
+    reads = np.full((len(rows), 128), 4, np.int8)
+    lens = np.array([r.size for r in rows], np.int32)
+    for i, r in enumerate(rows):
+        reads[i, :r.size] = r
+    return genome, reads, lens
+
+
+# case -> (corpus, MapperConfig keywords; "max_steps" sets align.max_steps)
+MAPPER_CARD_CASES = {
+    "planted": (mapper_planted, dict(batch=16)),
+    "repeat": (mapper_repeat, dict(max_hits_per_seed=8, max_candidates=32)),
+    "truncation": (mapper_planted, dict(max_steps=2, two_phase=True)),
+}
+
+
+def mapper_config(MapperConfig, kw):
+    """MapperConfig(**kw) of either package, max_steps applied to align."""
+    kw = dict(kw)
+    max_steps = kw.pop("max_steps", None)
+    mcfg = MapperConfig(**kw)
+    if max_steps is not None:
+        import dataclasses
+
+        mcfg = dataclasses.replace(mcfg, align=dataclasses.replace(
+            mcfg.align, max_steps=max_steps))
+    return mcfg
+
+
+@pytest.mark.parametrize("case", sorted(MAPPER_CARD_CASES))
+def test_mapper_cuda_matches_torch(dev, case):
+    from asm_tpu_torch.mapper.core import MapperConfig, build_index, map_reads
+
+    corpus, kw = MAPPER_CARD_CASES[case]
+    genome, reads, lens = corpus()
+    mcfg = mapper_config(MapperConfig, kw)
+    idx = build_index(genome)
+    before = greedy_cuda.LAUNCHES
+    prof = {}
+    got = map_reads(idx, genome, reads, lens, mcfg=mcfg, profile=prof,
+                    device=dev, impl="cuda")
+    assert greedy_cuda.LAUNCHES - before >= prof["p1_batches"] > 0
+    assert prof["kernel_ms"] > 0
+    want = map_reads(idx, genome, reads, lens, mcfg=mcfg, device=dev,
+                     impl="torch")
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+
+
+def test_mapper_refuses_unbuilt_k(dev):
+    from asm_tpu_torch.mapper.core import MapperConfig, build_index, map_reads
+
+    genome, reads, lens = mapper_planted(n_reads=8)
+    mcfg = MapperConfig(align=AlignConfig(k=5, max_steps=32))
+    with pytest.raises(NotImplementedError):
+        map_reads(build_index(genome), genome, reads, lens, mcfg=mcfg,
+                  device=dev, impl="cuda")

@@ -59,17 +59,27 @@ _PORT_MODULES = [
     "asm_tpu_torch.kernels.roofline_cuda",
     "asm_tpu_torch.tools",
     "asm_tpu_torch.tools.roofline",
+    "asm_tpu_torch.mapper",
+    "asm_tpu_torch.mapper.core",
+    "asm_tpu_torch.mapper.simulate",
+    "asm_tpu_torch.mapper.indexer",
+    "asm_tpu_torch.mapper.__main__",
+    "asm_tpu_torch.tools.mapper_eval",
 ]
 # the LEAP slice's entry points
 _LEAP_MODULES = ["asm_tpu_torch.kernels.leap_cuda",
                  "asm_tpu_torch.leap_headline",
                  "asm_tpu_torch.apps.leap_filter"]
+# the mapper's entry points
+_MAPPER_MODULES = ["asm_tpu_torch.mapper", "asm_tpu_torch.mapper.indexer",
+                   "asm_tpu_torch.mapper.__main__",
+                   "asm_tpu_torch.tools.mapper_eval"]
 
 
-@pytest.mark.parametrize("module", ["asm_tpu_torch", "leap", "all"])
+@pytest.mark.parametrize("module", ["asm_tpu_torch", "leap", "mapper", "all"])
 def test_port_imports_no_jax(module):
-    mods = {"all": _PORT_MODULES, "leap": _LEAP_MODULES}.get(module,
-                                                             [module])
+    mods = {"all": _PORT_MODULES, "leap": _LEAP_MODULES,
+            "mapper": _MAPPER_MODULES}.get(module, [module])
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
