@@ -12,9 +12,9 @@
 // thread that held them in its own registers (orig and den: 2 x (2k+1) x W
 // words, 56 at k = 3, L = 128) took 185 registers, and 8 warps fit on an
 // SM. Here a block's state lives in dynamic shared memory with the thread
-// index fastest: the rows as uint32[2][NL][W][kThreads] (word (r, li, w)
-// of thread t at ((r * NL + li) * W + w) * kThreads + t), then the
-// per-lane scalars sp, hlen, nsw and nhur as int32[4][NL][kThreads]. A
+// index fastest: the rows as uint32[2][NL][W][NT] (word (r, li, w) of
+// thread t at ((r * NL + li) * W + w) * NT + t, NT the block's threads),
+// then the per-lane scalars sp, hlen, nsw and nhur as int32[4][NL][NT]. A
 // warp's access touches 32 consecutive words in 32 banks whatever lane
 // each thread indexes, so the chosen lane's row and scalars are read at a
 // per-thread index (best_li, bil, dl_c + K) without bank conflicts and
@@ -22,10 +22,15 @@
 // its own column: no barrier, no shuffle. The highway update, the lane
 // loop with the most live state, stays rolled (#pragma unroll 1):
 // unrolled, ptxas hoists its shared loads across lanes and spilled at 96
-// registers. Shared memory bounds residency: 43,008 B a block at k = 3, L
-// = 128, so 5 blocks (20 warps) per SM at 79 registers, no spills; 3 at L
-// = 256. __launch_bounds__ asks for those blocks (min_blocks), and the
-// carveout prefers shared memory over L1.
+// registers. Shared memory bounds residency: (2W + 4)(2k + 1) words a
+// thread, 43,008 B a 128-thread block at k = 3, L = 128, so 5 blocks (20
+// warps) per SM at 79 registers, no spills; 3 at L = 256. At L = 512 a
+// thread holds 1,008 B (k = 3; 1,296 at k = 4), so a 128-thread block
+// leaves one block, 4 warps, per SM; smaller blocks pack the SM finer,
+// and the block's thread count is fixed per max_len in block_threads()
+// (PERF.md: the L = 512 sweep of 128, 64 and 32). __launch_bounds__ asks
+// for the blocks that fit (min_blocks), and the carveout prefers shared
+// memory over L1.
 //
 // What bounds it on Hopper: integer issue. The step loop issues ~2,140
 // SASS instructions a trip (one or two trips per pair at the headline's
@@ -61,24 +66,30 @@
 namespace {
 
 constexpr uint32_t kFull = 0xFFFFFFFFu;
-constexpr int kThreads = 128;  // threads per block, one pair each
-constexpr int kMaxMinBlocks = 5;
+constexpr int kMinRegs = 96;  // registers per thread min_blocks leaves
+
+// threads per block (one pair each) at W words per row: 128 at L = 128 and
+// 256; at L = 512 the fastest of 128, 64 and 32 on the card
+__host__ __device__ constexpr int block_threads(int W) {
+    return W == 16 ? 32 : 128;
+}
 
 // a block's shared memory: per lane, W orig and W den words and 4
 // scalars, per thread
 template <int K, int W>
 constexpr size_t smem_bytes() {
-    return sizeof(uint32_t) * (2 * W + 4) * (2 * K + 1) * kThreads;
+    return sizeof(uint32_t) * (2 * W + 4) * (2 * K + 1) * block_threads(W);
 }
 
 // the blocks per SM that __launch_bounds__ asks for: as many as fit in the
 // SM's 228 KB of shared memory (1 KB of it reserved per block; 5 at k = 3,
-// L = 128, 3 at L = 256), at most kMaxMinBlocks, which caps registers at
-// 65,536 / (kMaxMinBlocks x kThreads) per thread (96)
+// L = 128, 3 at L = 256), at most as many as leave kMinRegs registers per
+// thread (5 blocks of 128 threads)
 template <int K, int W>
 constexpr int min_blocks() {
     const int fit = (int)((228 * 1024) / (smem_bytes<K, W>() + 1024));
-    return fit < kMaxMinBlocks ? fit : kMaxMinBlocks;
+    const int regs = 65536 / (kMinRegs * block_threads(W));
+    return fit < regs ? fit : regs;
 }
 
 __device__ __forceinline__ uint32_t mask_ge(int c, int w) {
@@ -115,12 +126,12 @@ __device__ __forceinline__ int count_range(const uint32_t (&words)[W], int lo,
     return cnt;
 }
 
-// the W words of a row of this thread's column (stride kThreads)
+// the W words of a row of this thread's column (stride NT)
 template <int W>
 __device__ __forceinline__ void load_row(const uint32_t* row,
                                          uint32_t (&words)[W]) {
 #pragma unroll
-    for (int w = 0; w < W; w++) words[w] = row[w * kThreads];
+    for (int w = 0; w < W; w++) words[w] = row[w * block_threads(W)];
 }
 
 // bit p of the result = bit p + s of the row (shift toward position 0)
@@ -158,24 +169,25 @@ struct Params {
 };
 
 template <int K, int W, bool kPlanes, typename RecT>
-__global__ void __launch_bounds__(kThreads, (min_blocks<K, W>()))
+__global__ void __launch_bounds__(block_threads(W), (min_blocks<K, W>()))
 greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
               const int* __restrict__ rl, const int* __restrict__ fl,
               const Params P, int* __restrict__ cost_out,
               int* __restrict__ steps_out, RecT* __restrict__ rec) {
     constexpr int NL = 2 * K + 1;
     constexpr int L = 32 * W;
-    const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+    constexpr int NT = block_threads(W);
+    const int64_t p = (int64_t)blockIdx.x * NT + threadIdx.x;
     if (p >= P.B) return;
     const int64_t B = P.B;
     const int x = P.x, o = P.o, e = P.e;
     const int m = min(rl[p], L);
     const int n = min(fl[p], L);
     extern __shared__ __align__(16) uint32_t g_state[];
-    // this thread's column: orig row li at orig + li * W * kThreads, den
-    // row li at den + li * W * kThreads, word w at w * kThreads
+    // this thread's column: orig row li at orig + li * W * NT, den
+    // row li at den + li * W * NT, word w at w * NT
     uint32_t* const orig = g_state + threadIdx.x;
-    uint32_t* const den = orig + NL * W * kThreads;
+    uint32_t* const den = orig + NL * W * NT;
 
     {
         // ---- the pair's bit-planes ----
@@ -218,8 +230,8 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
             for (int w = 0; w < W; w++) {
                 const uint32_t lo_prev = w > 0 ? h[w - 1] >> 31 : 0u;
                 const uint32_t hi_next = w < W - 1 ? h[w + 1] << 31 : 0u;
-                orig[(li * W + w) * kThreads] = h[w];
-                den[(li * W + w) * kThreads] =
+                orig[(li * W + w) * NT] = h[w];
+                den[(li * W + w) * NT] =
                     h[w] & (((h[w] << 1) | lo_prev) | ((h[w] >> 1) | hi_next));
             }
         }
@@ -233,19 +245,19 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
         const int dest_lt = lane < 0 ? m + lane : (lane <= n - m ? m : n - lane);
         return m >= n ? dest_ge : dest_lt;
     };
-    // the per-lane scalars, after the rows, lane li at li * kThreads
-    int* const sp = (int*)(den + NL * W * kThreads);
-    int* const hlen = sp + NL * kThreads;
-    int* const nsw = hlen + NL * kThreads;
-    int* const nhur = nsw + NL * kThreads;
+    // the per-lane scalars, after the rows, lane li at li * NT
+    int* const sp = (int*)(den + NL * W * NT);
+    int* const hlen = sp + NL * NT;
+    int* const nsw = hlen + NL * NT;
+    int* const nhur = nsw + NL * NT;
 
     int cur_lane = 0, cur_col = 0, cost = 0, steps = 0;
     bool done = false;
 #pragma unroll
     for (int li = 0; li < NL; li++) {
-        sp[li * kThreads] = -1;
-        hlen[li * kThreads] = 0;
-        nsw[li * kThreads] = L;
+        sp[li * NT] = -1;
+        hlen[li * NT] = 0;
+        nsw[li * NT] = L;
     }
 
     int it = 0;
@@ -262,7 +274,7 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
             const int lane = li - K;
             const int s = cur_col + sfc(cur_lane, lane);
             uint32_t u[W];
-            load_row<W>(den + li * W * kThreads, u);
+            load_row<W>(den + li * W * NT, u);
 #pragma unroll
             for (int w = 0; w < W; w++) u[w] |= ~mask_ge(s, w);
             int fz = L;
@@ -285,18 +297,18 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
             const int raw_len = (sp_new >= L || no_g >= L) ? L : no_g - sp_new;
             const bool clamp = sp_new + raw_len > d;
             const int len_new = clamp ? max(d - sp_new, 0) : raw_len;
-            int spv = sp[li * kThreads], hl = hlen[li * kThreads];
+            int spv = sp[li * NT], hl = hlen[li * NT];
             if (spv < s) {
                 spv = sp_new;
                 hl = len_new;
-                sp[li * kThreads] = spv;
-                hlen[li * kThreads] = hl;
-                nsw[li * kThreads] = iabs(lane - cur_lane);
+                sp[li * NT] = spv;
+                hlen[li * NT] = hl;
+                nsw[li * NT] = iabs(lane - cur_lane);
                 reaching = reaching || clamp;
             }
             uint32_t h[W];
-            load_row<W>(orig + li * W * kThreads, h);
-            nhur[li * kThreads] = count_range<W>(h, s, spv + hl);
+            load_row<W>(orig + li * W * NT, h);
+            nhur[li * NT] = count_range<W>(h, s, spv + hl);
         }
 
         // ---- selection scan (hurdle_matrix.h:325-352) ----
@@ -306,16 +318,16 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
 #pragma unroll
         for (int li = 0; li < NL; li++) {
             const int lane = li - K;
-            const int hl = hlen[li * kThreads], nh = nhur[li * kThreads];
+            const int hl = hlen[li * NT], nh = nhur[li * NT];
             const int swc = swc_of(li);
             const float sig = __fadd_rn(
                 __fadd_rn(__fmul_rn(P.match_sig, __int2float_rn(hl)),
                           __fmul_rn(P.mismatch_sig, __int2float_rn(nh))),
-                __fmul_rn(P.indel_sig, __int2float_rn(nsw[li * kThreads])));
+                __fmul_rn(P.indel_sig, __int2float_rn(nsw[li * NT])));
             const int fsc = P.is_global ? slp(lane, dest_lane, o, e) : 0;
             const float h_reach = __int2float_rn(
                 -(swc + x * nh) - fsc -
-                x * (dest_of(lane) - sp[li * kThreads] - hl));
+                x * (dest_of(lane) - sp[li * NT] - hl));
             const float h = reaching ? h_reach : sig;
             const int lh = -swc - (reaching ? fsc : 0);
             if (h > best_h || (h == best_h && lh > best_lh)) {
@@ -326,11 +338,11 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
         }
 
         // the chosen lane's scalars and row, read at the index best_li
-        const int best_len = hlen[best_li * kThreads];
-        const int sp_b = sp[best_li * kThreads];
-        int stc = swc_of(best_li) + x * nhur[best_li * kThreads];
+        const int best_len = hlen[best_li * NT];
+        const int sp_b = sp[best_li * NT];
+        int stc = swc_of(best_li) + x * nhur[best_li * NT];
         uint32_t row_b[W];
-        load_row<W>(orig + best_li * W * kThreads, row_b);
+        load_row<W>(orig + best_li * W * NT, row_b);
         const bool valid = best_len > 0;  // else: stop without a step
 
         // ---- _choose_best_highway (hurdle_matrix.h:368-401) ----
@@ -340,13 +352,13 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
 #pragma unroll
         for (int li = 0; li < NL; li++) {
             const int lane = li - K;
-            const int spv = sp[li * kThreads];
+            const int spv = sp[li * NT];
             const int fwd_lb = sfc(lane, best_lane);
             const bool skip = (li == best_li) || (spv + fwd_lb > sp_b);
             // the RAW popcount (hurdle_matrix.h:389), nhur's window
-            const int ic = swc_of(li) + nhur[li * kThreads];
+            const int ic = swc_of(li) + nhur[li * NT];
             const int cross = count_range<W>(
-                row_b, fwd_lb + spv + hlen[li * kThreads], sp_b);
+                row_b, fwd_lb + spv + hlen[li * NT], sp_b);
             const int tc = ic + slp(lane, best_lane, o, e) + max(0, x * cross);
             if (!skip && tc <= stc && ic <= sic) {
                 stc = tc;
@@ -359,8 +371,8 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
         const int bl_lane = bil - K;
         int packed = 0;
         if (valid) {
-            const int sp_c = sp[bil * kThreads], len_c = hlen[bil * kThreads];
-            cost += swc_of(bil) + x * nhur[bil * kThreads];
+            const int sp_c = sp[bil * NT], len_c = hlen[bil * NT];
+            cost += swc_of(bil) + x * nhur[bil * NT];
             const int distance = sp_c + len_c - (cur_col + sfc(cur_lane, bl_lane));
             packed = (((bl_lane - cur_lane) + 64) << 1) | (distance << 8);
             cur_lane = bl_lane;
@@ -378,7 +390,7 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
     const int dl_c = min(max(dest_lane, -K), K);
     const int dest_col = dest_of(dl_c);
     uint32_t row_dl[W];
-    load_row<W>(orig + (dl_c + K) * W * kThreads, row_dl);
+    load_row<W>(orig + (dl_c + K) * W * NT, row_dl);
     const int lo = cur_col + sfc(cur_lane, dest_lane);
     const int distance = in_band ? count_range<W>(row_dl, lo, dest_col) : 0;
     const bool moved_off = cur_lane != dest_lane;
@@ -415,32 +427,44 @@ struct Launch {
 };
 
 // launches the instantiation (a != nullptr) or, with a == nullptr, stores
-// its resident blocks per SM in *blocks
+// its resident warps per SM in *warps
 template <int K, int W, bool kPlanes>
-cudaError_t run(const Launch* a, int* blocks) {
+cudaError_t run(const Launch* a, int* warps) {
     using RecT = typename std::conditional<(32 * W <= 255 && 2 * K <= 62),
                                            int16_t, int32_t>::type;
     constexpr size_t smem = smem_bytes<K, W>();
     static const cudaError_t attr =
         set_attributes(greedy_kernel<K, W, kPlanes, RecT>, smem);
     if (attr != cudaSuccess) return attr;
-    if (a == nullptr)
-        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks, greedy_kernel<K, W, kPlanes, RecT>, kThreads, smem);
-    const int grid = (a->P.B + kThreads - 1) / kThreads;
-    greedy_kernel<K, W, kPlanes, RecT><<<grid, kThreads, smem, a->stream>>>(
+    constexpr int NT = block_threads(W);
+    if (a == nullptr) {
+        const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            warps, greedy_kernel<K, W, kPlanes, RecT>, NT, smem);
+        *warps = *warps * NT / 32;
+        return err;
+    }
+    const int grid = (a->P.B + NT - 1) / NT;
+    greedy_kernel<K, W, kPlanes, RecT><<<grid, NT, smem, a->stream>>>(
         (const uint32_t*)a->rc, (const uint32_t*)a->fc, (const int*)a->rl,
         (const int*)a->fl, a->P, (int*)a->cost, (int*)a->steps,
         (RecT*)a->rec);
     return cudaGetLastError();
 }
 
+template <int W, bool kPlanes>
+cudaError_t by_k(int k, const Launch* a, int* warps) {
+    if (k == 2) return run<2, W, kPlanes>(a, warps);
+    if (k == 3) return run<3, W, kPlanes>(a, warps);
+    if (k == 4) return run<4, W, kPlanes>(a, warps);
+    return cudaErrorInvalidValue;
+}
+
+// k in {2, 3, 4} x L in {128, 256, 512}
 template <bool kPlanes>
-cudaError_t dispatch(int k, int W, const Launch* a, int* blocks) {
-    if (k == 2 && W == 4) return run<2, 4, kPlanes>(a, blocks);
-    if (k == 2 && W == 8) return run<2, 8, kPlanes>(a, blocks);
-    if (k == 3 && W == 4) return run<3, 4, kPlanes>(a, blocks);
-    if (k == 3 && W == 8) return run<3, 8, kPlanes>(a, blocks);
+cudaError_t dispatch(int k, int W, const Launch* a, int* warps) {
+    if (W == 4) return by_k<4, kPlanes>(k, a, warps);
+    if (W == 8) return by_k<8, kPlanes>(k, a, warps);
+    if (W == 16) return by_k<16, kPlanes>(k, a, warps);
     return cudaErrorInvalidValue;
 }
 
@@ -469,12 +493,15 @@ extern "C" int asm_greedy_launch(const void* rc, const void* fc,
     return (int)err;
 }
 
-// Resident blocks per SM of the (k, W, planes) instantiation on the
-// current device, with the shared memory its launch uses; a negative
-// value is -cudaError_t.
+// Resident warps per SM of the (k, W, planes) instantiation on the
+// current device, with the block size and shared memory its launch uses;
+// a negative value is -cudaError_t.
 extern "C" int asm_greedy_occupancy(int k, int W, int planes) {
-    int blocks = 0;
-    const cudaError_t err = planes ? dispatch<true>(k, W, nullptr, &blocks)
-                                   : dispatch<false>(k, W, nullptr, &blocks);
-    return err != cudaSuccess ? -(int)err : blocks;
+    int warps = 0;
+    const cudaError_t err = planes ? dispatch<true>(k, W, nullptr, &warps)
+                                   : dispatch<false>(k, W, nullptr, &warps);
+    return err != cudaSuccess ? -(int)err : warps;
 }
+
+// threads per block of the instantiations at W words per row
+extern "C" int asm_greedy_block_threads(int W) { return block_threads(W); }

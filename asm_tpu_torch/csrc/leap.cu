@@ -4,19 +4,20 @@
 // _leap_kernel (wrapper leap_align_pallas) in its three modes: the
 // penalty pass, the SHD-gated SIMD_ED filter and the fused CIGAR
 // backtrack. Per pair: unpack the 2-bit planes (or pack int8 codes),
-// optionally run the SHD gate, build the 2k+1 interior hurdle lane rows of
-// LEAP's 2k+3 lanes (funnel shift + XOR/OR, validity from the lengths),
-// then advance the energy wavefront one level at a time until the pair
+// build the 2k+1 interior hurdle lane rows of LEAP's 2k+3 lanes (funnel
+// shift + XOR/OR, validity from the lengths), optionally run the SHD gate
+// (before the rows at L <= 256, after them at L = 512), then advance the energy wavefront one level at a time until the pair
 // converges or e passes af, answering count_ID_length (LV_BAG.cpp:9-23)
 // for every interior lane.
 //
 // Compile-time choices. K, W = L/32, the penalties, the semantics (SEM:
 // lv_bag, simd_ed_lev, simd_ed_lev behind the SHD gate, simd_ed_affine),
-// the CIGAR mode and the input route are template parameters (120
-// instantiations), and the LeapMode, a run-time field, is applied by
-// selects, never by a branch, so the energy loop is compiled once. An
-// instantiation thus holds only code its launches run, and the SASS count
-// of the main path's (lv_bag, planes) bounds what it issues.
+// the CIGAR mode and the input route are template parameters (144
+// instantiations: k in {2, 3, 4} x L in {128, 256, 512}), and the
+// LeapMode, a run-time field, is applied by selects, never by a branch,
+// so the energy loop is compiled once. An instantiation thus holds only
+// code its launches run, and the SASS count of the main path's (lv_bag,
+// planes) bounds what it issues.
 //
 // Layout: the O(1) match-run query. The TPU kernel holds one pair per
 // vector element, and a vector register cannot be read at a per-element
@@ -31,7 +32,8 @@
 // since a warp's 32 threads read 32 consecutive words whatever word index
 // each one asks for. A thread reads and writes only its own column: no
 // barrier, no shuffle. 28 KB a block at k = 3, L = 128 (7 blocks, 28
-// warps, per SM; 56 KB at L = 256); the carveout prefers shared memory.
+// warps, per SM; 56 KB at L = 256, 112 KB, 2 blocks, at L = 512); the
+// carveout prefers shared memory.
 // The recurrence's state stays in registers: the TPU kernel's e-ring (R =
 // max(o, e, x) + 1 slots indexed by e % R) becomes shift registers, `endh`
 // the end rows of levels e-1 .. e-max(o, x), `ih` / `dh` the I / D rows
@@ -111,6 +113,46 @@ __device__ __forceinline__ uint32_t shl(const uint32_t (&v)[W], int s, int w) {
     if (s == 0) return v[w];
     const uint32_t lo = w > 0 ? v[w - 1] >> (32 - s) : 0u;
     return (v[w] << s) | lo;
+}
+
+// The SHD gate: true where simd_ed_lev stops the pair before e = 0. It
+// clears each plane's bits past its string's length in place (they read
+// as 'A'); the lane rows force a hurdle wherever a shifted index lies past
+// its length, so they read no cleared bit, before the gate or after it.
+template <int K, int W>
+__device__ __forceinline__ bool shd_gate(uint32_t (&r0)[W], uint32_t (&r1)[W],
+                                         uint32_t (&f0)[W], uint32_t (&f1)[W],
+                                         int m, int n, int buflen) {
+    constexpr int L = 32 * W, NI = 2 * K + 1, MID = K + 1;
+#pragma unroll
+    for (int w = 0; w < W; w++) {
+        r0[w] &= ~mask_ge(m, w);
+        r1[w] &= ~mask_ge(m, w);
+        f0[w] &= ~mask_ge(n, w);
+        f1[w] &= ~mask_ge(n, w);
+    }
+    int count = 0;
+#pragma unroll
+    for (int w = 0; w < W; w++) {
+        uint32_t dw = kFull;
+#pragma unroll
+        for (int j = 0; j < NI; j++) {
+            const int l = j + 1;
+            const int a_off = MID - l > 0 ? MID - l : 0;
+            const int b_off = l - MID > 0 ? l - MID : 0;
+            dw &= (shl<W>(r0, a_off, w) ^ shl<W>(f0, b_off, w)) |
+                  (shl<W>(r1, a_off, w) ^ shl<W>(f1, b_off, w)) |
+                  ~mask_ge(a_off + b_off, w);
+        }
+        dw &= ~mask_ge(buflen, w) & mask_ge(K, w);
+        if (L == 256 && w == W - 1) dw &= 0x7FFFFFFFu;
+        const uint32_t starts = dw & ~((dw << 1) & 0xEEEEEEEEu);
+        uint32_t t6 = dw ^ 0x66666666u;
+        t6 |= t6 >> 1;
+        t6 |= t6 >> 2;
+        count += __popc(starts) + __popc(~t6 & 0x11111111u);
+    }
+    return count > K;
 }
 
 // int8 codes as uint32 words -> two bit-planes (bit p of word w = bit 0 or
@@ -262,43 +304,16 @@ leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
         pack_row<W>(fc + p * (L / 4), f0, f1);
     }
 
-    // The SHD gate reads the planes alone, so it runs before the lane rows
-    // are built.
+    // The SHD gate (simd_ed_lev only) reads the planes alone, so it may run
+    // before the lane rows are built or after them. At L = 512 it runs
+    // after: built first, its shifted words are the rows' own and stay live
+    // until the rows, which spilled at k = 4. At L <= 256 it runs before:
+    // after the rows, leap_gated at L = 128 ran 5-7% slower in two
+    // alternated runs (PERF.md section 6); L = 256 was not timed apart.
+    constexpr bool kGate = SEM == kSimdLevGated, kGateFirst = W < 16;
     bool gated = false;
-    if constexpr (SEM == kSimdLevGated) {
-        // SHD gate on planes whose bits past each length read as 'A',
-        // cleared in place: the lane rows force a hurdle wherever either
-        // shifted index lies past its length, so they read no cleared bit
-#pragma unroll
-        for (int w = 0; w < W; w++) {
-            r0[w] &= ~mask_ge(m, w);
-            r1[w] &= ~mask_ge(m, w);
-            f0[w] &= ~mask_ge(n, w);
-            f1[w] &= ~mask_ge(n, w);
-        }
-        int count = 0;
-#pragma unroll
-        for (int w = 0; w < W; w++) {
-            uint32_t dw = kFull;
-#pragma unroll
-            for (int j = 0; j < NI; j++) {
-                const int l = j + 1;
-                const int a_off = MID - l > 0 ? MID - l : 0;
-                const int b_off = l - MID > 0 ? l - MID : 0;
-                dw &= (shl<W>(r0, a_off, w) ^ shl<W>(f0, b_off, w)) |
-                      (shl<W>(r1, a_off, w) ^ shl<W>(f1, b_off, w)) |
-                      ~mask_ge(a_off + b_off, w);
-            }
-            dw &= ~mask_ge(buflen, w) & mask_ge(K, w);
-            if (L == 256 && w == W - 1) dw &= 0x7FFFFFFFu;
-            const uint32_t starts = dw & ~((dw << 1) & 0xEEEEEEEEu);
-            uint32_t t6 = dw ^ 0x66666666u;
-            t6 |= t6 >> 1;
-            t6 |= t6 >> 2;
-            count += __popc(starts) + __popc(~t6 & 0x11111111u);
-        }
-        gated = count > K;
-    }
+    if constexpr (kGate && kGateFirst)
+        gated = shd_gate<K, W>(r0, r1, f0, f1, m, n, buflen);
 
     // ---- interior hurdle rows (build_leap_lanes semantics) ----
     // lane l < MID compares A[p - (MID-l)] vs B[p], l > MID A[p] vs
@@ -324,6 +339,9 @@ leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
             nx = h ? 32 * w + ctz32(h) : nx;
         }
     }
+
+    if constexpr (kGate && !kGateFirst)
+        gated = shd_gate<K, W>(r0, r1, f0, f1, m, n, buflen);
 
     // ---- e = 0 row (LV::init + the first run step) ----
     int endh[DE][NI], ih[G][NI], dh[G][NI];
@@ -555,16 +573,22 @@ cudaError_t run(const Launch* a, int* blocks) {
     return cudaGetLastError();
 }
 
+// simd_ed_lev is init_levenshtein: unit penalties alone (the wrapper's
+// check_options refuses any other set), so only those are built
 template <int K, int W, int X, int O, int G, bool kPlanes>
 cudaError_t by_semantics(const Choice& c, const Launch* a, int* blocks) {
+    constexpr bool kUnit = X == 1 && O == 1 && G == 1;
     if (c.sem == kLvBag && !c.gate)
         return c.cigar ? run<K, W, X, O, G, kLvBag, true, kPlanes>(a, blocks)
                        : run<K, W, X, O, G, kLvBag, false, kPlanes>(a, blocks);
     if (c.cigar) return cudaErrorInvalidValue;
-    if (c.sem == kSimdLev && c.gate)
-        return run<K, W, X, O, G, kSimdLevGated, false, kPlanes>(a, blocks);
-    if (c.sem == kSimdLev)
-        return run<K, W, X, O, G, kSimdLev, false, kPlanes>(a, blocks);
+    if constexpr (kUnit) {
+        if (c.sem == kSimdLev && c.gate)
+            return run<K, W, X, O, G, kSimdLevGated, false, kPlanes>(a,
+                                                                     blocks);
+        if (c.sem == kSimdLev)
+            return run<K, W, X, O, G, kSimdLev, false, kPlanes>(a, blocks);
+    }
     if (c.sem == kSimdAffine && !c.gate)
         return run<K, W, X, O, G, kSimdAffine, false, kPlanes>(a, blocks);
     return cudaErrorInvalidValue;
@@ -589,6 +613,9 @@ cudaError_t dispatch(int k, int W, int planes, const Choice& c,
     ASM_LEAP_CASE(3, 8)
     ASM_LEAP_CASE(4, 4)
     ASM_LEAP_CASE(4, 8)
+    ASM_LEAP_CASE(2, 16)
+    ASM_LEAP_CASE(3, 16)
+    ASM_LEAP_CASE(4, 16)
 #undef ASM_LEAP_CASE
     return cudaErrorInvalidValue;
 }

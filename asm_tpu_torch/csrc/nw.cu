@@ -288,15 +288,19 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
 
 // The instantiations the wrappers launch, by W = L / 32 and kernel: G
 // threads per pair, each the fastest of 8, 16 and 32 on the card (PERF.md
-// section 5), and where the trace kernel keeps its pointers: in shared
-// memory at L = 128 (12 warps per SM at G = 16), in the global scratch at
-// L = 256 (32 KB per pair in shared memory leaves at most 6 warps per SM;
-// the fastest shared-memory variant, G = 32, ran 1.5x slower there).
+// section 5; at L = 512 of 16 and 32: G = 8 would hold 64 rows a thread),
+// and where the trace kernel keeps its pointers: in shared memory at L =
+// 128 (12 warps per SM at G = 16), in the global scratch at L = 256 (32 KB
+// per pair in shared memory leaves at most 6 warps per SM; the fastest
+// shared-memory variant, G = 32, ran 1.5x slower there) and at L = 512
+// (128 KB a pair).
 template <int W, bool TRACE> struct Inst;
 template <> struct Inst<4, false> { static constexpr int G = 8, ROUTE = PTR_NONE; };
 template <> struct Inst<8, false> { static constexpr int G = 8, ROUTE = PTR_NONE; };
+template <> struct Inst<16, false> { static constexpr int G = 16, ROUTE = PTR_NONE; };
 template <> struct Inst<4, true> { static constexpr int G = 16, ROUTE = PTR_SHARED; };
 template <> struct Inst<8, true> { static constexpr int G = 8, ROUTE = PTR_GLOBAL; };
+template <> struct Inst<16, true> { static constexpr int G = 16, ROUTE = PTR_GLOBAL; };
 
 struct Launch {
     const void *rc, *fc, *rl, *fl;
@@ -344,7 +348,15 @@ cudaError_t run(const Launch* L, int* warps) {
 cudaError_t dispatch(int W, bool trace, const Launch* L, int* warps) {
     if (W == 4) return trace ? run<4, true>(L, warps) : run<4, false>(L, warps);
     if (W == 8) return trace ? run<8, true>(L, warps) : run<8, false>(L, warps);
+    if (W == 16) return trace ? run<16, true>(L, warps) : run<16, false>(L, warps);
     return cudaErrorInvalidValue;
+}
+
+// (G, route) of the instantiations at W
+template <int W>
+void instance_of(bool trace, int* G, int* route) {
+    *G = trace ? Inst<W, true>::G : Inst<W, false>::G;
+    *route = trace ? Inst<W, true>::ROUTE : Inst<W, false>::ROUTE;
 }
 
 }  // namespace
@@ -372,10 +384,9 @@ extern "C" int asm_nw_launch(const void* rc, const void* fc, const void* rl,
 // penalty, 1 the global scratch, 2 shared memory); 0, or cudaErrorInvalidValue
 // for a W that is not built
 extern "C" int asm_nw_instance(int W, int trace, int* G, int* route) {
-    if (W == 4 && !trace) *G = Inst<4, false>::G, *route = Inst<4, false>::ROUTE;
-    else if (W == 8 && !trace) *G = Inst<8, false>::G, *route = Inst<8, false>::ROUTE;
-    else if (W == 4) *G = Inst<4, true>::G, *route = Inst<4, true>::ROUTE;
-    else if (W == 8) *G = Inst<8, true>::G, *route = Inst<8, true>::ROUTE;
+    if (W == 4) instance_of<4>(trace, G, route);
+    else if (W == 8) instance_of<8>(trace, G, route);
+    else if (W == 16) instance_of<16>(trace, G, route);
     else return (int)cudaErrorInvalidValue;
     return 0;
 }

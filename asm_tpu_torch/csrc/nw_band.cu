@@ -269,5 +269,6 @@ extern "C" int asm_nw_band_launch(const void* rp, const void* fp,
     cudaStream_t s = (cudaStream_t)stream;
     if (W == 4) return (int)dispatch<4>(bw, rp, fp, rl, fl, P, pen, s);
     if (W == 8) return (int)dispatch<8>(bw, rp, fp, rl, fl, P, pen, s);
+    if (W == 16) return (int)dispatch<16>(bw, rp, fp, rl, fl, P, pen, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,8 @@ the port of `asm_tpu.kernels.greedy_pallas`.
   expand_records                          packed step records -> (op, run)
                                           CIGAR slots
   step_trips                              the step loop's trips per pair
-  occupancy                               resident blocks per SM
+  occupancy / block_threads               resident warps per SM, threads
+                                          per block of an instantiation
 
 The kernel is compiled with nvcc for sm_90a at first use into
 asm_tpu_torch/build/ and bound with ctypes. On a CUDA tensor the wrapper
@@ -44,9 +45,8 @@ from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 LAUNCHES = 0
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "greedy.cu")
-THREADS = 128  # threads per block, one pair each (csrc/greedy.cu kThreads)
-_KS = (2, 3)  # band half-widths the kernel is instantiated for
-_WS = (4, 8)  # words per row (max_len 128, 256)
+_KS = (2, 3, 4)  # band half-widths the kernel is instantiated for
+_WS = (4, 8, 16)  # words per row (max_len 128, 256, 512)
 _lib = None
 
 
@@ -169,30 +169,44 @@ def build_kernel() -> tuple[str, bool]:
     return nvcc_library("greedy", SOURCE)
 
 
+def bind(path: str):
+    """The library at `path` (a build of csrc/greedy.cu), its functions
+    typed for ctypes."""
+    lib = ctypes.CDLL(path)
+    c = ctypes
+    lib.asm_greedy_launch.restype = c.c_int
+    lib.asm_greedy_launch.argtypes = (
+        [c.c_void_p] * 4 + [c.c_int] * 10 + [c.c_float] * 3
+        + [c.c_void_p] * 3 + [c.c_int, c.c_void_p])
+    lib.asm_greedy_occupancy.restype = c.c_int
+    lib.asm_greedy_occupancy.argtypes = [c.c_int] * 3
+    lib.asm_greedy_block_threads.restype = c.c_int
+    lib.asm_greedy_block_threads.argtypes = [c.c_int]
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        path, _ = build_kernel()
-        lib = ctypes.CDLL(path)
-        c = ctypes
-        lib.asm_greedy_launch.restype = c.c_int
-        lib.asm_greedy_launch.argtypes = (
-            [c.c_void_p] * 4 + [c.c_int] * 10 + [c.c_float] * 3
-            + [c.c_void_p] * 3 + [c.c_int, c.c_void_p])
-        lib.asm_greedy_occupancy.restype = c.c_int
-        lib.asm_greedy_occupancy.argtypes = [c.c_int] * 3
-        _lib = lib
+        _lib = bind(build_kernel()[0])
     return _lib
 
 
 def occupancy(k: int = 3, max_len: int = 128, planes: bool = True) -> int:
-    """Resident blocks of THREADS per SM of the kernel built for (k,
-    max_len, input route) on the current CUDA device, with the shared
-    memory its launch uses (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    """Resident warps per SM of the kernel built for (k, max_len, input
+    route) on the current CUDA device, with the block size and shared
+    memory its launch uses (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    times the block's warps)."""
     got = _load().asm_greedy_occupancy(k, max_len // 32, int(planes))
     if got < 0:
         raise RuntimeError(f"greedy occupancy query failed: cudaError {-got}")
     return got
+
+
+def block_threads(max_len: int = 128) -> int:
+    """Threads per block (one pair each) of the instantiations at
+    max_len, fixed in csrc/greedy.cu's block_threads."""
+    return _load().asm_greedy_block_threads(max_len // 32)
 
 
 # ---- the wrapper ----------------------------------------------------------

@@ -43,7 +43,7 @@ THREADS = 128  # threads per block (csrc/leap.cu kThreads), one pair each
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "leap.cu")
 _KS = (2, 3, 4)  # band half-widths the kernel is instantiated for
-_WS = (4, 8)  # words per row (max_len 128, 256)
+_WS = (4, 8, 16)  # words per row (max_len 128, 256, 512)
 # (x, o, e) the kernel is instantiated for: unit, and the reference LEAP
 # driver's affine init_affine(..., 2, 3, 1) (LEAP_SIMD/main.cpp:97)
 _PENALTIES = {(1, 1, 1): 0, (2, 3, 1): 1}

@@ -47,7 +47,7 @@ LAUNCHES = 0
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "nw_band.cu")
 BWS = (8, 16, 32, 64)  # band widths the kernel is instantiated for
-_WS = (4, 8)  # words per plane row (max_len 128, 256)
+_WS = (4, 8, 16)  # words per plane row (max_len 128, 256, 512)
 _lib = None
 
 

@@ -16,8 +16,8 @@ at first use into asm_tpu_torch/build/ and bound with ctypes.
 Each (kernel, max_len) has one instantiation, its G threads per pair and
 the trace kernel's pointer route fixed in csrc/nw.cu (`instance`): at
 L = 128 the trace kernel keeps its pointers in shared memory and runs in
-one launch; at L = 256 it keeps them in a global scratch of L * L / 2
-bytes per pair, its launches cut at TRACE_SCRATCH_BYTES.
+one launch; at L = 256 and 512 it keeps them in a global scratch of
+L * L / 2 bytes per pair, its launches cut at TRACE_SCRATCH_BYTES.
 """
 
 from __future__ import annotations
@@ -37,12 +37,15 @@ from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 LAUNCHES = {"nw": 0, "nw_trace": 0}
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "nw.cu")
-_WS = (4, 8)  # L / 32 the kernels are instantiated for (max_len 128, 256)
+_WS = (4, 8, 16)  # L / 32 the kernels are instantiated for (max_len
+# 128, 256, 512)
 # csrc/nw.cu's ROUTE: where the trace kernel keeps its pointer nibbles
 ROUTE_NONE, ROUTE_GLOBAL, ROUTE_SHARED = 0, 1, 2
 # the global route parks L * L / 2 pointer bytes per pair in a per-launch
-# scratch; its launches are cut so it stays within this many bytes
-TRACE_SCRATCH_BYTES = 256 << 20
+# scratch; its launches are cut so it stays within this many bytes: 16,384
+# pairs at L = 512 (65,536 at 256), within 3% of 4 GiB's time, where 256
+# MiB (2,048 pairs a launch) took 1.37x as long (PERF.md section 6)
+TRACE_SCRATCH_BYTES = 2 << 30
 _lib = None
 
 
@@ -87,21 +90,26 @@ def build_kernel() -> tuple[str, bool]:
     return nvcc_library("nw", SOURCE)
 
 
+def bind(path: str):
+    """The library at `path` (a build of csrc/nw.cu), its functions typed
+    for ctypes."""
+    lib = ctypes.CDLL(path)
+    c = ctypes
+    lib.asm_nw_launch.restype = c.c_int
+    lib.asm_nw_launch.argtypes = (
+        [c.c_void_p] * 4 + [c.c_int] * 7 + [c.c_void_p] * 4
+        + [c.c_int, c.c_void_p])
+    lib.asm_nw_instance.restype = c.c_int
+    lib.asm_nw_instance.argtypes = [c.c_int] * 2 + [c.c_void_p] * 2
+    lib.asm_nw_occupancy.restype = c.c_int
+    lib.asm_nw_occupancy.argtypes = [c.c_int] * 2
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        path, _ = build_kernel()
-        lib = ctypes.CDLL(path)
-        c = ctypes
-        lib.asm_nw_launch.restype = c.c_int
-        lib.asm_nw_launch.argtypes = (
-            [c.c_void_p] * 4 + [c.c_int] * 7 + [c.c_void_p] * 4
-            + [c.c_int, c.c_void_p])
-        lib.asm_nw_instance.restype = c.c_int
-        lib.asm_nw_instance.argtypes = [c.c_int] * 2 + [c.c_void_p] * 2
-        lib.asm_nw_occupancy.restype = c.c_int
-        lib.asm_nw_occupancy.argtypes = [c.c_int] * 2
-        _lib = lib
+        _lib = bind(build_kernel()[0])
     return _lib
 
 

@@ -30,7 +30,7 @@ fewest operations at the card's issue limit), with the rate the run
 issued its count at and one trip of the main loop by category and by
 opcode. Each line also carries the main-path instantiation's registers
 and spill bytes (its ptxas report) and warps per SM (the occupancy
-query), `kernel_resources`. The rates of
+query: `greedy_resources`, `leap_resources`). The rates of
 `utils/bounds.py` stay; this tool prints the measured ones beside them.
 
     python -m asm_tpu_torch.tools.roofline [micro greedy leap nw] [--pairs N]
@@ -461,12 +461,26 @@ def count_kernel(listing: str, trips, inner: float | None = None) -> dict:
                                               key=lambda t: -t[1]) if n}))
 
 
+def greedy_fn(k: int = 3, max_len: int = 128) -> str:
+    """Mangled-name stem of csrc/greedy.cu's instantiation at (k, max_len)
+    on planes (int16 records at max_len <= 255, else int32)."""
+    rec = "s" if max_len <= 255 else "i"
+    return f"greedy_kernelILi{k}ELi{max_len // 32}ELb1E{rec}E"
+
+
+def leap_fn(k: int = 3, max_len: int = 128, cigar: bool = False) -> str:
+    """Mangled-name stem of csrc/leap.cu's lv_bag instantiation at (k,
+    max_len), x = o = e = 1, on planes, in penalty or CIGAR mode."""
+    return (f"leap_kernelILi{k}ELi{max_len // 32}ELi1ELi1ELi1ELi0ELb"
+            f"{int(cigar)}ELb1E")
+
+
 # the main-path instantiations: k = 3, L = 128 (W = 4); greedy on planes
 # with int16 records, LEAP in penalty mode (lv_bag, SEM 0) with x = o = e
 # = 1 on planes
-GREEDY_FN = "greedy_kernelILi3ELi4ELb1EsE"
+GREEDY_FN = greedy_fn()
 GREEDY_LANES = 7  # 2k + 1 at k = 3: the trips of each lane loop per step
-LEAP_FN = "leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1E"
+LEAP_FN = leap_fn()
 
 
 def greedy_counts(trips, lib_path: str | None = None) -> dict:
@@ -488,13 +502,10 @@ def greedy_counts(trips, lib_path: str | None = None) -> dict:
     return kc
 
 
-def kernel_resources(module, function: str, report: str | None = None
-                     ) -> dict:
-    """One instantiation's registers and spill bytes from its ptxas report
+def ptxas_entry(module, function: str, report: str | None = None) -> dict:
+    """Registers and spill bytes of one instantiation from its ptxas report
     (text; default: the current build of `module`, a kernel module with
-    build_kernel, ptxas_report, occupancy and THREADS) and, from the card,
-    its resident blocks and warps per SM (`module.occupancy()`, the main
-    path's shape)."""
+    build_kernel and ptxas_report)."""
     if report is None:
         module.build_kernel()
         with open(module.ptxas_report()) as f:
@@ -503,23 +514,31 @@ def kernel_resources(module, function: str, report: str | None = None
     if len(hits) != 1:
         raise ValueError(f"{len(hits)} kernels of the ptxas report match "
                          f"{function!r}")
-    blocks = module.occupancy()
-    return dict(hits[0], blocks_per_sm=blocks,
-                warps_per_sm=blocks * module.THREADS // 32)
+    return hits[0]
 
 
-def greedy_resources(report: str | None = None) -> dict:
-    """`kernel_resources` of greedy's main-path instantiation."""
+def greedy_resources(report: str | None = None, k: int = 3,
+                     max_len: int = 128) -> dict:
+    """`ptxas_entry` of greedy's instantiation at (k, max_len) on planes
+    (default: the main path's) and, from the card, its resident warps per
+    SM (`greedy_cuda.occupancy`: the block size is per instantiation)."""
     from asm_tpu_torch.kernels import greedy_cuda
 
-    return kernel_resources(greedy_cuda, GREEDY_FN, report)
+    return dict(ptxas_entry(greedy_cuda, greedy_fn(k, max_len), report),
+                warps_per_sm=greedy_cuda.occupancy(k, max_len))
 
 
-def leap_resources(report: str | None = None) -> dict:
-    """`kernel_resources` of LEAP's main-path instantiation."""
+def leap_resources(report: str | None = None, k: int = 3,
+                   max_len: int = 128, cigar: bool = False) -> dict:
+    """`ptxas_entry` of LEAP's lv_bag instantiation at (k, max_len, CIGAR
+    mode) on planes (default: the main path's) and, from the card, its
+    resident blocks of THREADS and warps per SM (`leap_cuda.occupancy`)."""
     from asm_tpu_torch.kernels import leap_cuda
 
-    return kernel_resources(leap_cuda, LEAP_FN, report)
+    blocks = leap_cuda.occupancy(k, max_len, cigar)
+    return dict(ptxas_entry(leap_cuda, leap_fn(k, max_len, cigar), report),
+                blocks_per_sm=blocks,
+                warps_per_sm=blocks * leap_cuda.THREADS // 32)
 
 
 def leap_counts(levels, lib_path: str | None = None) -> dict:
@@ -650,21 +669,12 @@ def nw_loop_counts(listing: str, warp_steps, cells: float,
 
 def nw_resources(trace: bool, L: int = 128,
                  report: str | None = None) -> dict:
-    """Registers and spill bytes (ptxas report; default: the current
-    build's) and resident warps per SM (`nw_cuda.occupancy`) of the NW
-    instantiation the wrapper launches for (trace, L)."""
+    """`ptxas_entry` and resident warps per SM (`nw_cuda.occupancy`) of
+    the NW instantiation the wrapper launches for (trace, L)."""
     from asm_tpu_torch.kernels import nw_cuda
 
-    if report is None:
-        nw_cuda.build_kernel()
-        with open(nw_cuda.ptxas_report()) as f:
-            report = f.read()
-    fn = nw_cuda.function_name(trace, L)
-    hits = [v for k, v in ptxas_usage(report).items() if fn in k]
-    if len(hits) != 1:
-        raise ValueError(f"{len(hits)} kernels of the ptxas report match "
-                         f"{fn!r}")
-    return dict(hits[0], warps_per_sm=nw_cuda.occupancy(trace, L))
+    return dict(ptxas_entry(nw_cuda, nw_cuda.function_name(trace, L), report),
+                warps_per_sm=nw_cuda.occupancy(trace, L))
 
 
 def nw_line(name: str, m, n, ms: float, bound: dict, ops=None) -> dict:
@@ -740,7 +750,7 @@ def report(name: str, kc: dict, bytes_per_pair: float, seconds: float,
     False marks a count that charges code the run does not reach: its
     issue time is then no bound, and the line states no binding wall, no
     headroom and no issued rate. `resources` (registers, spills, warps per
-    SM: `kernel_resources`) joins the line as it is."""
+    SM: `greedy_resources`, `leap_resources`) joins the line as it is."""
     per = {k: c["counts"] for k, c in kc["counts"].items()}
     insts = {k: sum(v.values()) for k, v in per.items()}
     issue_ns = {k: v / issue_rate * 1e9 for k, v in insts.items()}

@@ -52,11 +52,13 @@ def greedy_work(steps, bounds, chunk, k=3, L=128,
     for the highway's start, end and clamp (4), the switch penalty (2),
     the selection compare (2) and the choice test (4). Bytes: 2 x L/4 of
     planes (with codes, the int8 codes route's 2 x L), 8 of lengths, 8 of
-    cost and steps, and each chunk's (T+1) int16 records."""
+    cost and steps, and each chunk's (T+1) records (int16, int32 above
+    L = 255)."""
     NL, W = 2 * k + 1, L // 32
     n = len(steps)
     ops = n * NL * W * 8 + float(np.sum(steps)) * NL * (10 * W + 12)
-    rec = sum(min(chunk, n - i * chunk) * (b + 1) * 2
+    rb = 2 if L <= 255 else 4
+    rec = sum(min(chunk, n - i * chunk) * (b + 1) * rb
               for i, b in enumerate(bounds))
     return ops, n * (2 * (L if codes else L // 4) + 16) + rec
 

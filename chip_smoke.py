@@ -91,9 +91,32 @@ line:
      recall, unmapped reads, the cost sum and the SAM digest must equal
      the pinned values. The line carries reads/s, the stage profile,
      kernel_ms, the launches and their bound.
+ 14. long sequences (max_len 512, W = 16): (a) each kernel against its
+     plain version, exactly, on corpora of lengths 0, 1, 31, 32, 33, 496,
+     511 and 512 at err 0.05 and 0.15 and on generated 496-base corpora:
+     greedy at k = 2, 3 and 4 in both input forms with records and CIGARs
+     (k = 4 also at max_len 128 and 256), LEAP in its three modes (the
+     penalty pass, the SHD-gated filter, the fused CIGAR) with both
+     penalty sets where the semantics allow, at k = 2, 3 and 4, the NW
+     band kernel at BW 8-64 in both forms, the full kernel and the trace
+     kernel with ops and mask; (b) the main path: the long-sequence flow
+     (tools/longseq_headline.run_length: greedy steps probe, measured
+     order, LEAP energy probe, measured-energy order, the fused CIGAR) on
+     1,048,576 pairs at max_len 256 and 524,288 at 512, its greedy cost
+     total, LEAP penalty total and passed count and the CIGAR digest of
+     the first 65,536 pairs equal to the pinned values, the plain
+     versions equal on every pair; then the harness (run_benchmark,
+     impl cuda and torch) on 8,192 pairs of 496 bases at max_len 512,
+     its greedy == NW, LEAP == NW and covered counts pinned, and the
+     harness's NW partition on 8,192 pairs at err 0.15, whose residue
+     launches the full kernel, equal to the plain full NW; the greedy,
+     LEAP, band, full and trace kernels must each have launched at
+     max_len 512 in (b). The line carries each W = 16 kernel's time,
+     bound and plain version's time.
 Prints a JSON line of per-kernel results (time, plain version's time,
-bound, launches), the card line, and last {"ok": true, "device": {...}}.
-Any failure raises (exit code != 0).
+bound, launches; the W = 16 instantiations as entries of their own), the
+card line, and last {"ok": true, "device": {...}}. Any failure raises
+(exit code != 0).
 """
 
 from __future__ import annotations
@@ -178,6 +201,40 @@ MAPPER_PINS = dict(
     n_ok=94922, n_elig=74901, n_elig_ok=74901, unmapped=5078,
     cost_sum=328650, n_jobs=96998, sam_sha256=(
         "1333a86748d6960cd3fdca76074e3f394c66a2822fe7e9516f1e176f5eb7ac81"))
+# Phase 14, the long-sequence flow at reduced depth on the JAX tool's
+# generator arguments (tools/longseq_headline.py: native generator, reads
+# of L - 6 - L // 50 bases, err 0.05, mismatch rate 0.96, seed 7; x = o =
+# e = 1, k = 3, GLOBAL, af = 200). Computed with the JAX package on the
+# CPU, in 32,768-pair chunks of
+#   rc, rl, fc, fl = asm_tpu.native.generate_dataset_native(
+#       pairs, L - 6 - L // 50, 0.05, 0.96, seed=7, max_len=L)
+# greedy: sum of asm_tpu.kernels.greedy.greedy_align(..., AlignConfig(x=1,
+# o=1, e=1, k=3, max_len=L, max_steps=128))["cost"] (max steps 54 at
+# L = 256, 119 at 512: no walk cut); LEAP: sum and passed count of
+# asm_tpu.kernels.leap.leap_align(..., AlignConfig(x=1, o=1, e=1, k=3,
+# max_len=L))["penalty"] / ["passed"]; the digest: sha256 of the
+# newline-joined CIGARs of the passed pairs among the first 65,536, in
+# corpus order, from leap_align(..., leap_max_energy=E, want_history=True)
+# + asm_tpu.kernels.leap_backtrack.leap_backtrack_batch in 4,096-pair
+# chunks (E = their largest passed energy: 38 at L = 256, 174 at 512).
+LONG_FLOW = {
+    256: dict(pairs=1_048_576, greedy_cost=10489962, leap_penalty=10099511,
+              leap_passed=1_048_576, digest=(
+                  "2b1c2fc60b95d239dc728381580fb05a"
+                  "43bd39a0a8d62be67e5b54ab8a6f4f7e", 65_536)),
+    512: dict(pairs=524_288, greedy_cost=10180115, leap_penalty=9769482,
+              leap_passed=524_282, digest=(
+                  "ac20a4284ada6f1cea1c27bfc6adc97c"
+                  "85f572899b53eb370e4d4ef24110f0ca", 65_535)),
+}
+LONG_DIGEST_PAIRS = 65_536
+# The harness at max_len 512: 8,192 native pairs of 496 bases, err 0.05,
+# seed 42, x = o = e = 1, k = 3; the counts `python -m asm_tpu.bench
+# --pairs 8192 --length 496 --max-len 512 --err 0.05` (the JAX harness,
+# XLA kernels) prints on the CPU: greedy 59.424 %, LEAP 97.876 %,
+# coverage 84.387 % of 8,192 pairs.
+LONG_HARNESS_PAIRS = 8192
+LONG_HARNESS = (4868, 8018, 6913)  # greedy == NW, LEAP == NW, covered
 # phase 12: the check's issue_chain iterations and stream size (the
 # measurement takes tools/roofline.micro's) and the probe's loop trips
 ISSUE_CHECK_ITERS = 16
@@ -376,56 +433,63 @@ def max_diff(got, want, what: str) -> int:
     return d
 
 
+def greedy_check(dev, corpus, cfg, label, tile=256) -> int:
+    """greedy_align_cuda against the plain greedy_align on one corpus and
+    configuration, both input forms (tile: B need be no multiple of it):
+    cost, steps, step records, the trips read from them and the decoded
+    CIGARs; returns the max abs error (0) or raises."""
+    from asm_tpu_torch.kernels import greedy_cuda
+    from asm_tpu_torch.kernels.greedy import greedy_align
+    from asm_tpu_torch.ops.cigar import runs_to_cigars_batch
+
+    rc, rl, fc, fl = corpus
+    lens = [torch.from_numpy(a).to(dev) for a in (rl, fl)]
+    plain = greedy_align(torch.from_numpy(rc).to(dev), lens[0],
+                         torch.from_numpy(fc).to(dev), lens[1], cfg,
+                         records=True)
+    want = runs_to_cigars_batch(plain["cigar_ops"].cpu().numpy(),
+                                plain["cigar_runs"].cpu().numpy())
+    forms = {
+        "codes": (torch.from_numpy(rc).to(dev),
+                  torch.from_numpy(fc).to(dev), False),
+        "planes_tiled": (
+            torch.from_numpy(greedy_cuda.stage_planes_tiled_t(
+                rc, tile=tile).view(np.int32)).to(dev),
+            torch.from_numpy(greedy_cuda.stage_planes_tiled_t(
+                fc, tile=tile).view(np.int32)).to(dev),
+            "planes_tiled"),
+    }
+    max_err = 0
+    for form, (a, b, pre) in forms.items():
+        got = greedy_cuda.greedy_align_cuda(
+            a, lens[0], b, lens[1], cfg, pre_staged=pre, tile=tile)
+        torch.cuda.synchronize()
+        got["trips"] = greedy_cuda.step_trips(got["steps"], got["step_rec"])
+        for key in ("cost", "steps", "step_rec", "trips"):
+            max_err = max(max_err, max_diff(got[key], plain[key],
+                                            f"{label}/{form}: {key}"))
+        cig = runs_to_cigars_batch(got["cigar_ops"].cpu().numpy(),
+                                   got["cigar_runs"].cpu().numpy())
+        bad = sum(x != y for x, y in zip(cig, want))
+        if bad:
+            raise AssertionError(f"{label}/{form}: {bad} CIGARs differ")
+    return max_err
+
+
 def greedy_phases(dev, name, card) -> dict:
     """Phases 3 and 4 (greedy); returns the kernel's JSON entry and the
     main path's roofline inputs."""
     from asm_tpu_torch import headline
     from asm_tpu_torch.kernels import greedy_cuda
-    from asm_tpu_torch.kernels.greedy import greedy_align
-    from asm_tpu_torch.ops.cigar import runs_to_cigars_batch
     from asm_tpu_torch.tools import roofline
     from asm_tpu_torch.utils.bounds import greedy_work
 
     # ---- 3: kernel vs plain on the card ----
     max_err = 0
     n_cmp = 0
-    for label, cfg, (rc, rl, fc, fl) in conformance_cases():
-        lens = [torch.from_numpy(a).to(dev) for a in (rl, fl)]
-        plain = greedy_align(torch.from_numpy(rc).to(dev), lens[0],
-                             torch.from_numpy(fc).to(dev), lens[1], cfg,
-                             records=True)
-        want = runs_to_cigars_batch(plain["cigar_ops"].cpu().numpy(),
-                                    plain["cigar_runs"].cpu().numpy())
-        tile = 256  # B is no multiple of it: a partial tail tile
-        forms = {
-            "codes": (torch.from_numpy(rc).to(dev),
-                      torch.from_numpy(fc).to(dev), False),
-            "planes_tiled": (
-                torch.from_numpy(greedy_cuda.stage_planes_tiled_t(
-                    rc, tile=tile).view(np.int32)).to(dev),
-                torch.from_numpy(greedy_cuda.stage_planes_tiled_t(
-                    fc, tile=tile).view(np.int32)).to(dev),
-                "planes_tiled"),
-        }
-        for form, (a, b, pre) in forms.items():
-            got = greedy_cuda.greedy_align_cuda(
-                a, lens[0], b, lens[1], cfg, pre_staged=pre, tile=tile)
-            torch.cuda.synchronize()
-            got["trips"] = greedy_cuda.step_trips(got["steps"],
-                                                  got["step_rec"])
-            for key in ("cost", "steps", "step_rec", "trips"):
-                d = (got[key].to(torch.int64)
-                     - plain[key].to(torch.int64)).abs().max().item()
-                max_err = max(max_err, d)
-                if d != 0:
-                    raise AssertionError(f"{label}/{form}: {key} differs "
-                                         f"from the plain version (max {d})")
-            cig = runs_to_cigars_batch(got["cigar_ops"].cpu().numpy(),
-                                       got["cigar_runs"].cpu().numpy())
-            bad = sum(x != y for x, y in zip(cig, want))
-            if bad:
-                raise AssertionError(f"{label}/{form}: {bad} CIGARs differ")
-            n_cmp += 1
+    for label, cfg, corpus in conformance_cases():
+        max_err = max(max_err, greedy_check(dev, corpus, cfg, label))
+        n_cmp += 2
     phase(f"[3 kernel vs plain] {n_cmp} corpus/form cases on {name}: cost, "
           f"steps, step records, the step loop's trips read from them and "
           f"CIGARs exactly equal (max abs err {max_err})")
@@ -694,7 +758,7 @@ def nw_at_256(dev, card, err) -> None:
     parts = []
     for name, trace, ms in (("nw", False, nw_ms),
                             ("nw_trace", True, trace_ms)):
-        bound = bound_entry(*nw_full_work(m, n, trace=trace))
+        bound = bound_entry(*nw_full_work(m, n, 256, trace=trace))
         parts.append(f"{name} ({nw_instance(trace, 256)}) {ms:.4f} ms, "
                      f"bound {bound['bound_ms']:.4f} ({bound['bound_by']}, "
                      f"{100 * bound['bound_ms'] / ms:.1f}%)")
@@ -751,7 +815,7 @@ def leap_cfg(sem, pens, mode, max_len, k=3, af=40):
         return AlignConfig(k=k, leap_af_threshold=k, max_len=max_len,
                            leap_mode=LeapMode(mode))
     return AlignConfig(x=pens[0], o=pens[1], e=pens[2], k=k,
-                       leap_af_threshold=af, leap_max_energy=min(af, 40),
+                       leap_af_threshold=af, leap_max_energy=af,
                        max_len=max_len, leap_mode=LeapMode(mode))
 
 
@@ -1144,6 +1208,305 @@ def mapper_path(dev, card) -> dict:
                 reads_per_sec=MAPPER_READS / wall)
 
 
+def long_corpora():
+    """(label, corpus) pairs of phase 14a at max_len 512, for err 0.05 and
+    0.15: every pair of lengths from 0, 1, 31, 32, 33, 496, 511 and 512,
+    three times (reads random, refs a copy with substitutions, cut or
+    extended to their length), beside 17 generated pairs (with indels)
+    at each of those lengths but 0; and 501 generated pairs of 496
+    bases."""
+    from asm_tpu_torch.data.generator import generate_dataset_arrays
+    from asm_tpu_torch.encoding import encode_batch
+
+    lens = (0, 1, 31, 32, 33, 496, 511, 512)
+    out = []
+    for i, err in enumerate((0.05, 0.15)):
+        rng = np.random.default_rng(140 + i)
+        reads, refs = [], []
+        for a in lens * 3:
+            for b in lens:
+                read, ref = rng.integers(0, 4, a), rng.integers(0, 4, b)
+                n = min(a, b)
+                ref[:n] = np.where(rng.random(n) < err,
+                                   rng.integers(0, 4, n), read[:n])
+                reads.append("".join("ACGT"[c] for c in read))
+                refs.append("".join("ACGT"[c] for c in ref))
+        parts = [encode_batch(reads, refs, 512)] + [
+            generate_dataset_arrays(17, n, err, 0.9, seed=n + i, max_len=512)
+            for n in lens[1:]]
+        out.append((f"lengths/err{err}", tuple(
+            np.concatenate([p[j] for p in parts]) for j in range(4))))
+        out.append((f"err{err}", generate_dataset_arrays(
+            501, 496, err, 0.9, seed=142 + i, max_len=512)))
+    return out
+
+
+def long_kernels_vs_plain(dev, name) -> dict:
+    """Phase 14a; returns the max abs error per kernel (all 0)."""
+    from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.data.generator import generate_dataset_arrays
+    from asm_tpu_torch.kernels import nw
+    from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
+    from asm_tpu_torch.kernels.nw_band import (
+        BWS,
+        banded_plain,
+        nw_penalty_banded,
+    )
+    from asm_tpu_torch.kernels.nw_cuda import nw_align_cuda, nw_penalty_cuda
+
+    err = dict(greedy=0, leap=0, nw_band=0, nw=0, nw_trace=0)
+    n = dict(err)
+    corpora = long_corpora()
+    # greedy: k = 2, 3, 4 at max_len 512; k = 4 at 128 and 256
+    cases = [(f"{label}/k{k}", AlignConfig(k=k, max_len=512, max_steps=128),
+              c) for label, c in corpora for k in (2, 3, 4)]
+    cases += [("k4/L128", AlignConfig(k=4, max_steps=32),
+               generate_dataset_arrays(2001, 100, 0.1, 0.9, seed=146)),
+              ("k4/L256", AlignConfig(k=4, max_len=256, max_steps=64),
+               generate_dataset_arrays(2001, 200, 0.1, 0.9, seed=147,
+                                       max_len=256))]
+    for label, cfg, corpus in cases:
+        err["greedy"] = max(err["greedy"], greedy_check(dev, corpus, cfg,
+                                                        label))
+        n["greedy"] += 2
+    # LEAP: every variant (the penalty pass; lv_bag also the fused CIGAR;
+    # simd_ed_lev also the SHD-gated filter) at k = 3 on every corpus,
+    # k = 2 and 4 on the lengths corpora, every LeapMode on the first
+    for ci, (label, corpus) in enumerate(corpora):
+        for k in ((2, 3, 4) if label.startswith("lengths") else (3,)):
+            for mode in (range(4) if ci == 0 and k == 3 else (1,)):
+                for sem, gate, pens in LEAP_VARIANTS:
+                    cfg = leap_cfg(sem, pens, mode, 512, k=k, af=120)
+                    err["leap"] = max(err["leap"], leap_check(
+                        dev, corpus, cfg, sem, gate,
+                        f"{label}/k{k}/{sem}/gate{int(gate)}/{pens}/"
+                        f"mode{mode}"))
+                    n["leap"] += 2
+    # NW: the band kernel (both forms), the full and the trace kernel
+    for ci, (label, corpus) in enumerate(corpora):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in corpus]
+        planes = [torch.from_numpy(stage_planes_t(a).view(np.int32)).to(dev)
+                  for a in (corpus[0], corpus[2])]
+        for x, o, e in ([(1, 1, 1), (2, 3, 1)] if ci < 2 else [(1, 1, 1)]):
+            what = f"{label}/x{x}o{o}e{e}"
+            for bw in BWS:
+                want = banded_plain(*t, bw, x, o, e)
+                for pre, (a, b) in ((False, (t[0], t[2])), (True, planes)):
+                    err["nw_band"] = max(err["nw_band"], max_diff(
+                        nw_penalty_banded(a, t[1], b, t[3], bw=bw, x=x, o=o,
+                                          e=e, pre_staged=pre), want,
+                        f"{what}/BW{bw}/pre_staged={pre}: pen"))
+                    n["nw_band"] += 1
+            pen, ops, mask = nw.nw_align(*t, x, o, e, match_mask_threshold=3)
+            err["nw"] = max(err["nw"], max_diff(
+                nw_penalty_cuda(*t, x, o, e), pen, f"{what}/nw: pen"))
+            got = nw_align_cuda(*t, x, o, e, match_mask_threshold=3)
+            for g, w, key in zip(got, (pen, ops, mask),
+                                 ("pen", "ops", "mask")):
+                err["nw_trace"] = max(err["nw_trace"], max_diff(
+                    g, w, f"{what}/nw_trace: {key}"))
+            n["nw"] += 1
+            n["nw_trace"] += 1
+    phase(f"[14a long kernels vs plain] max_len 512 on {name}: cases {n} "
+          f"(greedy k = 2, 3, 4 and k = 4 at max_len 128 / 256, both forms, "
+          f"records and CIGARs; LEAP penalty, gated filter and fused CIGAR, "
+          f"both penalty sets, k = 2, 3, 4; NW band BW {BWS} in both forms, "
+          f"full, trace with ops and mask) exactly equal (max abs err "
+          f"{max(err.values())})")
+    return err
+
+
+def long_flow(dev, card, err) -> list[dict]:
+    """Phase 14b: the long-sequence flow at max_len 256 and 512; returns
+    the greedy and LEAP kernels' W = 16 JSON entries."""
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda
+    from asm_tpu_torch.kernels.greedy import greedy_align
+    from asm_tpu_torch.kernels.leap import leap_align
+    from asm_tpu_torch.tools import longseq_headline as lh
+
+    entries = []
+    for L, pin in LONG_FLOW.items():
+        corpus = lh.long_corpus(L, pin["pairs"])
+        greedy_cuda.LAUNCHES = leap_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = lh.run_length(L, reps=3, device=dev, digest=LONG_DIGEST_PAIRS,
+                            corpus=corpus)
+        wall = time.perf_counter() - t0
+        launches = dict(greedy=greedy_cuda.LAUNCHES, leap=leap_cuda.LAUNCHES)
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"the L = {L} flow launched {launches}")
+        rows = {r["kernel"]: r for r in res["rows"]}
+        got = dict(pairs=res["pairs"], greedy_cost=rows["greedy"]["checksum"],
+                   leap_penalty=rows["leap_penalty"]["checksum"],
+                   leap_passed=rows["leap_penalty"]["passed"],
+                   digest=res["digest"])
+        if got != pin:
+            raise AssertionError(f"long flow L = {L}: {got} != pinned {pin}")
+        # the plain versions on every pair, on the card
+        args = [torch.from_numpy(a).to(dev) for a in corpus]
+        g = res["by_row"]["greedy"]
+        gcfg = lh.greedy_config(L, g["bound"])
+        plain_g_ms, want = cuda_ms(lambda: greedy_align(*args, gcfg), 1)
+        for key in ("cost", "steps"):
+            err["greedy"] = max(err["greedy"], max_diff(
+                torch.from_numpy(g[key]).to(dev), want[key],
+                f"long flow L = {L}: greedy {key}"))
+        plain_l_ms, want = cuda_ms(
+            lambda: leap_align(*args, lh.leap_config(L)), 1)
+        for key, v in res["by_row"]["leap"].items():
+            err["leap"] = max(err["leap"], max_diff(
+                torch.from_numpy(v).to(dev), want[key],
+                f"long flow L = {L}: leap {key}"))
+        del args, want
+        parts = "; ".join(
+            f"{k} {r['ms']:.3f} ms ({r['aligns_per_sec'] / 1e6:.1f}M "
+            f"aligns/s), bound {r['bound_ms']:.4f} ({r['bound_by']}, "
+            f"{100 * r['bound_share']:.1f}%), {r.get('warps_per_sm')} warps "
+            f"per SM, {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} B spill" for k, r in rows.items())
+        phase(f"[14b long flow L={L}] {res['pairs']} pairs of "
+              f"{lh.read_length(L)} bases: greedy cost {got['greedy_cost']}, "
+              f"LEAP penalty {got['leap_penalty']} with {got['leap_passed']} "
+              f"passed, CIGAR digest {got['digest'][0][:12]}... of "
+              f"{got['digest'][1]} (all pinned); greedy steps max "
+              f"{rows['greedy']['steps_max']}, bounds "
+              f"{rows['greedy']['chunk_bounds']}; energy max "
+              f"{rows['leap_cigar']['energy_max']}, CIGAR bounds "
+              f"{rows['leap_cigar']['chunk_bounds']}; launches {launches}; "
+              f"{parts}; plain greedy {plain_g_ms:.3f} ms, LEAP "
+              f"{plain_l_ms:.3f} ms, equal on every pair; {wall:.1f} s "
+              f"wall; on {card}")
+        if L != 512:
+            continue
+        for kernel, row, source, replaces, plain_ms in (
+                ("greedy", rows["greedy"], "greedy.cu",
+                 "greedy_pallas.py:91", plain_g_ms),
+                ("leap", rows["leap_penalty"], "leap.cu", "leap_pallas.py:49",
+                 plain_l_ms)):
+            entries.append(dict(
+                name=f"{kernel}_L512", route="cuda",
+                source=f"asm_tpu_torch/csrc/{source}",
+                replaces=f"asm_tpu/kernels/{replaces}",
+                launches=launches[kernel], max_abs_err=float(err[kernel]),
+                ms=row["ms"], plain_ms=plain_ms, bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=None,
+                warps_per_sm=row.get("warps_per_sm")))
+    return entries
+
+
+def long_harness(dev, card, err) -> list[dict]:
+    """Phase 14b's harness at max_len 512; returns the NW band, full and
+    trace kernels' W = 16 JSON entries."""
+    from asm_tpu_torch.bench.harness import run_benchmark
+    from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.data.generator import generate_dataset_native
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw, nw_band, \
+        nw_cuda
+    from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
+    from asm_tpu_torch.utils.bounds import bound_entry, nw_band_work, \
+        nw_full_work
+
+    corpus = generate_dataset_native(LONG_HARNESS_PAIRS, 496, 0.05, 0.96,
+                                     seed=42, max_len=512)
+    cfg = AlignConfig(x=1, o=1, e=1, k=3, max_len=512)
+    greedy_cuda.LAUNCHES = nw_band.LAUNCHES = leap_cuda.LAUNCHES = 0
+    nw_cuda.LAUNCHES.update(nw=0, nw_trace=0)
+    t0 = time.perf_counter()
+    r = run_benchmark(*corpus, cfg, impl="cuda", device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(greedy=greedy_cuda.LAUNCHES, nw_band=nw_band.LAUNCHES,
+                    nw=nw_cuda.LAUNCHES["nw"],
+                    nw_trace=nw_cuda.LAUNCHES["nw_trace"],
+                    leap=leap_cuda.LAUNCHES)
+    if min(v for k, v in launches.items() if k != "nw") <= 0:
+        raise AssertionError(f"the L = 512 harness launched {launches}")
+    got = harness_counts(r)
+    if r.coverage_checked != r.total or got != LONG_HARNESS:
+        raise AssertionError(f"L = 512 harness {got} on {r.coverage_checked} "
+                             f"checked != pinned {LONG_HARNESS}")
+    # at err 0.05 every penalty certifies on a band: the harness's NW
+    # partition at err 0.15 leaves a residue for the full kernel
+    hard = generate_dataset_native(LONG_HARNESS_PAIRS, 496, 0.15, 0.96,
+                                   seed=43, max_len=512)
+    t = [torch.from_numpy(a).to(dev) for a in hard]
+    before = nw_cuda.LAUNCHES["nw"]
+    hard_pen = nw_band.nw_penalty_partitioned(*t, bws=nw_band.BWS)
+    launches["nw"] += nw_cuda.LAUNCHES["nw"] - before
+    if launches["nw"] <= 0:
+        raise AssertionError("the L = 512 NW partition left no residue for "
+                             "the full kernel")
+    err["nw"] = max(err["nw"], max_diff(
+        torch.from_numpy(hard_pen).to(dev), nw.nw_penalty(*t),
+        "L = 512 err 0.15 partition vs plain full NW"))
+    pt = run_benchmark(*corpus, cfg, impl="torch", device=dev)
+    if harness_counts(pt) != got:
+        raise AssertionError(f"L = 512 harness: torch {harness_counts(pt)} "
+                             f"!= cuda {got}")
+    # the NW kernels on the harness's pairs, timed against their bounds
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in corpus]
+    planes = [torch.from_numpy(stage_planes_t(a).view(np.int32)).to(dev)
+              for a in (corpus[0], corpus[2])]
+    m, n = corpus[1], corpus[3]
+    bw = 32
+    band_ms, pen = cuda_ms(lambda: nw_band.nw_penalty_banded(
+        planes[0], t[1], planes[1], t[3], bw=bw, pre_staged=True), 5)
+    band_plain_ms, want = cuda_ms(lambda: nw_band.banded_plain(*t, bw), 1)
+    err["nw_band"] = max(err["nw_band"], max_diff(pen, want,
+                                                  "L = 512 band"))
+    nw_ms, pen = cuda_ms(lambda: nw_cuda.nw_penalty_cuda(*t), 5)
+    trace_ms, got_t = cuda_ms(
+        lambda: nw_cuda.nw_align_cuda(*t, match_mask_threshold=3), 3)
+    trace_plain_ms, want = cuda_ms(
+        lambda: nw.nw_align(*t, match_mask_threshold=3), 1)
+    nw_plain_ms, want_pen = cuda_ms(lambda: nw.nw_penalty(*t), 1)
+    err["nw"] = max(err["nw"], max_diff(pen, want_pen, "L = 512 nw"))
+    for g, w, key in zip(got_t, want, ("pen", "ops", "mask")):
+        err["nw_trace"] = max(err["nw_trace"], max_diff(
+            g, w, f"L = 512 nw_trace {key}"))
+    bounds = dict(
+        nw_band=bound_entry(*nw_band_work(m, n, np.full(m.size, bw), 512)),
+        nw=bound_entry(*nw_full_work(m, n, 512)),
+        nw_trace=bound_entry(*nw_full_work(m, n, 512, trace=True)))
+    times = dict(nw_band=(band_ms, band_plain_ms), nw=(nw_ms, nw_plain_ms),
+                 nw_trace=(trace_ms, trace_plain_ms))
+    parts = "; ".join(
+        f"{k} {times[k][0]:.4f} ms, bound {b['bound_ms']:.4f} "
+        f"({b['bound_by']}, {100 * b['bound_ms'] / times[k][0]:.1f}%), "
+        f"plain {times[k][1]:.3f} ms" for k, b in bounds.items())
+    phase(f"[14c long harness L=512] {r.total} pairs of 496 bases err 0.05: "
+          f"greedy == NW {got[0]}, LEAP == NW {got[1]}, covered {got[2]} of "
+          f"{r.coverage_checked} (pinned; impl torch the same); the NW "
+          f"partition of {LONG_HARNESS_PAIRS} err 0.15 pairs equal to the "
+          f"plain full NW; launches {launches}; NW {r.nw_time * 1e3:.3f} / LEAP "
+          f"{r.leap_time * 1e3:.3f} / greedy {r.greedy_time * 1e3:.3f} ms "
+          f"(plain {pt.nw_time * 1e3:.3f} / {pt.leap_time * 1e3:.3f} / "
+          f"{pt.greedy_time * 1e3:.3f}), {wall:.1f} s wall with coverage; "
+          f"on {r.total} pairs: band BW {bw}, full, trace: {parts}; on "
+          f"{card}")
+    names = dict(nw_band=("nw_band.cu", "nw_band.py:174"),
+                 nw=("nw.cu", "nw_pallas.py:88"),
+                 nw_trace=("nw.cu", "nw_pallas.py:218"))
+    return [dict(name=f"{k}_L512", route="cuda",
+                 source=f"asm_tpu_torch/csrc/{names[k][0]}",
+                 replaces=f"asm_tpu/kernels/{names[k][1]}",
+                 **({} if k == "nw_band" else
+                    {"instantiation": nw_instance(k == "nw_trace", 512)}),
+                 launches=launches[k], max_abs_err=float(err[k]),
+                 ms=times[k][0], plain_ms=times[k][1], **bounds[k])
+            for k in bounds]
+
+
+def long_sequences(dev, name, card) -> list[dict]:
+    """Phase 14; returns the W = 16 kernels' JSON entries."""
+    t0 = time.perf_counter()
+    err = long_kernels_vs_plain(dev, name)
+    entries = long_flow(dev, card, err)
+    entries += long_harness(dev, card, err)
+    phase(f"[14 long sequences] {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 INT_CATEGORIES = ("arith", "shift", "popcount", "selcmp")
 
 
@@ -1332,16 +1695,22 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     # every build at once: one nvcc per kernel source, and make
+    def timed(build):
+        t = time.perf_counter()
+        build()
+        return round(time.perf_counter() - t, 1)
+
     t0 = time.perf_counter()
     kernels = (greedy_cuda, nw_cuda, nw_band, leap_cuda, roofline_cuda)
     with ThreadPoolExecutor(len(kernels) + 1) as ex:
-        builds = [ex.submit(k.build_kernel) for k in kernels]
-        native = ex.submit(build_native)
-        built = [f.result()[1] for f in builds]
-        native.result()
+        builds = [ex.submit(timed, k.build_kernel) for k in kernels]
+        native = ex.submit(timed, build_native)
+        secs = {k.__name__.rsplit(".", 1)[1]: f.result()
+                for k, f in zip(kernels, builds)}
+        secs["native"] = native.result()
     ptxas = "; ".join(ptxas_summary(k.ptxas_report()) for k in kernels)
     phase(f"[2 build] {len(kernels)} kernel libraries + native library in "
-          f"{time.perf_counter() - t0:.1f}s (built now: {built}); "
+          f"{time.perf_counter() - t0:.1f}s (seconds each: {secs}); "
           f"ptxas: {ptxas}")
 
     entry, greedy_rows = greedy_phases(dev, name, card)
@@ -1360,6 +1729,7 @@ def main() -> int:
                               dict(nw=full_row, nw_trace=trace_row))
     # the greedy kernel on the mapper's path, beside its main path's numbers
     entries[0]["mapper"] = mapper_path(dev, card)
+    entries += long_sequences(dev, name, card)
 
     print(json.dumps({"kernels": entries}))
     print(card_line(), flush=True)

@@ -96,7 +96,58 @@ GREEDY_CASES = [
     # every SM holds several resident blocks; the last block is partial
     ("many_blocks", AlignConfig(max_steps=24),
      dict(num_reads=200_003, error_rate=0.05, seed=23)),
+    # L = 512 (int32 records), k = 2 and a truncating bound at err 0.15
+    ("max_len512", AlignConfig(max_len=512, max_steps=128),
+     dict(error_rate=0.05, seed=3, length=496, max_len=512)),
+    ("max_len512-k2-err0.15", AlignConfig(max_len=512, k=2, max_steps=16),
+     dict(error_rate=0.15, seed=4, length=496, max_len=512)),
+    ("edges512", AlignConfig(max_len=512, max_steps=128), "edges512"),
+    ("edges512-semi", AlignConfig(
+        max_len=512, max_steps=128,
+        alignment_type=AlignmentType.SEMI_GLOBAL), "edges512"),
+    # k = 4 at every max_len
+    ("k4", AlignConfig(k=4, max_steps=24), dict(error_rate=0.1, seed=6)),
+    ("k4-max_len256", AlignConfig(k=4, max_len=256, max_steps=64),
+     dict(error_rate=0.1, seed=7, length=200, max_len=256)),
+    ("k4-max_len512", AlignConfig(k=4, max_len=512, max_steps=128),
+     dict(error_rate=0.15, seed=8, length=496, max_len=512)),
+    ("k4-edges512-x2o3e1", AlignConfig(x=2, o=3, e=1, k=4, max_len=512,
+                                       max_steps=128), "edges512"),
 ]
+
+
+def long_edges(L=512, seed=31, err=0.05):
+    """Pairs of lengths 0, 1, 31, 32, 33, 496, L - 1 and L, each against
+    each (reads random, refs a copy with `err` substitutions, cut or
+    extended to their length), beside the same lengths on both sides
+    with a third of the error as indels; numpy only, so the CPU tests
+    share it."""
+    rng = np.random.default_rng(seed)
+    lens = [0, 1, 31, 32, 33, 496, L - 1, L]
+    reads, refs = [], []
+    for a in lens:
+        for b in lens:
+            read = rng.integers(0, 4, a)
+            ref = rng.integers(0, 4, b)
+            n = min(a, b)
+            ref[:n] = np.where(rng.random(n) < err, rng.integers(0, 4, n),
+                               read[:n])
+            reads.append(read)
+            refs.append(ref)
+    for a in lens:
+        read = rng.integers(0, 4, a)
+        ref = list(np.where(rng.random(a) < err, rng.integers(0, 4, a), read))
+        for _ in range(int(a * err / 3)):
+            i = int(rng.integers(0, len(ref) + 1))
+            if rng.random() < 0.5 and ref:
+                del ref[min(i, len(ref) - 1)]
+            else:
+                ref.insert(i, int(rng.integers(0, 4)))
+        reads.append(read)
+        refs.append(np.asarray(ref[:L], np.int64))
+    as_str = ["".join("ACGT"[c] for c in x) for x in reads]
+    return encode_batch(as_str, ["".join("ACGT"[c] for c in x)
+                                 for x in refs], L)
 
 
 @pytest.mark.parametrize("label,cfg,kw", GREEDY_CASES,
@@ -105,6 +156,8 @@ GREEDY_CASES = [
 def test_kernel_matches_plain(dev, label, cfg, kw, form):
     if kw == "edges":
         rc, rl, fc, fl = (torch.from_numpy(a).to(dev) for a in _greedy_edges())
+    elif kw == "edges512":
+        rc, rl, fc, fl = (torch.from_numpy(a).to(dev) for a in long_edges())
     else:
         rc, rl, fc, fl = _corpus(dev, **dict(dict(num_reads=1000, length=100),
                                              **kw))
@@ -124,30 +177,49 @@ def test_kernel_matches_plain(dev, label, cfg, kw, form):
 
 def test_kernel_occupancy_and_spills(dev):
     """Every instantiation builds without spills; the shared-memory rows
-    leave room for at least 5 resident blocks of the main path's (k = 3,
-    L = 128) and 3 at L = 256."""
+    leave room for at least 5 resident blocks of 128 threads (20 warps)
+    of the main path's (k = 3, L = 128) and 3 (12 warps) at L = 256; at
+    k = 4, 4 and 2 blocks; at L = 512 at least the one 128-thread block
+    (4 warps) a block of that size leaves. The occupancy query answers
+    warps, since the block size is per instantiation."""
     from asm_tpu_torch.tools import roofline as rl
     from asm_tpu_torch.utils.build import ptxas_usage
 
     greedy_cuda.build_kernel()
     with open(greedy_cuda.ptxas_report()) as f:
         usage = ptxas_usage(f.read())
-    assert len(usage) == 8  # k in {2, 3} x L in {128, 256} x 2 input forms
+    # k in {2, 3, 4} x L in {128, 256, 512} x 2 input forms
+    assert len(usage) == 18
     for name, u in usage.items():
         assert u["spill_stores"] == u["spill_loads"] == 0, name
+    assert greedy_cuda.block_threads(128) == greedy_cuda.block_threads(
+        256) == 128
     for k in (2, 3):
         for planes in (True, False):
-            assert greedy_cuda.occupancy(k, 128, planes) >= 5
-            assert greedy_cuda.occupancy(k, 256, planes) >= 3
+            assert greedy_cuda.occupancy(k, 128, planes) >= 5 * 4
+            assert greedy_cuda.occupancy(k, 256, planes) >= 3 * 4
+    for planes in (True, False):
+        assert greedy_cuda.occupancy(4, 128, planes) >= 4 * 4
+        assert greedy_cuda.occupancy(4, 256, planes) >= 2 * 4
+        for k in (2, 3, 4):
+            assert greedy_cuda.occupancy(k, 512, planes) >= 4
     got = rl.greedy_resources()
-    assert got["warps_per_sm"] == 4 * greedy_cuda.occupancy()
+    assert got["warps_per_sm"] == greedy_cuda.occupancy()
+    got = rl.greedy_resources(k=3, max_len=512)
+    assert got["warps_per_sm"] == greedy_cuda.occupancy(3, 512)
+    assert got["spill_stores"] == 0
 
 
 def test_kernel_refuses_unbuilt_shapes(dev):
     rc, rl, fc, fl = _corpus(dev, num_reads=8, length=50, error_rate=0.1,
                              seed=1)
     with pytest.raises(NotImplementedError):
-        greedy_cuda.greedy_align_cuda(rc, rl, fc, fl, AlignConfig(k=4))
+        greedy_cuda.greedy_align_cuda(rc, rl, fc, fl, AlignConfig(k=5))
+    rc3, rl3, fc3, fl3 = _corpus(dev, num_reads=8, length=50,
+                                 error_rate=0.1, seed=1, max_len=384)
+    with pytest.raises(NotImplementedError):
+        greedy_cuda.greedy_align_cuda(rc3, rl3, fc3, fl3,
+                                      AlignConfig(max_len=384))
     with pytest.raises(ValueError):
         greedy_cuda.greedy_align_cuda(rc, rl.cpu(), fc, fl, AlignConfig())
 
@@ -166,6 +238,10 @@ NW_CASES = [
     ("max_len256", dict(num_reads=301, length=200, error_rate=0.1, seed=3,
                         max_len=256)),
     ("edges256", "edges256"),
+    ("max_len512", dict(num_reads=301, length=496, error_rate=0.1, seed=3,
+                        max_len=512)),
+    ("edges512", "edges512"),
+    ("long_edges512", "long_edges512"),
 ]
 
 
@@ -218,8 +294,10 @@ def _nw_corpus(dev, kw):
         refs = ["ACGT" * 32, "A", "ACGTACGT", "ACG", "ACGT" * 25, "TGCA" * 20]
         return [torch.from_numpy(np.concatenate([a, b])).to(dev) for a, b in
                 zip(encode_batch(reads, refs, 128), _nw_edges(128))]
-    if kw == "edges256":
-        return [torch.from_numpy(a).to(dev) for a in _nw_edges(256)]
+    if kw in ("edges256", "edges512"):
+        return [torch.from_numpy(a).to(dev) for a in _nw_edges(int(kw[5:]))]
+    if kw == "long_edges512":
+        return [torch.from_numpy(a).to(dev) for a in long_edges()]
     if kw == "ragged_warps":
         return [torch.from_numpy(a).to(dev) for a in _ragged_warps()]
     if kw == "leap_runs":
@@ -298,6 +376,22 @@ def test_nw_trace_kernel_in_pieces_at_256(dev, monkeypatch):
         assert torch.equal(g, w)
 
 
+def test_nw_trace_kernel_in_pieces_at_512(dev, monkeypatch):
+    """At L = 512 the pointers take the global scratch too: a launch
+    larger than TRACE_SCRATCH_BYTES runs in pieces."""
+    rc, rl, fc, fl = _corpus(dev, num_reads=300, length=496,
+                             error_rate=0.1, seed=9, max_len=512)
+    want = nw.nw_align(rc, rl, fc, fl, match_mask_threshold=3)
+    assert nw_cuda.instance(True, 512)[1] == nw_cuda.ROUTE_GLOBAL
+    monkeypatch.setattr(nw_cuda, "TRACE_SCRATCH_BYTES", 512 * 512 // 2 * 128)
+    before = nw_cuda.LAUNCHES["nw_trace"]
+    got = nw_cuda.nw_align_cuda(rc, rl, fc, fl, match_mask_threshold=3)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_trace"] == before + 3  # ceil(300 / 128)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_nw_kernels_many_blocks(dev):
     """200,003 pairs, many waves of blocks, in one launch each."""
     rc, rl, fc, fl = _corpus(dev, num_reads=200_003, length=100,
@@ -314,8 +408,8 @@ def test_nw_kernels_many_blocks(dev):
 
 
 def test_nw_kernels_spills_and_occupancy(dev):
-    """The library holds the four instantiations the wrappers launch
-    (penalty and trace, L = 128 and 256) and no other; each builds
+    """The library holds the six instantiations the wrappers launch
+    (penalty and trace, L = 128, 256 and 512) and no other; each builds
     without spills and resides on the SM, the trace kernel at L = 128
     (pointers in shared memory) with at least 8 warps per SM; the
     roofline's resources read the launched instantiation."""
@@ -326,14 +420,14 @@ def test_nw_kernels_spills_and_occupancy(dev):
     with open(nw_cuda.ptxas_report()) as f:
         usage = ptxas_usage(f.read())
     names = [nw_cuda.function_name(t, L) for t in (False, True)
-             for L in (128, 256)]
+             for L in (128, 256, 512)]
     assert len([k for k in usage if "nw_kernel" in k]) == len(names)
     for fn in names:
         hits = [u for k, u in usage.items() if fn in k]
         assert len(hits) == 1, fn
         assert hits[0]["spill_stores"] == hits[0]["spill_loads"] == 0
     for trace in (False, True):
-        for L in (128, 256):
+        for L in (128, 256, 512):
             assert nw_cuda.occupancy(trace, L) >= 1
     assert nw_cuda.occupancy(True, 128) >= 8
     got = rl.nw_resources(True, 128)
@@ -347,6 +441,12 @@ def test_nw_kernels_refuse_unbuilt_shapes(dev):
         nw_cuda.nw_penalty_cuda(rc, rl, fc, fl)
     with pytest.raises(NotImplementedError):
         nw_band.nw_penalty_banded(rc, rl, fc, fl, bw=16)
+    long = _corpus(dev, num_reads=8, length=50, error_rate=0.1, seed=1,
+                   max_len=384)
+    for fn in (nw_cuda.nw_penalty_cuda, nw_cuda.nw_align_cuda,
+               nw_band.nw_penalty_banded):
+        with pytest.raises(NotImplementedError):
+            fn(*long)
     rc, rl, fc, fl = _corpus(dev, num_reads=8, length=50, error_rate=0.1,
                              seed=1)
     with pytest.raises(NotImplementedError):
@@ -370,6 +470,11 @@ LEAP_CASES = [
                         max_len=256)),
     ("max_len256-full", dict(num_reads=131, length=256, error_rate=0.01,
                              seed=4, max_len=256)),
+    ("max_len512", dict(num_reads=301, length=496, error_rate=0.05, seed=3,
+                        max_len=512)),
+    ("max_len512-full", dict(num_reads=131, length=512, error_rate=0.01,
+                             seed=4, max_len=512)),
+    ("long_edges512", "long_edges512"),
     # match runs that start inside a word, end on a word boundary or reach
     # the buffer's end
     ("runs", "leap_runs"),
@@ -445,6 +550,15 @@ def test_leap_kernel_band_widths(dev, k):
                     gate)
 
 
+@pytest.mark.parametrize("k", [2, 4])
+def test_leap_kernel_band_widths_at_512(dev, k):
+    corpus = _corpus(dev, num_reads=201, length=496, error_rate=0.05,
+                     seed=7, max_len=512)
+    for sem, gate, pens in LEAP_VARIANTS:
+        _leap_check(dev, corpus, _leap_cfg(sem, pens, 1, 512, k=k), sem,
+                    gate)
+
+
 def test_leap_cigar_in_pieces_and_tight_threshold(dev, monkeypatch):
     """A CIGAR launch larger than the history scratch runs in pieces; a
     tight threshold leaves most pairs unpassed."""
@@ -466,10 +580,11 @@ def test_leap_kernel_builds_every_instantiation(dev):
     assert path.endswith(".so")
     with open(leap_cuda.ptxas_report()) as f:
         report = f.read()
-    # k in {2, 3, 4} x W in {4, 8} x 2 penalty sets x 4 semantics (lv_bag,
-    # simd_ed_lev with and without the gate, simd_ed_affine), and lv_bag's
-    # CIGAR mode at each k, W and penalty set, each on both input routes
-    assert report.count("Compiling entry function") == 120
+    # k in {2, 3, 4} x W in {4, 8, 16} x (unit penalties: lv_bag and its
+    # CIGAR mode, simd_ed_lev with and without the gate, simd_ed_affine;
+    # x = 2, o = 3, e = 1: lv_bag and its CIGAR mode, simd_ed_affine;
+    # simd_ed_lev is unit-cost alone), each on both input routes
+    assert report.count("Compiling entry function") == 3 * 3 * (5 + 3) * 2
 
 
 def test_leap_kernel_spills_and_occupancy(dev):
@@ -482,15 +597,17 @@ def test_leap_kernel_spills_and_occupancy(dev):
     leap_cuda.build_kernel()
     with open(leap_cuda.ptxas_report()) as f:
         usage = ptxas_usage(f.read())
-    assert len(usage) == 120
+    assert len(usage) == 144
     for name, u in usage.items():
         assert u["spill_stores"] == u["spill_loads"] == 0, name
     for k in (2, 3, 4):
-        for L in (128, 256):
+        for L in (128, 256, 512):
             for cigar in (False, True):
                 assert leap_cuda.occupancy(k, L, cigar) >= 1
     got = rl.leap_resources()
     assert got["warps_per_sm"] == 4 * leap_cuda.occupancy()
+    got = rl.leap_resources(k=3, max_len=512, cigar=True)
+    assert got["warps_per_sm"] == 4 * leap_cuda.occupancy(3, 512, True)
 
 
 def test_leap_kernel_refuses_unbuilt_shapes(dev):
@@ -500,6 +617,10 @@ def test_leap_kernel_refuses_unbuilt_shapes(dev):
                              seed=1)
     with pytest.raises(NotImplementedError):
         leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(k=5))
+    long = _corpus(dev, num_reads=8, length=50, error_rate=0.1, seed=1,
+                   max_len=384)
+    with pytest.raises(NotImplementedError):
+        leap_cuda.leap_align_cuda(*long, AlignConfig(max_len=384))
     with pytest.raises(NotImplementedError):
         leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(x=1, o=4, e=2))
     with pytest.raises(ValueError):

@@ -151,19 +151,21 @@ class _FakeLib:
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["nw", "nw_trace"])
-@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("L", [128, 256, 512])
 def test_nw_cu_instance_table(L, trace):
     """csrc/nw.cu builds one instantiation per kernel and max_len: R = L/G
     rows per thread a multiple of 4 and at most 32, the route ids the
     ones nw_cuda names (no pointers for the penalty; the trace kernel's
-    in shared memory at L = 128, in the global scratch at L = 256), and
-    `function_name` the instantiation's mangled name."""
+    in shared memory at L = 128, in the global scratch at L = 256 and
+    512), and `function_name` the instantiation's mangled name."""
     table = _nw_cu_instances()
-    assert sorted(table) == [(4, False), (4, True), (8, False), (8, True)]
+    assert sorted(table) == [(4, False), (4, True), (8, False), (8, True),
+                             (16, False), (16, True)]
     G, route = table[L // 32, trace]
     assert G in (8, 16, 32) and (L // G) % 4 == 0 and L // G <= 32
     assert route == (nw_cuda.ROUTE_NONE if not trace else
-                     {128: nw_cuda.ROUTE_SHARED, 256: nw_cuda.ROUTE_GLOBAL}[L])
+                     {128: nw_cuda.ROUTE_SHARED, 256: nw_cuda.ROUTE_GLOBAL,
+                      512: nw_cuda.ROUTE_GLOBAL}[L])
     with open(nw_cuda.SOURCE) as f:
         src = f.read()
     assert re.search(r"enum \{ PTR_NONE = 0, PTR_GLOBAL = 1, PTR_SHARED = 2 \}",

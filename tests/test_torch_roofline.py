@@ -385,7 +385,8 @@ ptxas info    : Used 128 registers, used 0 barriers, 416 bytes cmem[0]
 def test_greedy_resources_from_a_ptxas_report(monkeypatch):
     """The greedy line's registers and spills come from the main-path
     instantiation's entry in the ptxas report, its warps per SM from the
-    occupancy query (blocks of 128 threads)."""
+    occupancy query (which answers warps: the block size is per
+    instantiation)."""
     from asm_tpu_torch.kernels import greedy_cuda
     from asm_tpu_torch.utils.build import ptxas_usage
 
@@ -394,10 +395,9 @@ def test_greedy_resources_from_a_ptxas_report(monkeypatch):
         dict(registers=96, spill_stores=0, spill_loads=0),
         dict(registers=128, spill_stores=16, spill_loads=20)]
     assert all("greedy_kernel" in k for k in usage)
-    monkeypatch.setattr(greedy_cuda, "occupancy", lambda *a, **kw: 5)
+    monkeypatch.setattr(greedy_cuda, "occupancy", lambda *a, **kw: 20)
     assert rl.greedy_resources(PTXAS_REPORT) == dict(
-        registers=96, spill_stores=0, spill_loads=0, blocks_per_sm=5,
-        warps_per_sm=20)
+        registers=96, spill_stores=0, spill_loads=0, warps_per_sm=20)
     with pytest.raises(ValueError, match="0 kernels"):
         rl.greedy_resources(PTXAS_REPORT.replace("ILi3ELi4E", "ILi2ELi4E"))
 
@@ -543,14 +543,14 @@ def test_nw_warp_steps_against_a_direct_count():
 # the NW instantiations as nvcc -Xptxas -v reports them: (W, G, route)
 NW_TAIL = "EEvPKaS1_PKiS3_NS_6ParamsEPiPaS6_Ph"
 NW_INSTANCES = {(4, False): (8, 0), (4, True): (16, 2), (8, False): (8, 0),
-                (8, True): (8, 1)}
+                (8, True): (8, 1), (16, False): (16, 0), (16, True): (16, 1)}
 NW_PTXAS = "".join(
     f"ptxas info    : Compiling entry function "
     f"'_ZN12_GLOBAL__N_19nw_kernelILi{w}ELi{g}ELi{r}{NW_TAIL}' for 'sm_90a'\n"
     f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
     f"ptxas info    : Used {regs} registers, used 0 barriers\n"
     for ((w, _), (g, r)), regs in zip(NW_INSTANCES.items(),
-                                      (72, 64, 40, 56)))
+                                      (72, 64, 40, 56, 122, 159)))
 
 
 def test_nw_resources_from_a_ptxas_report(monkeypatch):
@@ -570,7 +570,10 @@ def test_nw_resources_from_a_ptxas_report(monkeypatch):
     assert rl.nw_resources(True, 128, report=NW_PTXAS)["registers"] == 64
     assert rl.nw_resources(False, 256, report=NW_PTXAS)["registers"] == 40
     assert rl.nw_resources(True, 256, report=NW_PTXAS)["registers"] == 56
-    assert asked == [(False, 128), (True, 128), (False, 256), (True, 256)]
+    assert rl.nw_resources(False, 512, report=NW_PTXAS)["registers"] == 122
+    assert rl.nw_resources(True, 512, report=NW_PTXAS)["registers"] == 159
+    assert asked == [(False, 128), (True, 128), (False, 256), (True, 256),
+                     (False, 512), (True, 512)]
     table[4, False] = (32, 0)  # an instantiation the library does not hold
     with pytest.raises(ValueError, match="0 kernels"):
         rl.nw_resources(False, 128, report=NW_PTXAS)
@@ -595,7 +598,20 @@ def test_chip_smoke_names_every_instantiation():
     got = [chip_smoke._instance_name(ln.split("'")[1])
            for ln in NW_PTXAS.splitlines() if "Compiling" in ln]
     assert got == ["nw W4/G8", "nw_trace W4/G16/shared", "nw W8/G8",
-                   "nw_trace W8/G8/global"]
+                   "nw_trace W8/G8/global", "nw W16/G16",
+                   "nw_trace W16/G16/global"]
+    # max_len 512 (W = 16): greedy at k = 4 with int32 records, LEAP, the
+    # band kernel
+    assert chip_smoke._instance_name(
+        "_ZN12_GLOBAL__N_113greedy_kernelILi4ELi16ELb0EiEEvPKj") == (
+        "greedy k4/W16/codes")
+    assert chip_smoke._instance_name(rl.greedy_fn(3, 512)) == (
+        "greedy k3/W16/planes")
+    assert chip_smoke._instance_name(rl.leap_fn(4, 512, cigar=True)) == (
+        "leap k4/W16/x1o1e1/lv_bag/cigar/planes")
+    assert chip_smoke._instance_name(
+        "_ZN12_GLOBAL__N_111band_kernelILi8ELi16EEEvPKjS2_PKiS4_NS_6ParamsEPi"
+    ) == "nw_band BW8/W16"
     assert chip_smoke._instance_name("_Z11unknown_fnv") is None
 
 
@@ -618,3 +634,32 @@ def test_roofline_cli_parses_and_needs_a_card(monkeypatch, capsys):
     with pytest.raises(SystemExit):
         rl.main(["bogus"])
     assert "invalid choice" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kernel,trace", [
+    ("greedy", None), ("nw", "false"), ("nw", "true")])
+def test_longseq_sweep_rewrites_one_source_line(kernel, trace):
+    """Each layout the sweep tool varies is set by exactly one line of the
+    checked-in source, the line its variants replace; a pattern that
+    matches no line is refused before anything is built."""
+    import re
+
+    from asm_tpu_torch.kernels import greedy_cuda, nw_cuda
+    from asm_tpu_torch.tools import longseq_sweep as ls
+
+    module = greedy_cuda if kernel == "greedy" else nw_cuda
+    pattern = ls.GREEDY_LINE if trace is None else ls.NW_LINE.format(
+        trace=trace)
+    with open(module.SOURCE) as f:
+        assert len(re.findall(pattern, f.read())) == 1
+    with pytest.raises(ValueError, match="matches 0 lines"):
+        ls.variant(module, "unused", [(pattern + "x", "")])
+
+
+def test_longseq_sweep_cli_needs_a_card(monkeypatch):
+    from asm_tpu_torch.tools import longseq_sweep as ls
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["piece", "--nw-pairs", "64"]):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            ls.main(argv)
