@@ -19,7 +19,22 @@ Ported paths:
   * the three-way harness over NW, LEAP and greedy
     (`python -m asm_tpu_torch.bench`) and the roofline tool, which
     measures the card's issue and stream rates and counts the kernels'
-    SASS (`python -m asm_tpu_torch.tools.roofline`).
+    SASS (`python -m asm_tpu_torch.tools.roofline`);
+  * the read mapper (`python -m asm_tpu_torch.mapper`), long sequences
+    (max_len 256 and 512) and profile-profile alignment
+    (`kernels.msa.profile_align`, eager tensor ops);
+  * the evaluation pipeline over a torch.distributed process group
+    (`parallel.make_sharded_pipeline`,
+    `python -m asm_tpu_torch.parallel.multihost_demo`), the demo
+    (`python -m asm_tpu_torch.apps.demo`) and profiling
+    (`utils.profiling`).
+
+The exports below are the counterparts of asm_tpu's: each Pallas entry
+point maps to its CUDA wrapper (`greedy_align_pallas` ->
+`greedy_align_cuda`, `nw_align_pallas` -> `nw_align_cuda`,
+`nw_penalty_pallas` -> `nw_penalty_cuda`, `leap_align_pallas` ->
+`leap_align_cuda`); `nw_penalty_auto` has none (`nw_penalty_partitioned`
+covers it). Importing the package builds nothing.
 """
 
 from asm_tpu_torch.config import (
@@ -39,7 +54,17 @@ from asm_tpu_torch.encoding import (
     decode_string,
     encode_batch,
     encode_string,
+    pack_bitplanes,
 )
+from asm_tpu_torch.kernels.greedy import greedy_align
+from asm_tpu_torch.kernels.greedy_cuda import greedy_align_cuda
+from asm_tpu_torch.kernels.leap import leap_align
+from asm_tpu_torch.kernels.leap_cuda import leap_align_cuda, leap_cigar_auto
+from asm_tpu_torch.kernels.msa import profile_align, profiles_from_alignments
+from asm_tpu_torch.kernels.nw import nw_align, nw_penalty
+from asm_tpu_torch.kernels.nw_band import nw_penalty_partitioned, required_band
+from asm_tpu_torch.kernels.nw_cuda import nw_align_cuda, nw_penalty_cuda
+from asm_tpu_torch.kernels.shd import shd_filter
 
 __all__ = [
     "AlignConfig",
@@ -50,6 +75,21 @@ __all__ = [
     "encode_batch",
     "encode_string",
     "decode_string",
+    "pack_bitplanes",
+    "nw_align",
+    "nw_penalty",
+    "nw_align_cuda",
+    "nw_penalty_cuda",
+    "nw_penalty_partitioned",
+    "required_band",
+    "greedy_align",
+    "greedy_align_cuda",
+    "leap_align",
+    "leap_align_cuda",
+    "leap_cigar_auto",
+    "shd_filter",
+    "profile_align",
+    "profiles_from_alignments",
     "CODE_A",
     "CODE_C",
     "CODE_G",

@@ -1,5 +1,6 @@
 """Seeded WFA-style simulated read-pair generator (copy of
-`asm_tpu.data.generator`'s array generators).
+`asm_tpu.data.generator`: the string-list generator and the array
+generators).
 
 Random ACGT patterns; the text is a copy with ceil(len * error_rate)
 errors (exact mode) or a uniform 0..ceil count, each error a mismatch with
@@ -9,7 +10,7 @@ applied sequentially at random positions of the evolving text
 reference's float32 ceil, so rate .15 at length 100 injects 16 errors.
 
 The only randomness of the system lives here: `np.random.default_rng(seed)`
-in the numpy generator, the native mt19937_64 stream in
+in the numpy generators, the native mt19937_64 stream in
 `generate_dataset_native`. The two streams differ; the headline checksum
 holds for the native one.
 """
@@ -25,6 +26,52 @@ def nominal_errors(length: int, error_rate: float) -> int:
     """ceil(length * rate) in float32 — the reference's exact expression
     (benchmark_dataset.h:153-156: uint64 * float promotes to float)."""
     return math.ceil(np.float32(length) * np.float32(error_rate))
+
+
+_ALPHABET = np.array(list("ACGT"))
+
+
+def generate_dataset(
+    num_reads: int,
+    length: int,
+    error_rate: float,
+    mismatch_rate: float = 0.96,
+    exact_error_rate: bool = True,
+    seed: int = 0,
+) -> tuple[list[str], list[str]]:
+    """Return (patterns, texts) — `num_reads` read/ref pairs, one pair at
+    a time from the seeded stream (the same strings as asm_tpu's)."""
+    if not 0 <= error_rate <= 0.7:
+        raise ValueError(f"error rate {error_rate} out of [0, 0.7]")
+    if not 0 <= mismatch_rate <= 1:
+        raise ValueError(f"mismatch rate {mismatch_rate} out of [0, 1]")
+    rng = np.random.default_rng(seed)
+    patterns: list[str] = []
+    texts: list[str] = []
+    max_errors = nominal_errors(length, error_rate)
+    for _ in range(num_reads):
+        pattern = rng.integers(0, 4, size=length)
+        num_errors = (
+            max_errors
+            if exact_error_rate
+            else int(rng.integers(0, max_errors + 1))
+        )
+        text = list(pattern)
+        for _ in range(num_errors):
+            r = rng.random()
+            if r <= mismatch_rate:
+                pos = int(rng.integers(0, len(text)))
+                text[pos] = int(rng.integers(0, 4))
+            elif rng.integers(1, 3) == 1:  # deletion
+                pos = int(rng.integers(0, len(text)))
+                del text[pos]
+            else:  # insertion
+                pos = int(rng.integers(0, len(text)))
+                text.insert(pos, int(rng.integers(0, 4)))
+        patterns.append("".join(_ALPHABET[pattern]))
+        texts.append("".join(_ALPHABET[np.array(text, dtype=np.int64)])
+                     if text else "")
+    return patterns, texts
 
 
 def generate_dataset_arrays(

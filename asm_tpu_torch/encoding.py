@@ -1,4 +1,4 @@
-"""DNA sequence encoding, host half (copy of `asm_tpu.encoding`).
+"""DNA sequence encoding (port of `asm_tpu.encoding`).
 
 A corpus of B read/ref pairs is
 
@@ -7,6 +7,9 @@ A corpus of B read/ref pairs is
 
 Reads are padded with PAD_READ (4) and refs with PAD_REF (5) past their
 true length, so a comparison that touches padding always mismatches.
+The host half encodes strings with numpy; `encode_ascii_device` encodes
+ASCII bytes on a tensor's own device, and `pack_bitplanes` /
+`pack_planes_t` pack codes into 32-bit bit-plane words.
 """
 
 from __future__ import annotations
@@ -86,6 +89,47 @@ def encode_batch(
     return read_codes, read_len, ref_codes, ref_len
 
 
+def encode_ascii_device(ascii_bytes: torch.Tensor, length: torch.Tensor,
+                        pad: int) -> torch.Tensor:
+    """uint8 ASCII [B, L] -> int8 codes [B, L] on the bytes' device (the
+    reference's sse3_convert2bit1, GASMA/bit_convert.cpp:248, as one
+    elementwise map): C/c -> 1, G/g -> 2, T/t -> 3, anything else -> A;
+    positions at or past `length` [B] get `pad`."""
+    b = ascii_bytes
+    codes = torch.where(
+        (b == ord("C")) | (b == ord("c")), CODE_C,
+        torch.where(
+            (b == ord("G")) | (b == ord("g")), CODE_G,
+            torch.where((b == ord("T")) | (b == ord("t")), CODE_T, CODE_A),
+        ),
+    ).to(torch.int8)
+    pos = torch.arange(b.shape[-1], device=b.device)
+    return torch.where(pos < length[..., None].to(b.device), codes,
+                       torch.tensor(pad, dtype=torch.int8, device=b.device))
+
+
+def pack_bitplanes(codes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack int8 codes [.., L] into 2 bit-planes [.., L/32]: plane 0 holds
+    bit 0 of each code, plane 1 bit 1, bit p of word w for code 32w + p
+    (the reference's two-register form, GASMA/bit_convert.h:17-21).
+    Padding codes (>= 4) are not representable. Words are int64 tensors
+    holding the uint32 values (CPU torch has no uint32 shifts)."""
+    L = codes.shape[-1]
+    if L % 32:
+        raise ValueError(f"bitplane packing requires L % 32 == 0, got {L}")
+    c = (codes.to(torch.int64) & 0xFFFFFFFF).reshape(
+        codes.shape[:-1] + (L // 32, 32))
+    return _pack_words(c & 1), _pack_words((c >> 1) & 1)
+
+
+def _pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """[.., W, 32] bits (int64, 0 / 1) -> [.., W] int64 words, bit p of
+    a word from entry p."""
+    weights = torch.ones(32, dtype=torch.int64, device=bits.device) \
+        << torch.arange(32, device=bits.device)
+    return (bits * weights).sum(dim=-1)
+
+
 def pack_planes_t(codes: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """(bit0, bit1, valid) planes, WORD-MAJOR [L/32, B], from int8 codes
     [B, L] (port of `asm_tpu.encoding.pack_planes_t`). Bit p of word w
@@ -96,11 +140,9 @@ def pack_planes_t(codes: torch.Tensor) -> tuple[torch.Tensor, ...]:
     if L % 32:
         raise ValueError(f"bitplane packing requires L % 32 == 0, got {L}")
     c = (codes.to(torch.int64) & 0xFFFFFFFF).reshape(B, L // 32, 32)
-    weights = torch.ones(32, dtype=torch.int64, device=codes.device) \
-        << torch.arange(32, device=codes.device)
 
     def pack(bits):
-        w = (bits * weights).sum(dim=2).T  # [W, B], < 2**32
+        w = _pack_words(bits).T  # [W, B], < 2**32
         return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
     return pack(c & 1), pack((c >> 1) & 1), pack((~c >> 2) & 1)

@@ -1,5 +1,5 @@
-"""CIGAR handling: fixed-size device op buffers -> host strings (copy of
-`asm_tpu.ops.cigar`, numpy only).
+"""CIGAR handling: fixed-size device op buffers -> host strings, and a
+CIGAR's aligned string pair (copy of `asm_tpu.ops.cigar`, numpy only).
 
 The kernels emit fixed-shape op arrays:
   * greedy: (cigar_ops int8[B, C], cigar_runs int32[B, C], count int32[B])
@@ -13,6 +13,8 @@ Host-side decoding produces the same text format the reference prints.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 
@@ -81,3 +83,32 @@ def runs_to_cigars_batch(ops: np.ndarray, runs: np.ndarray) -> list[str]:
 def batch_nw_cigars(ops: np.ndarray) -> list[str]:
     ops = np.asarray(ops)
     return [ops_to_cigar(ops[b]) for b in range(ops.shape[0])]
+
+
+def aligned_strings(read: str, ref: str, cigar: str) -> tuple[str, str]:
+    """The DISPLAY-style aligned string pair of a CIGAR
+    (_update_match, GASMA/hurdle_matrix.h:204-228): an 'I' run consumes
+    read characters against '-' in the ref row, a 'D' run the reverse,
+    'M' / '=' / 'X' runs one character from each. Returns (read_row,
+    ref_row) of equal length; a suffix the CIGAR never reaches is left
+    off."""
+    if re.fullmatch(r"(?:\d+[MIDX=])*", cigar) is None:
+        raise ValueError(f"unrecognized CIGAR syntax or op: {cigar!r}")
+    a_row, b_row = [], []
+    ai = bi = 0
+    for count, op in re.findall(r"(\d+)([MIDX=])", cigar):
+        r = int(count)
+        if op == "I":
+            a_row.append(read[ai:ai + r])
+            b_row.append("-" * r)
+            ai += r
+        elif op == "D":
+            a_row.append("-" * r)
+            b_row.append(ref[bi:bi + r])
+            bi += r
+        else:  # M / = / X
+            a_row.append(read[ai:ai + r])
+            b_row.append(ref[bi:bi + r])
+            ai += r
+            bi += r
+    return "".join(a_row), "".join(b_row)

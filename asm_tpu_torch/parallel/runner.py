@@ -1,11 +1,18 @@
-"""Single-device steps of the port (the one-GPU halves of
-`asm_tpu.parallel.runner`; the multi-device halves wait for the
-torch.distributed slice):
+"""The alignment steps on one device and over a mesh of ranks (port of
+`asm_tpu.parallel.runner`):
 
-  make_greedy_step     greedy only (`make_sharded_greedy`), the headline's
-  make_pipeline_step   the evaluation step (`make_sharded_pipeline`): NW
-                       oracle, greedy cost and LEAP penalty per pair, and
-                       the 7 corpus counters `unpack_stats` reads
+  make_greedy_step       greedy only, on one device (the headline's)
+  make_pipeline_step     the evaluation step on one device: NW oracle,
+                         greedy cost and LEAP penalty per pair, and the 7
+                         corpus counters `unpack_stats` reads
+  make_sharded_greedy    greedy on this rank's shard of a mesh
+  make_sharded_pipeline  the evaluation step on this rank's shard, its 7
+                         counters summed over the mesh (`all_reduce`)
+
+Over a mesh (`parallel.mesh`) each rank runs the one-device step on its
+own contiguous slice of the batch. Per-pair outputs stay on their rank,
+as they stay sharded in JAX; only the counter vector travels, the
+reference's accuracy numbers (benchmark_utils.h:390-402) read from it.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from asm_tpu_torch.config import AlignConfig
 from asm_tpu_torch.encoding import PAD_READ, PAD_REF
@@ -158,3 +166,49 @@ def make_pipeline_step(cfg: AlignConfig, device, impl: str = "cuda"):
         return nw_pen, g_cost, l_pen, stats
 
     return _on_device(step, device)
+
+
+def _all_reduce_sum(v: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum `v` over the mesh's ranks. gloo reduces a host copy (its CUDA
+    support is partial); a one-rank mesh outside a process group is
+    itself."""
+    if not dist.is_initialized():
+        if mesh.size != 1:
+            raise RuntimeError(f"a mesh of {mesh.size} ranks needs an "
+                               f"initialised process group")
+        return v
+    if v.is_cuda and dist.get_backend(mesh.group) == "gloo":
+        w = v.cpu()
+        dist.all_reduce(w, op=dist.ReduceOp.SUM, group=mesh.group)
+        return w.to(v.device)
+    dist.all_reduce(v, op=dist.ReduceOp.SUM, group=mesh.group)
+    return v
+
+
+def make_sharded_pipeline(mesh, cfg: AlignConfig, impl: str = "cuda"):
+    """(read, read_len, ref, ref_len), this rank's shard on the mesh's
+    device (`mesh.shard_batch`) -> (nw_pen[b], greedy_cost[b],
+    leap_pen[b], stats int32[7]): `make_pipeline_step` on the shard, its
+    counter vector summed over every rank of the mesh. Every rank must
+    call it, as a collective."""
+    step = make_pipeline_step(cfg, mesh.device, impl)
+
+    def sharded(read, read_len, ref, ref_len):
+        nw_pen, g_cost, l_pen, stats = step(read, read_len, ref, ref_len)
+        return nw_pen, g_cost, l_pen, _all_reduce_sum(stats, mesh)
+
+    return sharded
+
+
+def make_sharded_greedy(mesh, cfg: AlignConfig, impl: str = "cuda",
+                        want_cigar: bool = False, pre_staged=False,
+                        tile: int = 2048):
+    """`make_greedy_step` on this rank's shard: (read, read_len, ref,
+    ref_len) on the mesh's device -> the greedy result dict of the shard.
+    pre_staged=False shards int8 codes [B, L] by rows; "planes_tiled"
+    shards tile-major planes [B / tile, L / 16, tile] by whole tiles on
+    their leading axis (`mesh.shard_on_axis(mesh, planes, 0)`), so the
+    global batch must be a multiple of tile x mesh size. Nothing is
+    reduced: the per-pair outputs stay on their rank."""
+    return make_greedy_step(cfg, mesh.device, impl, pre_staged=pre_staged,
+                            tile=tile, want_cigar=want_cigar)

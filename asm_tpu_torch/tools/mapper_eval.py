@@ -15,11 +15,15 @@ rescoring on the card's greedy kernel (asm_tpu_torch.mapper), and reports:
     warm-up that builds and loads the kernel), the steady pass's stage
     profile, kernel_ms (the summed CUDA-event time of the rescoring
     launches) and its share of the wall, the greedy kernel's launches and
-    their bound (utils.bounds.greedy_work, codes route).
+    their bound (utils.bounds.greedy_work, codes route);
+  * with --trace DIR, one more steady pass inside `utils.profiling.
+    trace_to(DIR)`: the card's busy and idle share over that call (the
+    union of its kernel and copy records in the trace, over the call's
+    wall) and the Chrome trace in DIR.
 
 Usage: python -m asm_tpu_torch.tools.mapper_eval [--genome-mbp 50]
        [--reads 20000] [--read-len 100] [--batch 8192] [--seed 7]
-       [--device cuda|cpu]
+       [--device cuda|cpu] [--trace DIR]
 --device cpu runs the plain PyTorch version on the CPU. The last line is
 one JSON object; on a card it names the card and its power limit
 (nvidia-smi).
@@ -51,10 +55,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--tol", type=int, default=5)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (the kernel, default) or cpu (plain version)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="trace one more steady pass into DIR and report "
+                         "the card's busy share over it")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu for the plain "
                          "version")
+    if args.trace and args.device != "cuda":
+        raise SystemExit("--trace reads the card's activity; it needs "
+                         "--device cuda")
 
     rng = np.random.default_rng(args.seed)
     n = int(args.genome_mbp * 1e6)
@@ -97,6 +107,21 @@ def main(argv=None) -> dict:
             f"jobs={prof.get('n_jobs')} two_phase={prof.get('two_phase')} "
             f"kernel_ms={prof.get('kernel_ms')}", file=sys.stderr)
     kernel_launches = greedy_cuda.LAUNCHES
+    traced = None
+    if args.trace:
+        from asm_tpu_torch.utils.profiling import device_activity, trace_to
+
+        with trace_to(args.trace) as tprof:
+            t0 = time.perf_counter()
+            map_reads(idx, genome, reads, lens, mcfg=mcfg,
+                      device=args.device)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        act = device_activity(tprof)
+        traced = dict(wall_s=wall_us / 1e6, **act,
+                      busy_share=act["busy_us"] / wall_us,
+                      kernel_share=act["kernel_us"] / wall_us,
+                      idle_share=1 - act["busy_us"] / wall_us)
+        print(f"[traced] {json.dumps(traced)}", file=sys.stderr)
 
     hit = sum(b is not None for b in best)
     ok = np.array([b is not None and abs(b["pos"] - int(o)) <= args.tol
@@ -135,6 +160,7 @@ def main(argv=None) -> dict:
         "kernel_launches": kernel_launches,
         "bound_ms": prof.get("bound_ms"),
         "bound_by": prof.get("bound_by"),
+        "traced": traced,
     }
     print(f"mapped {hit}/{args.reads}  recall(|pos-origin|<={args.tol}) "
           f"{line['recall']:.4f} (eligible {line['recall_eligible']:.4f})  "

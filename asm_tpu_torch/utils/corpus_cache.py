@@ -16,7 +16,7 @@ import os
 
 import numpy as np
 
-from asm_tpu_torch.native import load_native
+from asm_tpu_torch import native
 
 _ARRAYS = ("read_codes", "read_len", "ref_codes", "ref_len")
 
@@ -80,7 +80,7 @@ def save_corpus(path: str, read_codes, read_len, ref_codes, ref_len,
                 **params) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays = (read_codes, read_len, ref_codes, ref_len)
-    if load_native() is not None:
+    if native.load_native() is not None:
         _save_raw(_base(path), arrays, params)
         return
     meta = np.array(sorted(params.items()), dtype=object)
@@ -94,7 +94,7 @@ def save_corpus(path: str, read_codes, read_len, ref_codes, ref_len,
 def load_corpus(path: str, **expected_params):
     """Returns (read_codes, read_len, ref_codes, ref_len) or None when the
     cache is absent or was generated with different parameters."""
-    if load_native() is not None:
+    if native.load_native() is not None:
         got = _load_raw(_base(path), expected_params)
         if got is not None:
             return got
@@ -110,7 +110,7 @@ def load_corpus(path: str, **expected_params):
         got = (z["read_codes"], z["read_len"], z["ref_codes"], z["ref_len"])
     except (OSError, KeyError, ValueError):
         return None
-    if load_native() is not None:
+    if native.load_native() is not None:
         try:  # next load takes the parallel raw path
             _save_raw(_base(path), got, expected_params)
         except OSError:

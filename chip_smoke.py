@@ -113,6 +113,19 @@ line:
      LEAP, band, full and trace kernels must each have launched at
      max_len 512 in (b). The line carries each W = 16 kernel's time,
      bound and plain version's time.
+ 15. MSA: `kernels.msa.profile_align` (eager tensor ops, no kernel of its
+     own) on 65,536 profile pairs at max_len 128 from seeded alignments;
+     the exact sum of the scores and the digest of the traceback ops must
+     equal the values asm_tpu computes on the CPU, and the first 1,024
+     pairs the same code's on the CPU; the demo (apps.demo) must print on
+     the card, through the greedy kernel, what it prints on the CPU.
+ 16. the multi-device path: the 1,000,000-pair headline corpus through
+     `parallel.make_sharded_pipeline(impl="cuda")`, (a) in this process
+     at NCCL world size 1, (b) in two spawned processes on gloo, both on
+     the one card, 500,000 pairs each; every rank's summed counters must
+     equal the pins of phases 4, 6, 9 and 11, the greedy, band and LEAP
+     kernels must have launched in each, and (b)'s per-pair outputs,
+     gathered, must equal (a)'s.
 Prints a JSON line of per-kernel results (time, plain version's time,
 bound, launches; the W = 16 instantiations as entries of their own), the
 card line, and last {"ok": true, "device": {...}}. Any failure raises
@@ -235,6 +248,19 @@ LONG_DIGEST_PAIRS = 65_536
 # coverage 84.387 % of 8,192 pairs.
 LONG_HARNESS_PAIRS = 8192
 LONG_HARNESS = (4868, 8018, 6913)  # greedy == NW, LEAP == NW, covered
+# Phase 15, profile-profile alignment: 65,536 pairs of profiles at max_len
+# 128 from msa_alignments(2 * MSA_PAIRS) (the first half against the
+# second), the exact float64 sum of the float32 scores (math.fsum) and
+# sha256 of the ops bytes (int8 [65536, 256], C order). Computed with the
+# JAX package on the CPU, in 4,096-pair chunks of
+#   p1, n1 = asm_tpu.kernels.msa.profiles_from_alignments(als[:N], 128)
+#   p2, n2 = ... (als[N:], 128)
+#   asm_tpu.kernels.msa.profile_align(p1, n1, p2, n2)  # match 1, mismatch -2
+MSA_PAIRS = 65_536
+MSA_LEN = 128
+MSA_SCORE_SUM = -4431405.58830452
+MSA_OPS_DIGEST = (
+    "8772fac0e055dff1f14c0d6395b43f41b2d356469b81a6bae1e479aae542fd87")
 # phase 12: the check's issue_chain iterations and stream size (the
 # measurement takes tools/roofline.micro's) and the probe's loop trips
 ISSUE_CHECK_ITERS = 16
@@ -1024,6 +1050,23 @@ def filter_cli(card) -> None:
           f"{times} on {card}")
 
 
+def msa_alignments(n: int, seed: int = 12) -> list[list[str]]:
+    """n alignments of 2-4 rows over 64-120 columns: copies of one random
+    ACGT base row, each cell replaced with probability 0.10 by a random
+    symbol of ACGT- (a substitution or a gap)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(2, 5, size=n)
+    cols = rng.integers(64, 121, size=n)
+    sym = np.frombuffer(b"ACGT-", np.uint8)
+    out = []
+    for r, c in zip(rows.tolist(), cols.tolist()):
+        al = np.repeat(rng.integers(0, 4, size=(1, c)), r, axis=0)
+        hit = rng.random((r, c)) < 0.10
+        al[hit] = rng.integers(0, 5, size=int(hit.sum()))
+        out.append([sym[row].tobytes().decode() for row in al])
+    return out
+
+
 def harness_counts(r) -> tuple[int, int, int]:
     """(greedy == NW, LEAP == NW, covered) pair counts of a
     BenchmarkResult."""
@@ -1507,6 +1550,205 @@ def long_sequences(dev, name, card) -> list[dict]:
     return entries
 
 
+def msa_path(dev, card) -> None:
+    """Phase 15: profile-profile alignment of 65,536 profile pairs at
+    max_len 128 on the card; the score sum and the ops digest pinned from
+    asm_tpu, the first 1,024 pairs equal to the same code on the CPU, and
+    the demo's output on the card equal to its output on the CPU."""
+    import contextlib
+    import hashlib
+    import io
+    import math
+
+    from asm_tpu_torch.apps import demo
+    from asm_tpu_torch.kernels import greedy_cuda, msa
+
+    t0 = time.perf_counter()
+    als = msa_alignments(2 * MSA_PAIRS)
+    p1, n1 = msa.profiles_from_alignments(als[:MSA_PAIRS], MSA_LEN)
+    p2, n2 = msa.profiles_from_alignments(als[MSA_PAIRS:], MSA_LEN)
+    prep = time.perf_counter() - t0
+    host = (p1, n1, p2, n2)
+    args = [torch.from_numpy(a).to(dev) for a in host]
+    msa.profile_align(*(a[:256] for a in args))  # first launches
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = msa.profile_align(*args)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    score = out["score"].cpu().numpy()
+    ops = np.ascontiguousarray(out["ops"].cpu().numpy())
+    got = (math.fsum(score.astype(np.float64).tolist()),
+           hashlib.sha256(ops.tobytes()).hexdigest())
+    if got != (MSA_SCORE_SUM, MSA_OPS_DIGEST) or ops.shape != (
+            MSA_PAIRS, 2 * MSA_LEN) or not np.isfinite(score).all():
+        raise AssertionError(f"MSA (score sum, ops digest) {got} != pinned "
+                             f"{(MSA_SCORE_SUM, MSA_OPS_DIGEST)}")
+    cpu = msa.profile_align(*(torch.from_numpy(a[:1024]) for a in host))
+    if not (np.array_equal(cpu["ops"].numpy(), ops[:1024])
+            and np.array_equal(cpu["score"].numpy(), score[:1024])):
+        raise AssertionError("MSA on the card != the same code on the CPU")
+
+    def demo_out(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            demo.main(argv)
+        return buf.getvalue()
+
+    greedy_cuda.LAUNCHES = 0
+    pair = ["ACGTTGCAACGTAAGGCTTACG", "ACGTGCAACGTTAAGGCTACGGATC"]
+    for argv in ([], pair):
+        if demo_out(argv) != demo_out(argv + ["--device", "cpu"]):
+            raise AssertionError(f"the demo on the card != on the CPU "
+                                 f"({argv})")
+    if greedy_cuda.LAUNCHES != 2:
+        raise AssertionError(f"the demo launched the greedy kernel "
+                             f"{greedy_cuda.LAUNCHES} times, not 2")
+    phase(f"[15 MSA] {MSA_PAIRS} profile pairs at max_len {MSA_LEN}: score "
+          f"sum {got[0]!r}, ops digest {got[1][:8]}... (pinned), the first "
+          f"1024 equal to the CPU's; {wall:.3f} s on the card, "
+          f"{MSA_PAIRS / wall:.0f} pairs/s (profiles built on the host in "
+          f"{prep:.1f} s); the demo prints on the card what it prints on "
+          f"the CPU; on {card}")
+
+
+def sharded_rank(rank: int, port: int, outdir: str) -> None:
+    """Phase 16b's rank `rank` of two gloo ranks on the one card: its half
+    of the 1M headline corpus through make_sharded_pipeline; writes its
+    per-pair outputs, counters, launches and wall to outdir."""
+    import os
+
+    import torch.distributed as dist
+
+    from asm_tpu_torch import headline
+    from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band
+    from asm_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        make_sharded_pipeline,
+        shard_batch,
+    )
+
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    try:
+        mesh = make_mesh(device="cuda")
+        shard = shard_batch(mesh, *headline.native_corpus(MAIN_PAIRS, 0.05))
+        pipeline = make_sharded_pipeline(mesh, AlignConfig(x=1, o=1, e=1,
+                                                           k=3))
+        greedy_cuda.LAUNCHES = nw_band.LAUNCHES = leap_cuda.LAUNCHES = 0
+        dist.barrier()
+        t0 = time.perf_counter()
+        nw, g, lp, stats = pipeline(*shard)
+        torch.cuda.synchronize(mesh.device)
+        wall = time.perf_counter() - t0
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), nw=nw.cpu(),
+                 g=g.cpu(), l=lp.cpu(), stats=stats.cpu(), wall=wall,
+                 launches=[greedy_cuda.LAUNCHES, nw_band.LAUNCHES,
+                           leap_cuda.LAUNCHES])
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_path(dev, card) -> None:
+    """Phase 16: the 1M headline corpus through make_sharded_pipeline(impl
+    "cuda"): (a) at NCCL world size 1 in this process, (b) in two spawned
+    processes on gloo, both ranks on the one card, 500,000 pairs each.
+    Every rank's summed counters must equal the pins, and (b)'s gathered
+    per-pair outputs (a)'s."""
+    import multiprocessing
+    import tempfile
+
+    import torch.distributed as dist
+
+    from asm_tpu_torch import headline
+    from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band
+    from asm_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        make_sharded_pipeline,
+        shard_batch,
+    )
+
+    want = [MAIN_PAIRS, HARNESS_GREEDY_EQ, HARNESS_LEAP_EQ, LEAP_PASSED_1M,
+            NW_CHECKSUM_1M, CHECKSUM_1M, LEAP_CHECKSUM_1M]
+    corpus = headline.native_corpus(MAIN_PAIRS, 0.05)
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(device=dev)
+        pipeline = make_sharded_pipeline(mesh, AlignConfig(x=1, o=1, e=1,
+                                                           k=3))
+        shard = shard_batch(mesh, *corpus)
+        greedy_cuda.LAUNCHES = nw_band.LAUNCHES = leap_cuda.LAUNCHES = 0
+        walls_a = []
+        for _ in range(2):  # the process's first call at 1M, then again
+            t0 = time.perf_counter()
+            nw, g, lp, stats = pipeline(*shard)
+            torch.cuda.synchronize(dev)
+            walls_a.append(round(time.perf_counter() - t0, 3))
+        launches_a = [greedy_cuda.LAUNCHES, nw_band.LAUNCHES,
+                      leap_cuda.LAUNCHES]
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    got_a = [int(v) for v in stats.cpu()]
+    if got_a != want or min(launches_a) <= 0 or backend != "nccl":
+        raise AssertionError(f"16a ({backend}): counters {got_a} != pinned "
+                             f"{want}, or launches (greedy, band, LEAP) "
+                             f"{launches_a}")
+    per_pair_a = [t.cpu().numpy() for t in (nw, g, lp)]
+    del shard, nw, g, lp
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=sharded_rank, args=(r, port, tmp))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall_b = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"16b: a rank failed, exit codes {codes}")
+        ranks = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(2)]
+    for r, res in enumerate(ranks):
+        if res["stats"].tolist() != want or res["launches"].min() <= 0:
+            raise AssertionError(f"16b rank {r}: counters "
+                                 f"{res['stats'].tolist()} != pinned {want}"
+                                 f", or launches {res['launches'].tolist()}")
+    for key, a in zip(("nw", "g", "l"), per_pair_a):
+        if not np.array_equal(np.concatenate([r[key] for r in ranks]), a):
+            raise AssertionError(f"16b's gathered {key} != 16a's")
+    phase(f"[16 sharded pipeline] {MAIN_PAIRS} pairs err 0.05, counters "
+          f"{want} (pinned): (a) NCCL world size 1, two calls {walls_a} s, "
+          f"launches "
+          f"(greedy, band, LEAP) {launches_a}; (b) 2 gloo ranks on the one "
+          f"card, {MAIN_PAIRS // 2} pairs each: pipeline "
+          f"{[round(float(r['wall']), 3) for r in ranks]} s, launches "
+          f"{[r['launches'].tolist() for r in ranks]}, {wall_b:.1f} s with "
+          f"process start and corpus; per-pair outputs gathered equal to "
+          f"(a)'s; on {card}")
+
+
 INT_CATEGORIES = ("arith", "shift", "popcount", "selcmp")
 
 
@@ -1730,6 +1972,8 @@ def main() -> int:
     # the greedy kernel on the mapper's path, beside its main path's numbers
     entries[0]["mapper"] = mapper_path(dev, card)
     entries += long_sequences(dev, name, card)
+    msa_path(dev, card)
+    sharded_path(dev, card)
 
     print(json.dumps({"kernels": entries}))
     print(card_line(), flush=True)

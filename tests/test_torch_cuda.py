@@ -803,3 +803,33 @@ def test_mapper_refuses_unbuilt_k(dev):
     with pytest.raises(NotImplementedError):
         map_reads(build_index(genome), genome, reads, lens, mcfg=mcfg,
                   device=dev, impl="cuda")
+
+
+def test_msa_on_card_matches_cpu(dev):
+    """profile_align's eager ops on the card give the CPU's bits (which
+    tests/test_torch_msa.py holds against asm_tpu), at max_len 32 (fused
+    multiply-adds) and 128."""
+    from asm_tpu_torch.kernels import msa
+
+    rng = np.random.default_rng(5)
+    for L in (32, 128):
+        als = [["".join(rng.choice(list("ACGT-"), size=int(n)))
+                for _ in range(3)]
+               for n in rng.integers(1, L + 1, size=400)]
+        host = (*msa.profiles_from_alignments(als[:200], L),
+                *msa.profiles_from_alignments(als[200:], L))
+        cpu = msa.profile_align(*map(torch.from_numpy, host))
+        card = msa.profile_align(*(torch.from_numpy(a).to(dev)
+                                   for a in host))
+        assert torch.equal(card["ops"].cpu(), cpu["ops"])
+        assert torch.equal(card["score"].cpu(), cpu["score"])
+
+
+def test_demo_on_card_matches_cpu(dev, capsys):
+    from asm_tpu_torch.apps import demo
+
+    for argv in ([], ["ACGTTGCAACGTAAGGCTTACG", "ACGTGCAACGTTAAGGCTACGGATC"]):
+        demo.main(argv)
+        card = capsys.readouterr().out
+        demo.main(argv + ["--device", "cpu"])
+        assert card == capsys.readouterr().out

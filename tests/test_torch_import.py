@@ -65,6 +65,17 @@ _PORT_MODULES = [
     "asm_tpu_torch.mapper.indexer",
     "asm_tpu_torch.mapper.__main__",
     "asm_tpu_torch.tools.mapper_eval",
+    "asm_tpu_torch.kernels.msa",
+    "asm_tpu_torch.ops",
+    "asm_tpu_torch.metrics",
+    "asm_tpu_torch.data",
+    "asm_tpu_torch.utils",
+    "asm_tpu_torch.utils.profiling",
+    "asm_tpu_torch.parallel",
+    "asm_tpu_torch.parallel.mesh",
+    "asm_tpu_torch.parallel.multihost_demo",
+    "asm_tpu_torch.apps.demo",
+    "asm_tpu_torch.tools.scaling_eval",
 ]
 # the LEAP slice's entry points
 _LEAP_MODULES = ["asm_tpu_torch.kernels.leap_cuda",
@@ -74,12 +85,19 @@ _LEAP_MODULES = ["asm_tpu_torch.kernels.leap_cuda",
 _MAPPER_MODULES = ["asm_tpu_torch.mapper", "asm_tpu_torch.mapper.indexer",
                    "asm_tpu_torch.mapper.__main__",
                    "asm_tpu_torch.tools.mapper_eval"]
+# MSA, the distributed runner and demo, the demo app, profiling
+_LAST_MODULES = ["asm_tpu_torch.kernels.msa", "asm_tpu_torch.parallel.mesh",
+                 "asm_tpu_torch.parallel.multihost_demo",
+                 "asm_tpu_torch.apps.demo", "asm_tpu_torch.utils.profiling",
+                 "asm_tpu_torch.tools.scaling_eval"]
 
 
-@pytest.mark.parametrize("module", ["asm_tpu_torch", "leap", "mapper", "all"])
+@pytest.mark.parametrize("module", ["asm_tpu_torch", "leap", "mapper",
+                                    "last", "all"])
 def test_port_imports_no_jax(module):
     mods = {"all": _PORT_MODULES, "leap": _LEAP_MODULES,
-            "mapper": _MAPPER_MODULES}.get(module, [module])
+            "mapper": _MAPPER_MODULES,
+            "last": _LAST_MODULES}.get(module, [module])
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -131,3 +149,38 @@ def test_config_validation():
         AlignConfig(max_len=0)
     with pytest.raises(ValueError):
         AlignConfig(x=-1)
+
+
+# asm_tpu names whose port has another name, or none (ROADMAP "Do not
+# port": nw_penalty_auto's lax.cond cascade, batch_pspec's PartitionSpec)
+_RENAMED = {
+    "greedy_align_pallas": "greedy_align_cuda",
+    "nw_align_pallas": "nw_align_cuda",
+    "nw_penalty_pallas": "nw_penalty_cuda",
+    "leap_align_pallas": "leap_align_cuda",
+    "nw_penalty_auto": None,
+    "batch_pspec": None,
+}
+
+
+@pytest.mark.parametrize("package", ["", ".ops", ".metrics", ".data",
+                                     ".utils", ".parallel"])
+def test_exports_cover_asm_tpu(package):
+    """Every name in an asm_tpu package's __all__ has its counterpart in
+    the port's package of the same path (read from the source: the
+    JAX package is not imported)."""
+    import ast
+    import importlib
+
+    path = os.path.join(REPO, "asm_tpu", *package.split(".")[1:],
+                        "__init__.py")
+    tree = ast.parse(open(path).read())
+    names = next(ast.literal_eval(n.value) for n in tree.body
+                 if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", None) == "__all__")
+    port = importlib.import_module("asm_tpu_torch" + package)
+    want = [_RENAMED.get(n, n) for n in names]
+    missing = [n for n in want if n is not None and n not in port.__all__]
+    assert not missing, missing
+    for n in port.__all__:
+        assert hasattr(port, n), n
