@@ -53,6 +53,11 @@
 // values rounded from the host's doubles. Tie-breaks of the two lane
 // scans follow the reference exactly.
 //
+// Shapes: k in {2, 3, 4} x L in {128, 256, 512} are built together (the
+// tuned table); any other (k, L) is built at its first use into a library
+// of its own (block_threads below). k is capped at 31 by the records'
+// 7-bit lane delta, and by shared memory at 32 threads a block.
+//
 // Records (int16 when L <= 255, else int32): bit 0 final-leap flag, bits
 // 1-7 the in-loop lane delta + 64, bits 8+ the match advance. The pair's
 // loop exits on its own, so its final-leap record sits at its own trip
@@ -69,9 +74,16 @@ constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int kMinRegs = 96;  // registers per thread min_blocks leaves
 
 // threads per block (one pair each) at W words per row: 128 at L = 128 and
-// 256; at L = 512 the fastest of 128, 64 and 32 on the card
+// 256; at L = 512 the fastest of 128, 64 and 32 on the card. A library
+// built for one shape outside that table (kernels/shapes.py: -D
+// ASM_SHAPE_K, ASM_SHAPE_W, ASM_SHAPE_THREADS) takes the largest of 128,
+// 64 and 32 whose shared memory fits a block.
 __host__ __device__ constexpr int block_threads(int W) {
+#ifdef ASM_SHAPE_THREADS
+    return ASM_SHAPE_THREADS;
+#else
     return W == 16 ? 32 : 128;
+#endif
 }
 
 // a block's shared memory: per lane, W orig and W den words and 4
@@ -451,6 +463,7 @@ cudaError_t run(const Launch* a, int* warps) {
     return cudaGetLastError();
 }
 
+#ifndef ASM_SHAPE_K
 template <int W, bool kPlanes>
 cudaError_t by_k(int k, const Launch* a, int* warps) {
     if (k == 2) return run<2, W, kPlanes>(a, warps);
@@ -458,8 +471,18 @@ cudaError_t by_k(int k, const Launch* a, int* warps) {
     if (k == 4) return run<4, W, kPlanes>(a, warps);
     return cudaErrorInvalidValue;
 }
+#endif
 
-// k in {2, 3, 4} x L in {128, 256, 512}
+#ifdef ASM_SHAPE_K
+// the one shape this library is built for
+template <bool kPlanes>
+cudaError_t dispatch(int k, int W, const Launch* a, int* warps) {
+    if (k == ASM_SHAPE_K && W == ASM_SHAPE_W)
+        return run<ASM_SHAPE_K, ASM_SHAPE_W, kPlanes>(a, warps);
+    return cudaErrorInvalidValue;
+}
+#else
+// the tuned table: k in {2, 3, 4} x L in {128, 256, 512}
 template <bool kPlanes>
 cudaError_t dispatch(int k, int W, const Launch* a, int* warps) {
     if (W == 4) return by_k<4, kPlanes>(k, a, warps);
@@ -467,6 +490,7 @@ cudaError_t dispatch(int k, int W, const Launch* a, int* warps) {
     if (W == 16) return by_k<16, kPlanes>(k, a, warps);
     return cudaErrorInvalidValue;
 }
+#endif
 
 }  // namespace
 

@@ -13,7 +13,9 @@
 // Compile-time choices. K, W = L/32, the penalties, the semantics (SEM:
 // lv_bag, simd_ed_lev, simd_ed_lev behind the SHD gate, simd_ed_affine),
 // the CIGAR mode and the input route are template parameters (144
-// instantiations: k in {2, 3, 4} x L in {128, 256, 512}), and the
+// instantiations in the tuned table: k in {2, 3, 4} x L in {128, 256,
+// 512} x two penalty sets; any other shape is built into a library of
+// its own, kThreads below), and the
 // LeapMode, a run-time field, is applied by selects, never by a branch,
 // so the energy loop is compiled once. An instantiation thus holds only
 // code its launches run, and the SASS count of the main path's (lv_bag,
@@ -93,7 +95,15 @@ constexpr int kBig = 1 << 29;
 // the semantics, a template parameter of the kernel
 constexpr int kLvBag = 0, kSimdLev = 1, kSimdAffine = 2, kSimdLevGated = 3;
 constexpr int kModeLocal = 0, kModeGlobal = 1, kModeSemiFreeBegin = 2;
-constexpr int kThreads = 128;  // threads per block, one pair each
+// threads per block, one pair each: 128 in the tuned table; a library
+// built for one shape outside it (kernels/shapes.py: -D ASM_SHAPE_K, _W,
+// _X, _O, _G and _THREADS) takes the largest of 128, 64 and 32 whose rows
+// fit a block's shared memory
+#ifdef ASM_SHAPE_THREADS
+constexpr int kThreads = ASM_SHAPE_THREADS;
+#else
+constexpr int kThreads = 128;
+#endif
 
 // bits of word w at positions >= c (c may lie outside the row)
 __device__ __forceinline__ uint32_t mask_ge(int c, int w) {
@@ -594,6 +604,7 @@ cudaError_t by_semantics(const Choice& c, const Launch* a, int* blocks) {
     return cudaErrorInvalidValue;
 }
 
+#ifndef ASM_SHAPE_K
 template <int K, int W, bool kPlanes>
 cudaError_t by_penalty(const Choice& c, const Launch* a, int* blocks) {
     if (c.pens == 0) return by_semantics<K, W, 1, 1, 1, kPlanes>(c, a, blocks);
@@ -619,6 +630,18 @@ cudaError_t dispatch(int k, int W, int planes, const Choice& c,
 #undef ASM_LEAP_CASE
     return cudaErrorInvalidValue;
 }
+#else
+// the one shape this library is built for; its penalty set is the
+// library's own, whatever `pens` the caller names
+cudaError_t dispatch(int k, int W, int planes, const Choice& c,
+                     const Launch* a, int* blocks) {
+    constexpr int K = ASM_SHAPE_K, WW = ASM_SHAPE_W;
+    constexpr int X = ASM_SHAPE_X, O = ASM_SHAPE_O, G = ASM_SHAPE_G;
+    if (k != K || W != WW) return cudaErrorInvalidValue;
+    return planes ? by_semantics<K, WW, X, O, G, true>(c, a, blocks)
+                  : by_semantics<K, WW, X, O, G, false>(c, a, blocks);
+}
+#endif
 
 }  // namespace
 

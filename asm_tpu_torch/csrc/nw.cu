@@ -5,7 +5,8 @@
 // nw_align_pallas). G threads per pair (G in {8, 16, 32}, a template
 // parameter: 32/G pairs per warp); thread t keeps the R = L/G consecutive
 // rows i = R*t + 1 .. R*t + R in registers (H and F of the last column,
-// and the read codes) and sweeps the columns j = 1..n with a lag of one
+// and the read codes; off the tuned table R is rows_per_thread below)
+// and sweeps the columns j = 1..n with a lag of one
 // column per thread: at step s it computes column j = s - t. The strip's
 // top row takes H and E of row R*t at column j from thread t-1, which
 // computed them one step earlier, by one __shfl_up_sync each; the H
@@ -58,18 +59,29 @@ struct Params {
 // that blocks pack the SM finely
 __host__ __device__ constexpr int block_threads(int route) { return route == PTR_SHARED ? 32 : 128; }
 
+// rows per thread: ceil(L / G) rounded up to a multiple of 4 (the codes
+// load as words, the pointer nibbles store as half words or words). The
+// tuned table's G cut L into such strips exactly; at another L the G
+// strips may cover RP = R * G > L rows, the rows past L being rows past
+// every pair's end, whose cells feed no cell of the pair.
+__host__ __device__ constexpr int rows_per_thread(int L, int G) {
+    return ((L + G - 1) / G + 3) / 4 * 4;
+}
+
 // shared bytes per pair: its ref codes, with the trace its read codes, and
-// on the shared route its L * L / 2 pointer bytes, padded to 64 mod 128
+// on the shared route its L * RP / 2 pointer bytes, padded to 64 mod 128
 // so that two pairs' column stores fall on different banks
-__host__ __device__ constexpr int slot_bytes(int L, int route) {
+__host__ __device__ constexpr int slot_bytes(int L, int RP, int route) {
     return route == PTR_NONE     ? L
            : route == PTR_GLOBAL ? 2 * L
-                                 : ((2 * L + L * L / 2 + 63) / 128) * 128 + 64;
+                                 : ((2 * L + L * RP / 2 + 63) / 128) * 128 + 64;
 }
 
 template <int W, int G, int ROUTE>
 constexpr size_t smem_bytes() {
-    return (size_t)(block_threads(ROUTE) / G) * slot_bytes(32 * W, ROUTE);
+    constexpr int L = 32 * W;
+    return (size_t)(block_threads(ROUTE) / G) *
+           slot_bytes(L, rows_per_thread(L, G) * G, ROUTE);
 }
 
 // bits [lo, hi) of word w of an L-bit mask
@@ -82,6 +94,7 @@ __device__ __forceinline__ uint32_t span_bits(int lo, int hi, int w) {
 }
 
 // R nibbles (R / 8 words; R == 4: the low half-word) to R / 2 bytes at dst
+// (4-byte aligned when R % 8 == 0, else 2-byte aligned)
 template <int R>
 __device__ __forceinline__ void store_nibbles(uint8_t* dst, const uint32_t* w) {
     if constexpr (R == 4) {
@@ -90,9 +103,15 @@ __device__ __forceinline__ void store_nibbles(uint8_t* dst, const uint32_t* w) {
         *(uint32_t*)dst = w[0];
     } else if constexpr (R == 16) {
         *(uint2*)dst = make_uint2(w[0], w[1]);
-    } else {
-        static_assert(R == 32, "rows per thread");
+    } else if constexpr (R == 32) {
         *(uint4*)dst = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (R % 8 == 0) {
+#pragma unroll
+        for (int q = 0; q < R / 8; q++) ((uint32_t*)dst)[q] = w[q];
+    } else {
+#pragma unroll
+        for (int q = 0; q < R / 4; q++)
+            ((uint16_t*)dst)[q] = (uint16_t)(w[q / 2] >> (16 * (q % 2)));
     }
 }
 
@@ -103,11 +122,13 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
           int* __restrict__ pen_out, int8_t* __restrict__ ops_out,
           int8_t* __restrict__ mask_out, uint8_t* __restrict__ scratch) {
     constexpr int L = 32 * W;
-    constexpr int R = L / G;  // rows per thread
+    constexpr int R = rows_per_thread(L, G);
+    constexpr int RP = R * G;  // rows the strips cover, >= L
+    constexpr bool kPadded = RP > L;
     constexpr int PPB = block_threads(ROUTE) / G;  // pairs per block
-    constexpr int COL = L / 2;  // pointer bytes of a column
+    constexpr int COL = RP / 2;  // pointer bytes of a column
     constexpr bool kTrace = ROUTE != PTR_NONE;
-    constexpr int SLOT = slot_bytes(L, ROUTE);
+    constexpr int SLOT = slot_bytes(L, RP, ROUTE);
     static_assert(R % 4 == 0 && R <= 32, "rows per thread");
     extern __shared__ __align__(16) uint8_t smem[];
 
@@ -130,15 +151,19 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
         const uint32_t* ref = (const uint32_t*)(fc + p * L) + t * (R / 4);
 #pragma unroll
         for (int w = 0; w < R / 4; w++) {
-            const uint32_t v = live ? src[w] : 0u;
+            // words past the row (kPadded) read as code 0 and are not kept
+            const bool in_row = !kPadded || t * (R / 4) + w < L / 4;
+            const uint32_t v = live && in_row ? src[w] : 0u;
 #pragma unroll
             for (int b = 0; b < 4; b++) a[4 * w + b] = (int8_t)(v >> (8 * b));
-            ((uint32_t*)s_ref)[t * (R / 4) + w] = live ? ref[w] : 0u;
-            if (kTrace) ((uint32_t*)s_read)[t * (R / 4) + w] = v;
+            if (in_row) {
+                ((uint32_t*)s_ref)[t * (R / 4) + w] = live ? ref[w] : 0u;
+                if (kTrace) ((uint32_t*)s_read)[t * (R / 4) + w] = v;
+            }
         }
     }
     uint8_t* ptr = ROUTE == PTR_SHARED ? (uint8_t*)s_ref + 2 * L
-                   : ROUTE == PTR_GLOBAL ? scratch + p * (L * L / 2)
+                   : ROUTE == PTR_GLOBAL ? scratch + p * (L * COL)
                                          : nullptr;
     __syncwarp();
 
@@ -212,7 +237,9 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
     int8_t* ops = ops_out + p * 2 * L;
     if (live) {
 #pragma unroll
-        for (int w = 0; w < R / 2; w++) ((uint32_t*)ops)[t * (R / 2) + w] = 0u;
+        for (int w = 0; w < R / 2; w++)
+            if (!kPadded || t * (R / 2) + w < L / 2)
+                ((uint32_t*)ops)[t * (R / 2) + w] = 0u;
     }
     __syncwarp();  // pointer nibbles and zeroed ops visible to the walker
     uint32_t mk[W];
@@ -267,14 +294,18 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
     }
     if (mask_out == nullptr) return;
     // the walker's mask to its pair's threads; thread t writes positions
-    // R*t .. R*t + R-1, which lie in one word
+    // R*t .. R*t + R-1, which lie in one word when R divides 32, else in
+    // two
+    constexpr bool kOneWord = 32 % R == 0;
     const int src = (threadIdx.x & 31) - t;
-    uint32_t mine = 0;
+    uint32_t mine = 0, next = 0;
 #pragma unroll
     for (int w = 0; w < W; w++) {
         const uint32_t v = __shfl_sync(kFull, mk[w], src);
         if (w == (R * t) / 32) mine = v >> ((R * t) % 32);
+        if (!kOneWord && w == (R * t) / 32 + 1) next = v;
     }
+    if (!kOneWord && (R * t) % 32) mine |= next << (32 - (R * t) % 32);
     if (!live) return;
     uint32_t* m32 = (uint32_t*)(mask_out + p * L) + t * (R / 4);
 #pragma unroll
@@ -282,7 +313,7 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
         uint32_t out = 0;
 #pragma unroll
         for (int b = 0; b < 4; b++) out |= ((mine >> (4 * w + b)) & 1u) << (8 * b);
-        m32[w] = out;
+        if (!kPadded || t * (R / 4) + w < L / 4) m32[w] = out;
     }
 }
 
@@ -301,6 +332,17 @@ template <> struct Inst<16, false> { static constexpr int G = 16, ROUTE = PTR_NO
 template <> struct Inst<4, true> { static constexpr int G = 16, ROUTE = PTR_SHARED; };
 template <> struct Inst<8, true> { static constexpr int G = 8, ROUTE = PTR_GLOBAL; };
 template <> struct Inst<16, true> { static constexpr int G = 16, ROUTE = PTR_GLOBAL; };
+// A library built for one W outside that table (kernels/shapes.py: -D
+// ASM_SHAPE_W, ASM_NW_G, ASM_NW_TRACE_G, ASM_NW_TRACE_ROUTE) holds that
+// W alone, its G and route chosen by the rule behind the table: G8 up to
+// W = 8, G16 above; the trace pointers in shared memory up to W = 4, in
+// the global scratch above. Not swept.
+#ifdef ASM_SHAPE_W
+template <> struct Inst<ASM_SHAPE_W, false> { static constexpr int G = ASM_NW_G, ROUTE = PTR_NONE; };
+template <> struct Inst<ASM_SHAPE_W, true> {
+    static constexpr int G = ASM_NW_TRACE_G, ROUTE = ASM_NW_TRACE_ROUTE;
+};
+#endif
 
 struct Launch {
     const void *rc, *fc, *rl, *fl;
@@ -346,9 +388,14 @@ cudaError_t run(const Launch* L, int* warps) {
 }
 
 cudaError_t dispatch(int W, bool trace, const Launch* L, int* warps) {
+#ifdef ASM_SHAPE_W
+    if (W == ASM_SHAPE_W)
+        return trace ? run<ASM_SHAPE_W, true>(L, warps) : run<ASM_SHAPE_W, false>(L, warps);
+#else
     if (W == 4) return trace ? run<4, true>(L, warps) : run<4, false>(L, warps);
     if (W == 8) return trace ? run<8, true>(L, warps) : run<8, false>(L, warps);
     if (W == 16) return trace ? run<16, true>(L, warps) : run<16, false>(L, warps);
+#endif
     return cudaErrorInvalidValue;
 }
 
@@ -365,7 +412,8 @@ void instance_of(bool trace, int* G, int* route) {
 // int32[B] out. trace 0: the penalty only (ops, mask, scratch unused).
 // trace 1: ops int8[B, 64W] out, mask (NULL, or bool[B, 32W] out), and
 // where the instantiation keeps its pointers in the global scratch,
-// scratch uint8[B, 32W * 16W] (written before it is read). Returns the
+// scratch uint8[B, 32W * RP / 2], RP = rows_per_thread(32W, G) * G (32W
+// in the tuned table; written before it is read). Returns the
 // launch's cudaError_t (0 on success); does not synchronise.
 extern "C" int asm_nw_launch(const void* rc, const void* fc, const void* rl,
                              const void* fl, int B, int W, int trace, int x,
@@ -384,6 +432,11 @@ extern "C" int asm_nw_launch(const void* rc, const void* fc, const void* rl,
 // penalty, 1 the global scratch, 2 shared memory); 0, or cudaErrorInvalidValue
 // for a W that is not built
 extern "C" int asm_nw_instance(int W, int trace, int* G, int* route) {
+#ifdef ASM_SHAPE_W
+    if (W == ASM_SHAPE_W) instance_of<ASM_SHAPE_W>(trace, G, route);
+    else return (int)cudaErrorInvalidValue;
+    return 0;
+#endif
     if (W == 4) instance_of<4>(trace, G, route);
     else if (W == 8) instance_of<8>(trace, G, route);
     else if (W == 16) instance_of<16>(trace, G, route);

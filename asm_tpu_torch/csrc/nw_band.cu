@@ -30,6 +30,11 @@
 // 32-bit shared store, into rows padded by BW/4 codes on both sides, so
 // the running code indices need no clamps.
 //
+// Shapes: BW 4-64 at every L = 32W; W in {4, 8, 16} is built together,
+// any other W at its first use into a library of its own. BW 4 packs 16
+// pairs a warp, and at L >= 384 a block of 64 threads keeps its rows in
+// the 48 KB of static shared memory (block_threads).
+//
 // What bounds it: integer issue. A pair reads 64 B of planes and writes
 // 4 B, so memory is far below. By the SASS count (tools/roofline.py
 // nw_band_loop), the diagonal loop issues 18 instructions per existing
@@ -54,7 +59,24 @@ namespace {
 
 constexpr int kInf = 1 << 29;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kThreads = 128;
+
+// code rows: PAD bytes, the L codes, PAD bytes; the running indices reach
+// BW/4 codes past either end. An odd number of words per row skews a
+// warp's rows across the banks.
+__host__ __device__ constexpr int pad_codes(int BW) { return BW / 4 < 4 ? 4 : BW / 4; }
+__host__ __device__ constexpr int row_words(int BW, int L) {
+    return (L + 2 * pad_codes(BW)) / 4 % 2 ? (L + 2 * pad_codes(BW)) / 4
+                                           : (L + 2 * pad_codes(BW)) / 4 + 1;
+}
+
+// threads per block: 128, or 64 or 32 where the block's code rows (two
+// per pair, 64/BW pairs a warp) would pass the 48 KB of static shared
+// memory (BW 4 at L >= 384); 128 at every BW of 8 and up
+__host__ __device__ constexpr int block_threads(int BW, int L) {
+    return 8 * row_words(BW, L) * (64 / BW) * 4 <= 48 * 1024   ? 128
+           : 8 * row_words(BW, L) * (64 / BW) * 2 <= 48 * 1024 ? 64
+                                                                : 32;
+}
 
 struct Params {
     int B, x, o, e;
@@ -123,21 +145,17 @@ __device__ __forceinline__ void trip(Cells& s, int& hit, int d, int ra, int rb,
 }
 
 template <int BW, int W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(block_threads(BW, 32 * W))
 band_kernel(const uint32_t* __restrict__ rp, const uint32_t* __restrict__ fp,
             const int* __restrict__ rl, const int* __restrict__ fl, Params P,
             int* __restrict__ pen_out) {
     constexpr int L = 32 * W;
     constexpr int SEG = BW / 2;  // threads per pair
     constexpr int PPW = 32 / SEG;  // pairs per warp
-    constexpr int PPB = (kThreads / 32) * PPW;
+    constexpr int PPB = (block_threads(BW, L) / 32) * PPW;
     constexpr int KB = BW / 2 - 1;
-    // code rows: PAD bytes, the L codes, PAD bytes; the running indices
-    // reach BW/4 codes past either end. An odd number of words per row
-    // skews a warp's rows across the banks.
-    constexpr int PAD = BW / 4 < 4 ? 4 : BW / 4;
-    constexpr int ROWW = (L + 2 * PAD) / 4 % 2 ? (L + 2 * PAD) / 4
-                                               : (L + 2 * PAD) / 4 + 1;
+    constexpr int PAD = pad_codes(BW);
+    constexpr int ROWW = row_words(BW, L);
     __shared__ __align__(16) uint32_t s_read[PPB][ROWW];
     __shared__ __align__(16) uint32_t s_ref[PPB][ROWW];
 
@@ -159,12 +177,19 @@ band_kernel(const uint32_t* __restrict__ rp, const uint32_t* __restrict__ fp,
     // QPT quads (4 codes each) of every one of them
     {
         constexpr int WN = W < SEG ? W : SEG;  // threads on distinct words
-        constexpr int G = SEG / WN;  // threads per word
+        // the threads split the words evenly when one count divides the
+        // other and a word has at most 8 threads, one quad each or more
+        // (the tuned table's W); else thread t takes words t, t + SEG, ...
+        // whole
+        constexpr bool kEven =
+            W < SEG ? SEG % W == 0 && SEG / W <= 8 : W % SEG == 0;
+        constexpr int G = kEven ? SEG / WN : 1;  // threads per word
         constexpr int QPT = 8 / G;  // quads per thread and word
         const int ws = t % WN, g = t / WN;
 #pragma unroll
-        for (int i = 0; i < W / WN; i++) {
-            const int w = ws + WN * i;
+        for (int i = 0; i < (kEven ? W / WN : (W + SEG - 1) / SEG); i++) {
+            const int w = kEven ? ws + WN * i : t + SEG * i;
+            if (!kEven && w >= W) break;
             uint32_t rlo = 0, rhi = 0, flo = 0, fhi = 0;
             if (live) {
                 rlo = rp[w * B + p];
@@ -174,7 +199,7 @@ band_kernel(const uint32_t* __restrict__ rp, const uint32_t* __restrict__ fp,
             }
 #pragma unroll
             for (int j = 0; j < QPT; j++) {
-                const int q = g * QPT + j, sh = 4 * q;
+                const int q = (kEven ? g * QPT : 0) + j, sh = 4 * q;
                 const int at = PAD / 4 + 8 * w + q;
                 s_read[slot][at] = spread4(rlo >> sh) | (spread4(rhi >> sh) << 1);
                 s_ref[slot][at] = spread4(flo >> sh) | (spread4(fhi >> sh) << 1);
@@ -232,9 +257,10 @@ template <int BW, int W>
 cudaError_t launch(const void* rp, const void* fp, const void* rl,
                    const void* fl, const Params& P, void* pen,
                    cudaStream_t s) {
-    constexpr int PPB = (kThreads / 32) * (64 / BW);
+    constexpr int threads = block_threads(BW, 32 * W);
+    constexpr int PPB = (threads / 32) * (64 / BW);
     const int blocks = (P.B + PPB - 1) / PPB;
-    band_kernel<BW, W><<<blocks, kThreads, 0, s>>>(
+    band_kernel<BW, W><<<blocks, threads, 0, s>>>(
         (const uint32_t*)rp, (const uint32_t*)fp, (const int*)rl,
         (const int*)fl, P, (int*)pen);
     return cudaGetLastError();
@@ -245,6 +271,7 @@ cudaError_t dispatch(int bw, const void* rp, const void* fp, const void* rl,
                      const void* fl, const Params& P, void* pen,
                      cudaStream_t s) {
     switch (bw) {
+        case 4: return launch<4, W>(rp, fp, rl, fl, P, pen, s);
         case 8: return launch<8, W>(rp, fp, rl, fl, P, pen, s);
         case 16: return launch<16, W>(rp, fp, rl, fl, P, pen, s);
         case 32: return launch<32, W>(rp, fp, rl, fl, P, pen, s);
@@ -267,8 +294,14 @@ extern "C" int asm_nw_band_launch(const void* rp, const void* fp,
     if (err != cudaSuccess) return (int)err;
     const Params P{B, x, o, e};
     cudaStream_t s = (cudaStream_t)stream;
+#ifdef ASM_SHAPE_W
+    // a library built for one W outside the tuned table (kernels/shapes.py)
+    if (W == ASM_SHAPE_W)
+        return (int)dispatch<ASM_SHAPE_W>(bw, rp, fp, rl, fl, P, pen, s);
+#else
     if (W == 4) return (int)dispatch<4>(bw, rp, fp, rl, fl, P, pen, s);
     if (W == 8) return (int)dispatch<8>(bw, rp, fp, rl, fl, P, pen, s);
     if (W == 16) return (int)dispatch<16>(bw, rp, fp, rl, fl, P, pen, s);
+#endif
     return (int)cudaErrorInvalidValue;
 }

@@ -12,8 +12,11 @@ the port of `asm_tpu.kernels.greedy_pallas`.
                                           per block of an instantiation
 
 The kernel is compiled with nvcc for sm_90a at first use into
-asm_tpu_torch/build/ and bound with ctypes. On a CUDA tensor the wrapper
-launches it or raises; nothing falls back. `LAUNCHES` counts launches.
+asm_tpu_torch/build/ and bound with ctypes: the tuned table (k in {2, 3,
+4} x max_len in {128, 256, 512}) in one library, any other (k, max_len)
+in a library of its own built at its first launch (kernels/shapes.py).
+On a CUDA tensor the wrapper launches it or raises; nothing falls back.
+`LAUNCHES` counts launches, `LIB_LAUNCHES` them per library stem.
 
 Pair layout of the tile-major planes: pair i sits at tile i // tile,
 column i % tile; row w holds plane 0 (code bit 0) of positions
@@ -23,6 +26,7 @@ validity always comes from the lengths.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 
@@ -38,16 +42,17 @@ from asm_tpu_torch.kernels.greedy import (
     greedy_align,
     rec_dtype,
 )
+from asm_tpu_torch.kernels.shapes import Plan, greedy_plan
 from asm_tpu_torch.native import load_native
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 
-# kernel launches since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset it), in all and
+# per library stem
 LAUNCHES = 0
+LIB_LAUNCHES = collections.Counter()
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "greedy.cu")
-_KS = (2, 3, 4)  # band half-widths the kernel is instantiated for
-_WS = (4, 8, 16)  # words per row (max_len 128, 256, 512)
-_lib = None
+_libs = {}  # library stem -> bound library
 
 
 # ---- host staging ---------------------------------------------------------
@@ -157,16 +162,24 @@ def codes_from_planes_tiled(planes: torch.Tensor, lengths: torch.Tensor,
 
 # ---- build and bind -------------------------------------------------------
 
-def ptxas_report() -> str:
-    """Path of the ptxas report (registers, spills) of the current build."""
-    return ptxas_report_path("greedy", SOURCE)
+def plan(k: int = 3, max_len: int = 128) -> Plan:
+    """The library holding the instantiation of (k, max_len)."""
+    return greedy_plan(k, max_len)
 
 
-def build_kernel() -> tuple[str, bool]:
-    """nvcc csrc/greedy.cu -> build/libgreedy_<hash>.so for sm_90a; the
-    ptxas report (registers, spills) lands beside it as .ptxas.txt.
-    Returns (library path, built_now)."""
-    return nvcc_library("greedy", SOURCE)
+def ptxas_report(k: int = 3, max_len: int = 128) -> str:
+    """Path of the ptxas report (registers, spills) of the library that
+    holds (k, max_len) (default: the tuned table's)."""
+    return ptxas_report_path(plan(k, max_len).stem, SOURCE)
+
+
+def build_kernel(k: int = 3, max_len: int = 128) -> tuple[str, bool]:
+    """nvcc csrc/greedy.cu -> build/lib<stem>_<hash>.so for sm_90a, the
+    library holding (k, max_len) (default: the tuned table,
+    libgreedy_<hash>.so); the ptxas report (registers, spills) lands
+    beside it as .ptxas.txt. Returns (library path, built_now)."""
+    p = plan(k, max_len)
+    return nvcc_library(p.stem, SOURCE, p.defines)
 
 
 def bind(path: str):
@@ -185,11 +198,12 @@ def bind(path: str):
     return lib
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        _lib = bind(build_kernel()[0])
-    return _lib
+def _load(k: int = 3, max_len: int = 128):
+    """The bound library holding (k, max_len), built at its first use."""
+    p = plan(k, max_len)
+    if p.stem not in _libs:
+        _libs[p.stem] = bind(build_kernel(k, max_len)[0])
+    return _libs[p.stem]
 
 
 def occupancy(k: int = 3, max_len: int = 128, planes: bool = True) -> int:
@@ -197,16 +211,18 @@ def occupancy(k: int = 3, max_len: int = 128, planes: bool = True) -> int:
     route) on the current CUDA device, with the block size and shared
     memory its launch uses (cudaOccupancyMaxActiveBlocksPerMultiprocessor
     times the block's warps)."""
-    got = _load().asm_greedy_occupancy(k, max_len // 32, int(planes))
+    got = _load(k, max_len).asm_greedy_occupancy(k, max_len // 32,
+                                                 int(planes))
     if got < 0:
         raise RuntimeError(f"greedy occupancy query failed: cudaError {-got}")
     return got
 
 
-def block_threads(max_len: int = 128) -> int:
-    """Threads per block (one pair each) of the instantiations at
-    max_len, fixed in csrc/greedy.cu's block_threads."""
-    return _load().asm_greedy_block_threads(max_len // 32)
+def block_threads(max_len: int = 128, k: int = 3) -> int:
+    """Threads per block (one pair each) of the instantiation of (k,
+    max_len), as its library reports it (csrc/greedy.cu's block_threads;
+    `plan(k, max_len).threads` says the same without a card)."""
+    return _load(k, max_len).asm_greedy_block_threads(max_len // 32)
 
 
 # ---- the wrapper ----------------------------------------------------------
@@ -326,10 +342,7 @@ def greedy_align_cuda(read, read_len, ref, ref_len, cfg: AlignConfig, *,
         g = greedy_align(read, read_len, ref, ref_len, cfg, records=True)
         cost, steps, rec = g["cost"], g["steps"], g["step_rec"]
     elif device.type == "cuda":
-        if cfg.k not in _KS or W not in _WS:
-            raise NotImplementedError(
-                f"the greedy kernel is built for k in {_KS} and max_len in "
-                f"{tuple(32 * w for w in _WS)}; got k={cfg.k}, max_len={L}")
+        p = plan(cfg.k, L)  # raises for a shape the card cannot hold
         if read.data_ptr() % 4 or ref.data_ptr() % 4:
             raise ValueError("code rows must be 4-byte aligned")
         cost = torch.empty(B, dtype=torch.int32, device=device)
@@ -337,7 +350,7 @@ def greedy_align_cuda(read, read_len, ref, ref_len, cfg: AlignConfig, *,
         rec = torch.empty((T + 1, B), dtype=rec_dtype(cfg), device=device)
         sig = [np.float32(s) for s in cfg.significance]
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _load().asm_greedy_launch(
+        err = _load(cfg.k, L).asm_greedy_launch(
             read.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
             ref_len.data_ptr(), B, tile, int(pre_staged == "planes_tiled"),
             cfg.k, W, T, cfg.x, cfg.o, cfg.e,
@@ -348,6 +361,7 @@ def greedy_align_cuda(read, read_len, ref, ref_len, cfg: AlignConfig, *,
             raise RuntimeError(f"greedy kernel launch failed: cudaError {err}")
         if B > 0:
             LAUNCHES += 1
+            LIB_LAUNCHES[p.stem] += 1
     else:
         raise NotImplementedError(f"no greedy route for device {device}")
 

@@ -30,6 +30,7 @@ are don't-care.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 
@@ -40,15 +41,19 @@ from asm_tpu_torch.encoding import PAD_READ, pack_planes_t
 from asm_tpu_torch.kernels import nw_cuda
 from asm_tpu_torch.kernels.greedy_cuda import check_tensor, codes_from_planes_tiled
 from asm_tpu_torch.kernels.nw import INF, pen_closed_form
+from asm_tpu_torch.kernels.shapes import BAND_WIDTHS, Plan, band_plan
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 
-# kernel launches since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset it), in all and
+# per library stem
 LAUNCHES = 0
+LIB_LAUNCHES = collections.Counter()
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "nw_band.cu")
-BWS = (8, 16, 32, 64)  # band widths the kernel is instantiated for
-_WS = (4, 8, 16)  # words per plane row (max_len 128, 256, 512)
-_lib = None
+# the band widths of the partitioned dispatch (the harness's and the
+# headline's); the kernel takes shapes.BAND_WIDTHS, 4 too
+BWS = (8, 16, 32, 64)
+_libs = {}  # library stem -> bound library
 
 
 def band_certified(pen, bw, o=1, e=1):
@@ -147,28 +152,36 @@ def banded_plain(read_codes, read_len, ref_codes, ref_len, bw=32, x=1, o=1,
 
 # ---- the CUDA kernel: build, bind, wrapper --------------------------------
 
-def ptxas_report() -> str:
-    return ptxas_report_path("nw_band", SOURCE)
+def plan(max_len: int = 128, bw: int = 32) -> Plan:
+    """The library holding the band kernel at max_len (every BW)."""
+    return band_plan(max_len, bw)
 
 
-def build_kernel() -> tuple[str, bool]:
-    """nvcc csrc/nw_band.cu -> build/libnw_band_<hash>.so (sm_90a).
-    Returns (library path, built_now)."""
-    return nvcc_library("nw_band", SOURCE)
+def ptxas_report(max_len: int = 128) -> str:
+    return ptxas_report_path(plan(max_len).stem, SOURCE)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        path, _ = build_kernel()
+def build_kernel(max_len: int = 128) -> tuple[str, bool]:
+    """nvcc csrc/nw_band.cu -> build/lib<stem>_<hash>.so (sm_90a), the
+    library holding max_len (default: the tuned table,
+    libnw_band_<hash>.so). Returns (library path, built_now)."""
+    p = plan(max_len)
+    return nvcc_library(p.stem, SOURCE, p.defines)
+
+
+def _load(max_len: int = 128):
+    """The bound library holding max_len, built at its first use."""
+    p = plan(max_len)
+    if p.stem not in _libs:
+        path, _ = build_kernel(max_len)
         lib = ctypes.CDLL(path)
         c = ctypes
         lib.asm_nw_band_launch.restype = c.c_int
         lib.asm_nw_band_launch.argtypes = (
             [c.c_void_p] * 4 + [c.c_int] * 6 + [c.c_void_p, c.c_int,
                                                  c.c_void_p])
-        _lib = lib
-    return _lib
+        _libs[p.stem] = lib
+    return _libs[p.stem]
 
 
 def nw_penalty_banded(read, read_len, ref, ref_len, bw=32, x=1, o=1, e=1,
@@ -185,8 +198,8 @@ def nw_penalty_banded(read, read_len, ref, ref_len, bw=32, x=1, o=1, e=1,
     CUDA tensors launch csrc/nw_band.cu on the current stream, unsynced;
     CPU tensors run `banded_plain`."""
     global LAUNCHES
-    if bw not in BWS:
-        raise NotImplementedError(f"band width {bw} not in {BWS}")
+    if bw not in BAND_WIDTHS:
+        raise NotImplementedError(f"band width {bw} not in {BAND_WIDTHS}")
     device = read.device
     B = read_len.shape[0]
     if pre_staged:
@@ -211,10 +224,7 @@ def nw_penalty_banded(read, read_len, ref, ref_len, bw=32, x=1, o=1, e=1,
     if device.type != "cuda":
         raise NotImplementedError(f"no band route for device {device}")
     W = L // 32
-    if W not in _WS:
-        raise NotImplementedError(
-            f"the band kernel is built for max_len in "
-            f"{tuple(32 * w for w in _WS)}; got {L}")
+    p = plan(L, bw)  # raises for a max_len the kernel does not take
     if pre_staged:
         rp, fp = read, ref
     else:
@@ -222,13 +232,14 @@ def nw_penalty_banded(read, read_len, ref, ref_len, bw=32, x=1, o=1, e=1,
         fp = torch.cat(pack_planes_t(ref)[:2]).contiguous()
     pen = torch.empty(B, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _load().asm_nw_band_launch(
+    err = _load(L).asm_nw_band_launch(
         rp.data_ptr(), fp.data_ptr(), read_len.data_ptr(), ref_len.data_ptr(),
         B, bw, W, x, o, e, pen.data_ptr(), device.index, stream)
     if err != 0:
         raise RuntimeError(f"band kernel launch failed: cudaError {err}")
     if B > 0:
         LAUNCHES += 1
+        LIB_LAUNCHES[p.stem] += 1
     return pen
 
 

@@ -10,18 +10,25 @@ of `asm_tpu.kernels.nw_pallas`:
 Both take int8 codes [B, L] and int32 lengths. On a CUDA tensor they
 launch the kernel on the current stream (unsynchronised) or raise; on a
 CPU tensor they run the plain version (`kernels/nw.py`). `LAUNCHES`
-counts launches per kernel. The library is compiled with nvcc for sm_90a
-at first use into asm_tpu_torch/build/ and bound with ctypes.
+counts launches per kernel, `LIB_LAUNCHES` per (library stem, kernel).
+The library is compiled with nvcc for sm_90a at first use into
+asm_tpu_torch/build/ and bound with ctypes: max_len 128, 256 and 512 in
+one library (the tuned table), every other max_len in a library of its
+own built at its first launch (kernels/shapes.py).
 
 Each (kernel, max_len) has one instantiation, its G threads per pair and
 the trace kernel's pointer route fixed in csrc/nw.cu (`instance`): at
 L = 128 the trace kernel keeps its pointers in shared memory and runs in
 one launch; at L = 256 and 512 it keeps them in a global scratch of
-L * L / 2 bytes per pair, its launches cut at TRACE_SCRATCH_BYTES.
+L * L / 2 bytes per pair, its launches cut at TRACE_SCRATCH_BYTES. At
+another L, G and the route follow the table's rule
+(`shapes.nw_instance`), and the G strips may cover a few rows past L
+(`shapes.nw_rows`), which the scratch holds too.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
@@ -31,31 +38,41 @@ import torch
 
 from asm_tpu_torch.kernels.greedy_cuda import check_tensor
 from asm_tpu_torch.kernels.nw import nw_align, nw_penalty
+from asm_tpu_torch.kernels.shapes import (
+    ROUTE_GLOBAL,
+    ROUTE_NONE,
+    ROUTE_SHARED,
+    Plan,
+    nw_launch,
+    nw_plan,
+    nw_rows,
+)
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 
-# kernel launches since import (or since a caller reset them)
+# kernel launches since import (or since a caller reset them), per kernel
+# and per (library stem, kernel)
 LAUNCHES = {"nw": 0, "nw_trace": 0}
+LIB_LAUNCHES = collections.Counter()
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "nw.cu")
-_WS = (4, 8, 16)  # L / 32 the kernels are instantiated for (max_len
-# 128, 256, 512)
-# csrc/nw.cu's ROUTE: where the trace kernel keeps its pointer nibbles
-ROUTE_NONE, ROUTE_GLOBAL, ROUTE_SHARED = 0, 1, 2
+# ROUTE_*, imported above: csrc/nw.cu's ROUTE, where the trace kernel
+# keeps its pointer nibbles
 # the global route parks L * L / 2 pointer bytes per pair in a per-launch
 # scratch; its launches are cut so it stays within this many bytes: 16,384
 # pairs at L = 512 (65,536 at 256), within 3% of 4 GiB's time, where 256
 # MiB (2,048 pairs a launch) took 1.37x as long (PERF.md section 6)
 TRACE_SCRATCH_BYTES = 2 << 30
-_lib = None
+_libs = {}  # library stem -> bound library
 
 
 @functools.cache
 def instance(trace: bool, L: int) -> tuple[int, int]:
     """(G threads per pair, pointer route) of csrc/nw.cu's instantiation
-    for the kernel (`trace`) at max_len L."""
+    for the kernel (`trace`) at max_len L, as its library reports it
+    (`shapes.nw_instance` says the same without a card)."""
     G, route = ctypes.c_int(), ctypes.c_int()
-    err = _load().asm_nw_instance(L // 32, int(trace), ctypes.byref(G),
-                                  ctypes.byref(route))
+    err = _load(L).asm_nw_instance(L // 32, int(trace), ctypes.byref(G),
+                                   ctypes.byref(route))
     if err != 0:
         raise NotImplementedError(f"no NW kernel is built for max_len {L}")
     return G.value, route.value
@@ -69,25 +86,33 @@ def function_name(trace: bool, L: int) -> str:
 
 def warp_steps(m, n, L: int, G: int) -> np.ndarray:
     """Column steps each warp of 32 / G pairs (launch order) runs: the
-    largest n + (m-1) // (L/G) among its pairs, 0 for a pair with an empty
-    side; lengths clamped to L as the kernel clamps them."""
+    largest n + (m-1) // R among its pairs, R = shapes.nw_rows(L, G) rows
+    per thread, 0 for a pair with an empty side; lengths clamped to L as
+    the kernel clamps them."""
     m = np.minimum(np.asarray(m, np.int64), L)
     n = np.minimum(np.asarray(n, np.int64), L)
-    steps = np.where((m > 0) & (n > 0), n + (m - 1) // (L // G), 0)
+    steps = np.where((m > 0) & (n > 0), n + (m - 1) // nw_rows(L, G), 0)
     ppw = 32 // G
     pad = -steps.size % ppw
     return np.concatenate([steps, np.zeros(pad, np.int64)]).reshape(
         -1, ppw).max(1)
 
 
-def ptxas_report() -> str:
-    return ptxas_report_path("nw", SOURCE)
+def plan(max_len: int = 128) -> Plan:
+    """The library holding both kernels' instantiations at max_len."""
+    return nw_plan(max_len)
 
 
-def build_kernel() -> tuple[str, bool]:
-    """nvcc csrc/nw.cu -> build/libnw_<hash>.so (sm_90a). Returns
+def ptxas_report(max_len: int = 128) -> str:
+    return ptxas_report_path(plan(max_len).stem, SOURCE)
+
+
+def build_kernel(max_len: int = 128) -> tuple[str, bool]:
+    """nvcc csrc/nw.cu -> build/lib<stem>_<hash>.so (sm_90a), the library
+    holding max_len (default: the tuned table, libnw_<hash>.so). Returns
     (library path, built_now)."""
-    return nvcc_library("nw", SOURCE)
+    p = plan(max_len)
+    return nvcc_library(p.stem, SOURCE, p.defines)
 
 
 def bind(path: str):
@@ -106,18 +131,19 @@ def bind(path: str):
     return lib
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        _lib = bind(build_kernel()[0])
-    return _lib
+def _load(max_len: int = 128):
+    """The bound library holding max_len, built at its first use."""
+    p = plan(max_len)
+    if p.stem not in _libs:
+        _libs[p.stem] = bind(build_kernel(max_len)[0])
+    return _libs[p.stem]
 
 
 def occupancy(trace: bool = False, max_len: int = 128) -> int:
     """Resident warps per SM of the instantiation the wrapper launches for
     (trace, max_len) on the current CUDA device, with the shared memory
     its launch uses."""
-    got = _load().asm_nw_occupancy(max_len // 32, int(trace))
+    got = _load(max_len).asm_nw_occupancy(max_len // 32, int(trace))
     if got < 0:
         raise RuntimeError(f"NW occupancy query failed: cudaError {-got}")
     return got
@@ -133,10 +159,7 @@ def _checked(read, read_len, ref, ref_len):
     check_tensor(read_len, "read_len", (torch.int32,), (B,), device)
     check_tensor(ref_len, "ref_len", (torch.int32,), (B,), device)
     if device.type == "cuda":
-        if L % 32 or L // 32 not in _WS:
-            raise NotImplementedError(
-                f"the NW kernels are built for max_len in "
-                f"{tuple(32 * w for w in _WS)}; got {L}")
+        plan(L)  # raises for a max_len the kernels do not take
         if read.data_ptr() % 4 or ref.data_ptr() % 4:
             raise ValueError("code rows must be 4-byte aligned")
     elif device.type != "cpu":
@@ -148,7 +171,7 @@ def _launch(read, read_len, ref, ref_len, x, o, e, thr, pen, ops, mask,
             scratch):
     stream = torch.cuda.current_stream(read.device).cuda_stream
     B, L = read.shape
-    err = _load().asm_nw_launch(
+    err = _load(L).asm_nw_launch(
         read.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
         ref_len.data_ptr(), B, L // 32, int(ops is not None), x, o, e, thr,
         pen.data_ptr(), 0 if ops is None else ops.data_ptr(),
@@ -157,6 +180,7 @@ def _launch(read, read_len, ref, ref_len, x, o, e, thr, pen, ops, mask,
         stream)
     if err != 0:
         raise RuntimeError(f"NW kernel launch failed: cudaError {err}")
+    LIB_LAUNCHES[plan(L).stem, "nw" if ops is None else "nw_trace"] += 1
 
 
 def nw_penalty_cuda(read, read_len, ref, ref_len, x=1, o=1,
@@ -196,8 +220,9 @@ def nw_align_cuda(read, read_len, ref, ref_len, x=1, o=1, e=1,
     mask = torch.empty((B, L), dtype=torch.bool, device=device)
     piece, scratch = max(B, 1), None
     if B and instance(True, L)[1] == ROUTE_GLOBAL:
-        piece = max(1, TRACE_SCRATCH_BYTES // (L * L // 2))
-        scratch = torch.empty((min(piece, B), L * L // 2), dtype=torch.uint8,
+        per_pair = nw_launch(True, L)["scratch_per_pair"]
+        piece = max(1, TRACE_SCRATCH_BYTES // per_pair)
+        scratch = torch.empty((min(piece, B), per_pair), dtype=torch.uint8,
                               device=device)
     for lo in range(0, B, piece):
         hi = min(lo + piece, B)

@@ -60,10 +60,10 @@ def initialize_distributed(coordinator_address: str | None = None,
 def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
     """The mesh of this process: every rank of the initialised process
     group, or a one-rank mesh when no group is initialised. `device`
-    (default: cuda:<local rank> when a card is present, else the CPU) is
-    where this rank computes. `n_devices` larger than the world size
-    raises; smaller is not supported, as a rank outside it would have no
-    shard."""
+    (default: cuda:<local rank>; without a card the default raises, so
+    a CPU mesh is asked for by name) is where this rank computes.
+    `n_devices` larger than the world size raises; smaller is not
+    supported, as a rank outside it would have no shard."""
     if dist.is_initialized():
         rank, size = dist.get_rank(), dist.get_world_size()
     else:
@@ -75,8 +75,11 @@ def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
             raise ValueError(f"a mesh spans every rank: requested "
                              f"{n_devices} of {size}")
     if device is None:
-        device = (torch.device("cuda", rank % torch.cuda.device_count())
-                  if torch.cuda.is_available() else torch.device("cpu"))
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh's default device is the rank's "
+                               "card and there is none; pass device='cpu' "
+                               "for a CPU mesh")
+        device = torch.device("cuda", rank % torch.cuda.device_count())
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

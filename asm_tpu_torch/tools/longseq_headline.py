@@ -160,7 +160,7 @@ def _resources(kernel: str, L: int, device) -> dict:
         return dict(rl.greedy_resources(k=3, max_len=L),
                     block_threads=greedy_cuda.block_threads(L))
     got = rl.leap_resources(k=3, max_len=L, cigar=kernel == "cigar")
-    return dict(got, block_threads=leap_cuda.THREADS)
+    return dict(got, block_threads=leap_cuda.plan(3, L).threads)
 
 
 def _row(kernel, L, pairs, rep_s, bound, launches, device, **fields):

@@ -74,16 +74,21 @@ def variant(module, name: str, subs) -> tuple[str, str]:
 
 @contextlib.contextmanager
 def using(module, lib):
-    """`module`'s wrappers launch from `lib` (a bound variant) inside; NW's
-    cached `instance` answers for the library in use."""
-    saved = module._lib
-    module._lib = lib
+    """`module`'s wrappers launch from `lib` (a bound variant) inside, in
+    place of the library that holds max_len L; NW's cached `instance`
+    answers for the library in use."""
+    stem = module.plan(max_len=L).stem
+    saved = module._libs.get(stem)
+    module._libs[stem] = lib
     if module is nw_cuda:
         nw_cuda.instance.cache_clear()
     try:
         yield
     finally:
-        module._lib = saved
+        if saved is None:
+            del module._libs[stem]
+        else:
+            module._libs[stem] = saved
         if module is nw_cuda:
             nw_cuda.instance.cache_clear()
 
@@ -127,7 +132,7 @@ def greedy_sweep(corpus, reps: int, tile: int) -> dict:
             lambda nt: variant(greedy_cuda, f"greedy_nt{nt}", [(
                 GREEDY_LINE, f"return W == 16 ? {nt} : 128;")]),
             GREEDY_THREADS)))
-    libs = {"checked-in": greedy_cuda._load()}
+    libs = {"checked-in": greedy_cuda._load(3, L)}
     libs.update({f"nt{nt}": greedy_cuda.bind(p) for nt, (p, _) in
                  built.items()})
     pairs = corpus[1].shape[0]
@@ -170,7 +175,7 @@ def nw_sweep(corpus, n: int, reps: int) -> dict:
 
     with ThreadPoolExecutor(len(NW_GROUPS)) as ex:
         built = dict(zip(NW_GROUPS, ex.map(build, NW_GROUPS)))
-    libs = {"checked-in": nw_cuda._load()}
+    libs = {"checked-in": nw_cuda._load(L)}
     libs.update({f"G{g}": nw_cuda.bind(p) for g, (p, _) in built.items()})
     args = [torch.from_numpy(np.ascontiguousarray(a[:n])).to("cuda")
             for a in corpus]

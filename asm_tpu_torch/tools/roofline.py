@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from asm_tpu_torch.kernels import roofline_cuda
+from asm_tpu_torch.kernels.shapes import nw_rows
 from asm_tpu_torch.utils.bounds import HBM_BYTES_PER_S, INT32_OPS_PER_S
 from asm_tpu_torch.utils.build import ptxas_usage
 from asm_tpu_torch.utils.timing import best_of_reps, log, time_dispatches
@@ -468,11 +469,15 @@ def greedy_fn(k: int = 3, max_len: int = 128) -> str:
     return f"greedy_kernelILi{k}ELi{max_len // 32}ELb1E{rec}E"
 
 
-def leap_fn(k: int = 3, max_len: int = 128, cigar: bool = False) -> str:
-    """Mangled-name stem of csrc/leap.cu's lv_bag instantiation at (k,
-    max_len), x = o = e = 1, on planes, in penalty or CIGAR mode."""
-    return (f"leap_kernelILi{k}ELi{max_len // 32}ELi1ELi1ELi1ELi0ELb"
-            f"{int(cigar)}ELb1E")
+def leap_fn(k: int = 3, max_len: int = 128, cigar: bool = False,
+            pens=(1, 1, 1), sem: int = 0, planes: bool = True) -> str:
+    """Mangled-name stem of csrc/leap.cu's instantiation at (k, max_len,
+    (x, o, e)), semantics `sem` (its SEM: 0 lv_bag, 1 simd_ed_lev, 2
+    simd_ed_affine, 3 simd_ed_lev behind the SHD gate; default lv_bag) on
+    planes or codes, in penalty or CIGAR mode."""
+    x, o, e = pens
+    return (f"leap_kernelILi{k}ELi{max_len // 32}ELi{x}ELi{o}ELi{e}ELi{sem}"
+            f"ELb{int(cigar)}ELb{int(planes)}E")
 
 
 # the main-path instantiations: k = 3, L = 128 (W = 4); greedy on planes
@@ -520,25 +525,38 @@ def ptxas_entry(module, function: str, report: str | None = None) -> dict:
 def greedy_resources(report: str | None = None, k: int = 3,
                      max_len: int = 128) -> dict:
     """`ptxas_entry` of greedy's instantiation at (k, max_len) on planes
-    (default: the main path's) and, from the card, its resident warps per
-    SM (`greedy_cuda.occupancy`: the block size is per instantiation)."""
+    (default: the main path's; the report of the library holding the
+    shape) and, from the card, its resident warps per SM
+    (`greedy_cuda.occupancy`: the block size is per instantiation)."""
     from asm_tpu_torch.kernels import greedy_cuda
 
+    if report is None:
+        greedy_cuda.build_kernel(k, max_len)
+        with open(greedy_cuda.ptxas_report(k, max_len)) as f:
+            report = f.read()
     return dict(ptxas_entry(greedy_cuda, greedy_fn(k, max_len), report),
                 warps_per_sm=greedy_cuda.occupancy(k, max_len))
 
 
 def leap_resources(report: str | None = None, k: int = 3,
-                   max_len: int = 128, cigar: bool = False) -> dict:
+                   max_len: int = 128, cigar: bool = False,
+                   pens=(1, 1, 1)) -> dict:
     """`ptxas_entry` of LEAP's lv_bag instantiation at (k, max_len, CIGAR
-    mode) on planes (default: the main path's) and, from the card, its
-    resident blocks of THREADS and warps per SM (`leap_cuda.occupancy`)."""
+    mode, penalties) on planes (default: the main path's; the report of
+    the library holding the shape) and, from the card, its resident
+    blocks and warps per SM (`leap_cuda.occupancy`, blocks of the
+    shape's threads)."""
     from asm_tpu_torch.kernels import leap_cuda
 
-    blocks = leap_cuda.occupancy(k, max_len, cigar)
-    return dict(ptxas_entry(leap_cuda, leap_fn(k, max_len, cigar), report),
-                blocks_per_sm=blocks,
-                warps_per_sm=blocks * leap_cuda.THREADS // 32)
+    if report is None:
+        leap_cuda.build_kernel(k, max_len, pens)
+        with open(leap_cuda.ptxas_report(k, max_len, pens)) as f:
+            report = f.read()
+    threads = leap_cuda.plan(k, max_len, pens).threads
+    blocks = leap_cuda.occupancy(k, max_len, cigar, pens)
+    return dict(ptxas_entry(leap_cuda, leap_fn(k, max_len, cigar, pens),
+                            report),
+                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32)
 
 
 def leap_counts(levels, lib_path: str | None = None) -> dict:
@@ -673,6 +691,10 @@ def nw_resources(trace: bool, L: int = 128,
     the NW instantiation the wrapper launches for (trace, L)."""
     from asm_tpu_torch.kernels import nw_cuda
 
+    if report is None:
+        nw_cuda.build_kernel(L)
+        with open(nw_cuda.ptxas_report(L)) as f:
+            report = f.read()
     return dict(ptxas_entry(nw_cuda, nw_cuda.function_name(trace, L), report),
                 warps_per_sm=nw_cuda.occupancy(trace, L))
 
@@ -693,9 +715,10 @@ def nw_line(name: str, m, n, ms: float, bound: dict, ops=None) -> dict:
     n = np.minimum(np.asarray(n, np.int64), L)
     walk = (np.asarray(ops) != 0).sum(1) if trace else None
     counts = nw_loop_counts(
-        sass_listing(nw_cuda.build_kernel()[0],
+        sass_listing(nw_cuda.build_kernel(L)[0],
                      nw_cuda.function_name(trace, L)),
-        nw_cuda.warp_steps(m, n, L, G), float(np.sum(m * n)), G, L // G,
+        nw_cuda.warp_steps(m, n, L, G), float(np.sum(m * n)), G,
+        nw_rows(L, G),
         walk)
     line = dict(kernel=name, max_len=L, G=G, route=route, pairs=int(m.size),
                 **counts, **nw_resources(trace, L), ms=ms,

@@ -4,7 +4,10 @@ Both the host runtime (native/libasm_native.so, built from the repo's
 native/ sources) and the CUDA kernels are compiled at first use into
 `asm_tpu_torch/build/` (gitignored). Artifact names carry a hash of
 their sources, so an edited source never loads a stale build; a file
-lock makes concurrent first uses (test workers) build once.
+lock makes concurrent first uses (test workers) build once. A kernel
+library built for one shape outside its source's tuned table carries
+the shape in its stem and -D defines on its nvcc line
+(kernels/shapes.py).
 """
 
 from __future__ import annotations
@@ -83,15 +86,24 @@ def ptxas_usage(report: str) -> dict:
     return out
 
 
-def nvcc_library(stem: str, source: str) -> tuple[str, bool]:
+def nvcc_command(source: str, out: str, defines=()) -> list[str]:
+    """The nvcc line that builds `source` into the library `out` for
+    sm_90a, with -D<name>=<value> for each (name, value) of `defines`."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", *(f"-D{k}={v}" for k, v in defines), "-o", out,
+            source]
+
+
+def nvcc_library(stem: str, source: str, defines=()) -> tuple[str, bool]:
     """nvcc `source` (a .cu with a plain C interface) ->
-    BUILD_DIR/lib<stem>_<hash>.so for sm_90a; the ptxas report lands
-    beside it (`ptxas_report_path`). Returns (library path, built_now)."""
+    BUILD_DIR/lib<stem>_<hash>.so for sm_90a, with `defines` ((name,
+    value) pairs, each a -D; the stem must name them, as it names the
+    library); the ptxas report lands beside it (`ptxas_report_path`).
+    Returns (library path, built_now)."""
 
     def nvcc(out):
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", out, source]
+        cmd = nvcc_command(source, out, defines)
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"

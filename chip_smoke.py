@@ -6,8 +6,8 @@ Needs one CUDA card, nvcc, cuobjdump and g++. Phases, each printing one
 line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the greedy, NW, NW band, LEAP and roofline kernels (nvcc,
-     sm_90a) and the native host runtime, all at once, from this
-     checkout's sources;
+     sm_90a), the native host runtime and phase 17's per-shape
+     libraries, all at once, from this checkout's sources;
   3. kernel vs plain: greedy_align_cuda on CUDA tensors against the plain
      PyTorch greedy_align on the same device, on the corpora of the
      kernel's conformance tests, both input forms — cost, steps, raw step
@@ -126,15 +126,29 @@ line:
      equal the pins of phases 4, 6, 9 and 11, the greedy, band and LEAP
      kernels must have launched in each, and (b)'s per-pair outputs,
      gathered, must equal (a)'s.
+ 17. shapes outside the kernels' tuned tables, each in a library of its
+     own built in phase 2 (kernels/shapes.py): (a) the filter CLI
+     (apps.leap_filter) at ERROR 0, 1, 5 and 8, levenshtein + SHD and
+     affine, on 262,144 pairs of 90-250-base reads (max_len 256, k =
+     ERROR), passNum pinned from asm_tpu's CLI, then each levenshtein
+     ERROR's kernel on the file's first batch against its plain version,
+     timed; (b) the harness at max_len 160, k = 5 on 150-base reads: the
+     counts of 65,536 pairs at err 0.05 and 0.10 and of 16,384 at x = 1,
+     o = 4, e = 2 pinned from asm_tpu's harness (impl torch the same),
+     then 1,048,576 pairs per rate on the card, impl torch equal, and each
+     of the five kernels at that shape against its plain version, timed;
+     (c) the long-sequence flow at max_len 160 and 384 (k = 3) on
+     1,048,576 and 524,288 pairs, as 14b, pinned from asm_tpu.
 Prints a JSON line of per-kernel results (time, plain version's time,
-bound, launches; the W = 16 instantiations as entries of their own), the
-card line, and last {"ok": true, "device": {...}}. Any failure raises
-(exit code != 0).
+bound, launches; the W = 16 instantiations and phase 17's shapes as
+entries of their own), the card line, and last {"ok": true, "device":
+{...}}. Any failure raises (exit code != 0).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -248,6 +262,40 @@ LONG_DIGEST_PAIRS = 65_536
 # coverage 84.387 % of 8,192 pairs.
 LONG_HARNESS_PAIRS = 8192
 LONG_HARNESS = (4868, 8018, 6913)  # greedy == NW, LEAP == NW, covered
+# Phase 17, the shapes outside the tuned tables. (a) The filter CLI on a
+# pair file of SHAPE_FILTER_GROUPS (read length, err, seed; 65,536 pairs
+# each from the native generator at mismatch rate 0.9, max_len 256):
+# passNum of `python -m asm_tpu.apps.leap_filter ARGS --file F` (the JAX
+# CLI, XLA, on the CPU) per ARGS: levenshtein + SHD at ERROR 0, 1, 5, 8,
+# and affine (x, o, e = 2, 3, 1; af = 3 ERROR) without the gate.
+SHAPE_FILTER_GROUPS = ((90, 0.02, 171), (150, 0.04, 172), (200, 0.05, 173),
+                       (250, 0.06, 174))
+SHAPE_FILTER_GROUP_PAIRS = 65_536
+SHAPE_FILTER_PASSED = {"0": 3445, "1": 23630, "5": 109485, "8": 169162,
+                       "0 0 0": 3445, "1 0 0": 23993, "5 0 0": 139110,
+                       "8 0 0": 221222}
+# (b) The harness at 150-base reads, max_len 160, k = 5 (native generator,
+# seed 42, mismatch rate 0.96): (greedy == NW, LEAP == NW, covered) of
+# asm_tpu.bench.harness.run_benchmark(impl="xla") on the CPU, coverage on
+# every pair, per (x, o, e, err, pairs).
+SHAPE_HARNESS = {(1, 1, 1, 0.05, 65_536): (56731, 65192, 62597),
+                 (1, 1, 1, 0.10, 65_536): (43413, 63527, 59517),
+                 (1, 4, 2, 0.05, 16_384): (15223, 16248, 15873)}
+SHAPE_HARNESS_BIG = 1_048_576  # the card-only run per rate
+SHAPE_HARNESS_TORCH = 131_072  # of it, held against impl torch
+# (c) The long-sequence flow at max_len 160 and 384, computed as LONG_FLOW
+# (steps bound 256; max steps 22 and 88; E of the digest's pairs 8 and
+# 137).
+SHAPE_FLOW = {
+    160: dict(pairs=1_048_576, greedy_cost=6428548, leap_penalty=6221133,
+              leap_passed=1_048_576, digest=(
+                  "d973f48539710ead8815ea8676b8961b"
+                  "a2c7657788c16fcf3bc3a4b015bdbf71", 65_536)),
+    384: dict(pairs=524_288, greedy_cost=7696090, leap_penalty=7395698,
+              leap_passed=524_288, digest=(
+                  "2777163bad57e071bd433939f4f91cc3"
+                  "7b85fa09a8f88eacf21b7cc12a0058b5", 65_536)),
+}
 # Phase 15, profile-profile alignment: 65,536 pairs of profiles at max_len
 # 128 from msa_alignments(2 * MSA_PAIRS) (the first half against the
 # second), the exact float64 sum of the float32 scores (math.fsum) and
@@ -391,22 +439,23 @@ def mixed_corpus():
     return tuple(np.concatenate([b[i] for b in blocks]) for i in range(4))
 
 
-def write_pair_file(path: str) -> None:
-    """The filter CLI's input: FILTER_PAIRS read/ref line pairs from the
-    native generator (mismatch rate 0.9, max_len 256), half with 150-base
-    reads at err 0.01 (seed 77), half with 230-base reads at err 0.02
-    (seed 78)."""
+def write_pair_file(path: str, groups=((150, 0.01, 77), (230, 0.02, 78)),
+                    per_group: int = FILTER_PAIRS // 2) -> None:
+    """The filter CLI's input: read/ref line pairs from the native
+    generator (mismatch rate 0.9, max_len 256), per_group pairs of each
+    (read length, err, seed) of `groups` (default: phase 10's FILTER_PAIRS,
+    half with 150-base reads at err 0.01, half with 230-base reads at err
+    0.02)."""
     from asm_tpu_torch.data.generator import generate_dataset_native
-    from asm_tpu_torch.encoding import decode_string
+    from asm_tpu_torch.encoding import decode_batch
 
-    half = FILTER_PAIRS // 2
     with open(path, "w") as f:
-        for length, err, seed in ((150, 0.01, 77), (230, 0.02, 78)):
+        for length, err, seed in groups:
             rc, rl, fc, fl = generate_dataset_native(
-                half, length, err, mismatch_rate=0.9, seed=seed, max_len=256)
-            for i in range(half):
-                f.write(f"{decode_string(rc[i], rl[i])}\n"
-                        f"{decode_string(fc[i], fl[i])}\n")
+                per_group, length, err, mismatch_rate=0.9, seed=seed,
+                max_len=256)
+            f.writelines(f"{a}\n{b}\n" for a, b in zip(decode_batch(rc, rl),
+                                                      decode_batch(fc, fl)))
 
 
 def cuda_ms(fn, reps: int) -> tuple[float, object]:
@@ -1023,7 +1072,6 @@ def filter_cli(card) -> None:
     directory; the pass counts must equal the JAX CLI's."""
     import contextlib
     import io
-    import os
     import tempfile
 
     from asm_tpu_torch.apps import leap_filter
@@ -1360,17 +1408,21 @@ def long_kernels_vs_plain(dev, name) -> dict:
     return err
 
 
-def long_flow(dev, card, err) -> list[dict]:
-    """Phase 14b: the long-sequence flow at max_len 256 and 512; returns
-    the greedy and LEAP kernels' W = 16 JSON entries."""
+def long_flow(dev, card, err, pins=None, tag="14b",
+              entry_lengths=(512,)) -> list[dict]:
+    """Phase 14b: the long-sequence flow at max_len 256 and 512 (or, as
+    phase 17c, at `pins`' lengths); returns the greedy and LEAP kernels'
+    JSON entries at `entry_lengths`."""
     from asm_tpu_torch.kernels import greedy_cuda, leap_cuda
     from asm_tpu_torch.kernels.greedy import greedy_align
     from asm_tpu_torch.kernels.leap import leap_align
     from asm_tpu_torch.tools import longseq_headline as lh
 
     entries = []
-    for L, pin in LONG_FLOW.items():
+    for L, pin in (pins or LONG_FLOW).items():
+        t_gen = time.perf_counter()
         corpus = lh.long_corpus(L, pin["pairs"])
+        t_gen = time.perf_counter() - t_gen
         greedy_cuda.LAUNCHES = leap_cuda.LAUNCHES = 0
         t0 = time.perf_counter()
         res = lh.run_length(L, reps=3, device=dev, digest=LONG_DIGEST_PAIRS,
@@ -1408,7 +1460,7 @@ def long_flow(dev, card, err) -> list[dict]:
             f"{100 * r['bound_share']:.1f}%), {r.get('warps_per_sm')} warps "
             f"per SM, {r.get('registers')} registers, "
             f"{r.get('spill_stores')} B spill" for k, r in rows.items())
-        phase(f"[14b long flow L={L}] {res['pairs']} pairs of "
+        phase(f"[{tag} long flow L={L}] {res['pairs']} pairs of "
               f"{lh.read_length(L)} bases: greedy cost {got['greedy_cost']}, "
               f"LEAP penalty {got['leap_penalty']} with {got['leap_passed']} "
               f"passed, CIGAR digest {got['digest'][0][:12]}... of "
@@ -1419,8 +1471,8 @@ def long_flow(dev, card, err) -> list[dict]:
               f"{rows['leap_cigar']['chunk_bounds']}; launches {launches}; "
               f"{parts}; plain greedy {plain_g_ms:.3f} ms, LEAP "
               f"{plain_l_ms:.3f} ms, equal on every pair; {wall:.1f} s "
-              f"wall; on {card}")
-        if L != 512:
+              f"wall (corpus {t_gen:.1f} s); on {card}")
+        if L not in entry_lengths:
             continue
         for kernel, row, source, replaces, plain_ms in (
                 ("greedy", rows["greedy"], "greedy.cu",
@@ -1428,13 +1480,18 @@ def long_flow(dev, card, err) -> list[dict]:
                 ("leap", rows["leap_penalty"], "leap.cu", "leap_pallas.py:49",
                  plain_l_ms)):
             entries.append(dict(
-                name=f"{kernel}_L512", route="cuda",
-                source=f"asm_tpu_torch/csrc/{source}",
+                name=f"{kernel}_L{L}" + ("_k3" if pins else ""),
+                route="cuda", source=f"asm_tpu_torch/csrc/{source}",
                 replaces=f"asm_tpu/kernels/{replaces}",
                 launches=launches[kernel], max_abs_err=float(err[kernel]),
                 ms=row["ms"], plain_ms=plain_ms, bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=None,
-                warps_per_sm=row.get("warps_per_sm")))
+                warps_per_sm=row.get("warps_per_sm"),
+                **({} if not pins else dict(
+                    shape=dict(max_len=L, k=3), bound_share=row["bound_share"],
+                    registers=row.get("registers"),
+                    spill_stores=row.get("spill_stores"),
+                    block_threads=row.get("block_threads")))))
     return entries
 
 
@@ -1550,6 +1607,356 @@ def long_sequences(dev, name, card) -> list[dict]:
     return entries
 
 
+def shape_builds() -> list[tuple]:
+    """(module, build_kernel arguments) of every per-shape library phase
+    17 launches: the filter's LEAP at ERROR 0, 1, 5, 8 in both modes; the
+    harness's greedy, LEAP (two penalty sets), band and NW at max_len 160,
+    k = 5; the long-sequence flow's greedy and LEAP at 160 and 384, k = 3."""
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band, nw_cuda
+
+    jobs = [(leap_cuda, (k, 256, pens)) for k in (0, 1, 5, 8)
+            for pens in ((1, 1, 1), (2, 3, 1))]
+    jobs += [(greedy_cuda, (5, 160)), (leap_cuda, (5, 160, (1, 1, 1))),
+             (leap_cuda, (5, 160, (1, 4, 2))), (nw_band, (160,)),
+             (nw_cuda, (160,))]
+    jobs += [(m, (3, L) if m is greedy_cuda else (3, L, (1, 1, 1)))
+             for L in (160, 384) for m in (greedy_cuda, leap_cuda)]
+    return jobs
+
+
+def shape_stem(module, args) -> str:
+    return module.plan(*args).stem
+
+
+def shape_usage(module, args, fn: str) -> dict:
+    """Registers and spill bytes of the instantiation `fn` (a mangled-name
+    stem) in the per-shape library of `args`."""
+    from asm_tpu_torch.tools import roofline as rl
+
+    with open(module.ptxas_report(*args)) as f:
+        return rl.ptxas_entry(module, fn, f.read())
+
+
+def shape_entry(name, source, replaces, shape, launches, err, ms, plain_ms,
+                bound, usage, warps) -> dict:
+    """A phase 17 kernels-line entry: the common keys, the shape, the
+    bound's share, warps per SM, registers and spills."""
+    return dict(name=name, route="cuda", source=f"asm_tpu_torch/csrc/{source}",
+                replaces=f"asm_tpu/kernels/{replaces}", launches=launches,
+                max_abs_err=float(err), ms=ms, plain_ms=plain_ms, **bound,
+                shape=shape, bound_share=bound["bound_ms"] / ms,
+                warps_per_sm=warps, registers=usage["registers"],
+                spill_stores=usage["spill_stores"])
+
+
+def shape_filter(dev, card) -> list[dict]:
+    """Phase 17a: the filter CLI at ERROR 0, 1, 5 and 8, levenshtein + SHD
+    and affine, on 262,144 pairs (4 batches); passNum pinned from the JAX
+    CLI. Then each levenshtein ERROR's kernel (simd_ed_lev behind the SHD
+    gate, int8 codes) on the file's first batch against the plain version,
+    timed; returns their entries."""
+    import contextlib
+    import io
+    import tempfile
+
+    from asm_tpu_torch.apps import leap_filter
+    from asm_tpu_torch.encoding import encode_batch
+    from asm_tpu_torch.kernels import leap_cuda
+    from asm_tpu_torch.kernels.leap import leap_align
+    from asm_tpu_torch.leap_headline import kernel_bound
+    from asm_tpu_torch.tools import roofline as rl
+
+    got, launches = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pairs.seq")
+        write_pair_file(path, SHAPE_FILTER_GROUPS, SHAPE_FILTER_GROUP_PAIRS)
+        t_file = time.perf_counter() - t0
+        for args in SHAPE_FILTER_PASSED:
+            argv = args.split()
+            lev = len(argv) == 1
+            stem = leap_cuda.plan(int(argv[0]), 256,
+                                  (1, 1, 1) if lev else (2, 3, 1)).stem
+            before = leap_cuda.LIB_LAUNCHES[stem]
+            with contextlib.redirect_stdout(io.StringIO()):
+                got[args] = leap_filter.main(argv + ["--file", path])
+            launches[args] = leap_cuda.LIB_LAUNCHES[stem] - before
+        with open(path) as f:
+            lines = [f.readline().strip() for _ in range(2 * leap_filter.BATCH)]
+    counts = {k: v["passed"] for k, v in got.items()}
+    if counts != SHAPE_FILTER_PASSED or min(launches.values()) <= 0:
+        raise AssertionError(f"filter CLI passed {counts} (pinned "
+                             f"{SHAPE_FILTER_PASSED}), launches {launches}")
+    times = ", ".join(f"{k}: {v['align_s'] * 1e3:.3f}"
+                      for k, v in got.items())
+    phase(f"[17a filter CLI] {4 * SHAPE_FILTER_GROUP_PAIRS} pairs of reads "
+          f"90-250 bases, max_len 256: passNum {counts} (pinned from "
+          f"asm_tpu); launches per per-shape library {launches}; align ms "
+          f"per ERROR ({times}); {time.perf_counter() - t0:.1f} s wall, the "
+          f"file written in {t_file:.1f} s; on {card}")
+
+    rc, rl_, fc, _ = (torch.from_numpy(a).to(dev) for a in encode_batch(
+        lines[0::2], lines[1::2], 256))
+    entries = []
+    for error in (0, 1, 5, 8):
+        cfg = leap_filter.filter_config(error, True)
+        pos = torch.arange(256, device=dev)[None, :]
+        fce = torch.where((pos < rl_[:, None]) & (fc >= 4),
+                          torch.zeros_like(fc), fc)
+        kw = dict(semantics="simd_ed_lev", use_shd_gate=True)
+        args = (error, 256, (1, 1, 1))
+        stem = shape_stem(leap_cuda, args)
+        before = leap_cuda.LIB_LAUNCHES[stem]
+        ms, out = cuda_ms(lambda: leap_cuda.leap_align_cuda(
+            rc, rl_, fce, rl_, cfg, **kw), 5)
+        plain_ms, want = cuda_ms(lambda: leap_align(rc, rl_, fce, rl_, cfg,
+                                                    **kw), 1)
+        err = max(max_diff(out[k], want[k], f"filter ERROR {error}: {k}")
+                  for k in ("passed", "penalty", "lane_shift"))
+        if leap_cuda.LIB_LAUNCHES[stem] <= before:
+            raise AssertionError(f"filter ERROR {error}: no launch of {stem}")
+        entries.append(shape_entry(
+            f"leap_filter_L256_k{error}", "leap.cu", "leap_pallas.py:49",
+            dict(max_len=256, k=error, semantics="simd_ed_lev+shd",
+                 pairs=int(rl_.numel())),
+            launches[str(error)], err, ms, plain_ms,
+            kernel_bound("leap_gated", [out], cfg),
+            shape_usage(leap_cuda, args, rl.leap_fn(error, 256, sem=3,
+                                                    planes=False)),
+            leap_cuda.occupancy(*args[:2], False, args[2]) *
+            leap_cuda.plan(*args).threads // 32))
+    phase("[17a filter kernels] first batch, simd_ed_lev + SHD: " + "; ".join(
+        f"k {e['shape']['k']} {e['ms']:.4f} ms (plain {e['plain_ms']:.3f}), "
+        f"bound {e['bound_ms']:.4f} ({e['bound_by']}, "
+        f"{100 * e['bound_share']:.1f}%), {e['warps_per_sm']} warps per SM, "
+        f"{e['registers']} regs, {e['spill_stores']} B spill"
+        for e in entries) + f"; equal to the plain version; on {card}")
+    return entries
+
+
+def shape_harness(dev, card) -> list[dict]:
+    """Phase 17b: the harness at max_len 160, k = 5 (150-base reads): the
+    pinned runs (impl cuda, and impl torch the same), then
+    SHAPE_HARNESS_BIG pairs per rate on the card, held against impl torch
+    on its first SHAPE_HARNESS_TORCH; then each kernel at that shape on
+    the err 0.05 run's pairs, timed against its bound and its plain
+    version; returns their entries."""
+    from asm_tpu_torch.bench.harness import format_report, run_benchmark
+    from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.data.generator import generate_dataset_native
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw, nw_band, \
+        nw_cuda
+    from asm_tpu_torch.kernels.greedy import greedy_align
+    from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
+    from asm_tpu_torch.kernels.leap import leap_align
+    from asm_tpu_torch.leap_headline import kernel_bound
+    from asm_tpu_torch.tools import roofline as rl
+    from asm_tpu_torch.utils.bounds import bound_entry, greedy_work, \
+        nw_band_work, nw_full_work
+
+    L, k = 160, 5
+
+    def gen(pairs, err):
+        return generate_dataset_native(pairs, 150, err, 0.96, seed=42,
+                                       max_len=L)
+
+    nw_stem = shape_stem(nw_cuda, (L,))
+
+    def lib_counts(pens):
+        return dict(
+            greedy=greedy_cuda.LIB_LAUNCHES[shape_stem(greedy_cuda, (k, L))],
+            leap=leap_cuda.LIB_LAUNCHES[shape_stem(leap_cuda, (k, L, pens))],
+            nw_band=nw_band.LIB_LAUNCHES[shape_stem(nw_band, (L,))],
+            nw=nw_cuda.LIB_LAUNCHES[nw_stem, "nw"],
+            nw_trace=nw_cuda.LIB_LAUNCHES[nw_stem, "nw_trace"])
+
+    main = {}  # the main path's launches per kernel (LEAP per penalty set)
+
+    def run_cuda(corpus, cfg):
+        pens = (cfg.x, cfg.o, cfg.e)
+        before = lib_counts(pens)
+        r = run_benchmark(*corpus, cfg, impl="cuda", device=dev)
+        used = {key: v - before[key] for key, v in lib_counts(pens).items()}
+        for key, v in used.items():
+            key = (key, pens) if key == "leap" else key
+            main[key] = main.get(key, 0) + v
+        if min(v for key, v in used.items() if key != "nw") <= 0:
+            raise AssertionError(f"harness L = {L}: launches {used}")
+        return r, used
+
+    parts = []
+    t0 = time.perf_counter()
+    for (x, o, e, err, pairs), pin in SHAPE_HARNESS.items():
+        corpus = gen(pairs, err)
+        cfg = AlignConfig(x=x, o=o, e=e, k=k, max_len=L)
+        r, used = run_cuda(corpus, cfg)
+        pt = run_benchmark(*corpus, cfg, impl="torch", device=dev)
+        got = harness_counts(r)
+        if (got, r.coverage_checked) != (pin, pairs):
+            raise AssertionError(f"harness L = {L} x{x}o{o}e{e} err {err}: "
+                                 f"{got} on {r.coverage_checked} != pinned "
+                                 f"{pin}, launches {used}")
+        if harness_counts(pt) != got:
+            raise AssertionError(f"harness L = {L}: torch {harness_counts(pt)}"
+                                 f" != cuda {got}")
+        parts.append(f"x{x}o{o}e{e} err {err}: {got} (pinned; impl torch the "
+                     f"same) launches {used}")
+    phase(f"[17b harness L={L} k={k}] " + "; ".join(parts) + f"; "
+          f"{time.perf_counter() - t0:.1f} s wall; on {card}")
+
+    cfg = AlignConfig(x=1, o=1, e=1, k=k, max_len=L)
+    big = {}
+    for err in (0.05, 0.10):
+        t_gen = time.perf_counter()
+        corpus = gen(SHAPE_HARNESS_BIG, err)
+        t0 = time.perf_counter()
+        t_gen = t0 - t_gen
+        r, _ = run_cuda(corpus, cfg)
+        wall = time.perf_counter() - t0
+        n = SHAPE_HARNESS_TORCH
+        head = tuple(a[:n] for a in corpus)
+        rc_ = run_benchmark(*head, cfg, impl="cuda", device=dev) \
+            if n < SHAPE_HARNESS_BIG else r
+        t_torch = time.perf_counter()
+        pt = run_benchmark(*head, cfg, impl="torch", device=dev)
+        t_torch = time.perf_counter() - t_torch
+        if (harness_counts(pt), pt.coverage_checked) != (
+                harness_counts(rc_), rc_.coverage_checked):
+            raise AssertionError(f"harness L = {L} err {err}: torch "
+                                 f"{harness_counts(pt)} != cuda "
+                                 f"{harness_counts(rc_)} on {n} pairs")
+        for ln in format_report(r).splitlines():
+            phase(ln)
+        big[err] = r
+        phase(f"[17b harness L={L} k={k} err {err}] {r.total} pairs: "
+              f"(greedy == NW, LEAP == NW, covered) {harness_counts(r)} of "
+              f"{r.coverage_checked}; impl torch equal on {n} pairs; NW "
+              f"{r.nw_time:.4f} s ({r.nw_aligns_per_sec / 1e6:.1f}M aligns/s)"
+              f", LEAP {r.leap_time:.4f} s "
+              f"({r.leap_aligns_per_sec / 1e6:.1f}M), greedy "
+              f"{r.greedy_time:.4f} s ({r.greedy_aligns_per_sec / 1e6:.1f}M)"
+              f"; plain NW / LEAP / greedy {pt.nw_time:.3f} / "
+              f"{pt.leap_time:.3f} / {pt.greedy_time:.3f} s on {n} pairs; "
+              f"{wall:.1f} s wall with coverage on every pair (corpus "
+              f"{t_gen:.1f} s, impl torch {t_torch:.1f} s); on {card}")
+
+    # at err 0.05-0.10 a band certifies nearly every pair: the harness's NW
+    # partition at err 0.30 leaves a residue for the full kernel
+    t = [torch.from_numpy(a).to(dev) for a in gen(8192, 0.30)]
+    before = nw_cuda.LIB_LAUNCHES[nw_stem, "nw"]
+    hard_pen = nw_band.nw_penalty_partitioned(*t, bws=nw_band.BWS)
+    main["nw"] += nw_cuda.LIB_LAUNCHES[nw_stem, "nw"] - before
+    hard_err = max_diff(torch.from_numpy(hard_pen).to(dev), nw.nw_penalty(*t),
+                        f"L = {L} err 0.30 partition vs plain full NW")
+    if main["nw"] <= 0:
+        raise AssertionError(f"the L = {L} NW partition left no residue for "
+                             f"the full kernel")
+    phase(f"[17b main-path launches L={L}] {main}; the err 0.30 partition "
+          f"of 8192 pairs equal to the plain full NW")
+
+    # each kernel at the harness's shape on the err 0.05 pinned pairs
+    t0 = time.perf_counter()
+    corpus = gen(65_536, 0.05)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in corpus]
+    m, n_ = corpus[1], corpus[3]
+    entries = []
+    gcfg = AlignConfig(x=1, o=1, e=1, k=k, max_len=L, max_steps=64)
+    ms, out = cuda_ms(lambda: greedy_cuda.greedy_align_cuda(
+        *t, gcfg, want_cigar=False), 5)
+    plain_ms, want = cuda_ms(lambda: greedy_align(*t, gcfg, records=True), 1)
+    err = max(max_diff(out[key], want[key], f"L = {L} greedy {key}")
+              for key in ("cost", "steps", "step_rec"))
+    steps = out["steps"].cpu().numpy()
+    entries.append(shape_entry(
+        f"greedy_L{L}_k{k}", "greedy.cu", "greedy_pallas.py:91",
+        dict(max_len=L, k=k, pairs=m.size, route="codes"),
+        main["greedy"], err, ms, plain_ms,
+        bound_entry(*greedy_work(steps, [64], m.size, k=k, L=L, codes=True)),
+        shape_usage(greedy_cuda, (k, L), rl.greedy_fn(k, L).replace(
+            "ELb1E", "ELb0E")), greedy_cuda.occupancy(k, L, False)))
+    for pens in ((1, 1, 1), (1, 4, 2)):
+        lcfg = AlignConfig(x=pens[0], o=pens[1], e=pens[2], k=k, max_len=L)
+        ms, out = cuda_ms(lambda: leap_cuda.leap_align_cuda(*t, lcfg), 5)
+        plain_ms, want = cuda_ms(lambda: leap_align(*t, lcfg), 1)
+        err = max(max_diff(out[key], want[key], f"L = {L} LEAP {key}")
+                  for key in ("passed", "penalty", "lane_shift"))
+        args = (k, L, pens)
+        entries.append(shape_entry(
+            f"leap_L{L}_k{k}_x{pens[0]}o{pens[1]}e{pens[2]}", "leap.cu",
+            "leap_pallas.py:49", dict(max_len=L, k=k, pens=pens,
+                                      pairs=m.size, route="codes"),
+            main["leap", pens], err, ms, plain_ms,
+            kernel_bound("leap", [out], lcfg),
+            shape_usage(leap_cuda, args, rl.leap_fn(k, L, pens=pens,
+                                                    planes=False)),
+            leap_cuda.occupancy(*args[:2], False, args[2]) *
+            leap_cuda.plan(*args).threads // 32))
+    planes = [torch.from_numpy(stage_planes_t(a).view(np.int32)).to(dev)
+              for a in (corpus[0], corpus[2])]
+    bw = 16
+    ms, out = cuda_ms(lambda: nw_band.nw_penalty_banded(
+        planes[0], t[1], planes[1], t[3], bw=bw, pre_staged=True), 5)
+    plain_ms, want = cuda_ms(lambda: nw_band.banded_plain(*t, bw), 1)
+    with open(nw_band.ptxas_report(L)) as f:
+        usage = rl.ptxas_entry(nw_band, f"band_kernelILi{bw}ELi{L // 32}E",
+                               f.read())
+    entries.append(shape_entry(
+        f"nw_band_L{L}", "nw_band.cu", "nw_band.py:174",
+        dict(max_len=L, bw=bw, pairs=m.size, route="planes"),
+        main["nw_band"], max_diff(out, want, f"L = {L} band"), ms,
+        plain_ms, bound_entry(*nw_band_work(m, n_, np.full(m.size, bw), L)),
+        usage, None))
+    ms, out = cuda_ms(lambda: nw_cuda.nw_penalty_cuda(*t), 5)
+    plain_ms, want = cuda_ms(lambda: nw.nw_penalty(*t), 1)
+    res = rl.nw_resources(False, L)
+    entries.append(shape_entry(
+        f"nw_L{L}", "nw.cu", "nw_pallas.py:88",
+        dict(max_len=L, G=nw_cuda.instance(False, L)[0], pairs=m.size),
+        main["nw"], max(hard_err, max_diff(out, want, f"L = {L} nw")), ms,
+        plain_ms,
+        bound_entry(*nw_full_work(m, n_, L)), res, res["warps_per_sm"]))
+    ms, out = cuda_ms(lambda: nw_cuda.nw_align_cuda(
+        *t, match_mask_threshold=3), 3)
+    plain_ms, want = cuda_ms(lambda: nw.nw_align(*t, match_mask_threshold=3),
+                             1)
+    err = max(max_diff(g, w, f"L = {L} nw_trace {key}")
+              for g, w, key in zip(out, want, ("pen", "ops", "mask")))
+    res = rl.nw_resources(True, L)
+    G, route = nw_cuda.instance(True, L)
+    entries.append(shape_entry(
+        f"nw_trace_L{L}", "nw.cu", "nw_pallas.py:218",
+        dict(max_len=L, G=G, route=route, pairs=m.size),
+        main["nw_trace"], err, ms, plain_ms,
+        bound_entry(*nw_full_work(m, n_, L, trace=True)), res,
+        res["warps_per_sm"]))
+    phase(f"[17b kernels L={L}] {m.size} pairs err 0.05: " + "; ".join(
+        f"{e['name']} {e['ms']:.4f} ms (plain {e['plain_ms']:.3f}), bound "
+        f"{e['bound_ms']:.4f} ({e['bound_by']}, "
+        f"{100 * e['bound_share']:.1f}%), {e['warps_per_sm']} warps per SM, "
+        f"{e['registers']} regs, {e['spill_stores']} B spill"
+        for e in entries) + f"; all equal to their plain versions; "
+        f"{time.perf_counter() - t0:.1f} s wall; on {card}")
+    return entries
+
+
+def shapes_path(dev, name, card) -> list[dict]:
+    """Phase 17: the entry points at shapes outside the tuned tables;
+    returns the new shapes' JSON entries."""
+    walls = [time.perf_counter()]
+    entries = shape_filter(dev, card)
+    walls.append(time.perf_counter())
+    entries += shape_harness(dev, card)
+    walls.append(time.perf_counter())
+    err = dict(greedy=0, leap=0)
+    entries += long_flow(dev, card, err, pins=SHAPE_FLOW, tag="17c",
+                         entry_lengths=tuple(SHAPE_FLOW))
+    walls.append(time.perf_counter())
+    phase(f"[17 shapes] {walls[-1] - walls[0]:.1f} s (a, b, c: "
+          f"{[round(b - a, 1) for a, b in zip(walls, walls[1:])]} s) on "
+          f"{name}")
+    return entries
+
+
 def msa_path(dev, card) -> None:
     """Phase 15: profile-profile alignment of 65,536 profile pairs at
     max_len 128 on the card; the score sum and the ops digest pinned from
@@ -1616,7 +2023,6 @@ def sharded_rank(rank: int, port: int, outdir: str) -> None:
     """Phase 16b's rank `rank` of two gloo ranks on the one card: its half
     of the 1M headline corpus through make_sharded_pipeline; writes its
     per-pair outputs, counters, launches and wall to outdir."""
-    import os
 
     import torch.distributed as dist
 
@@ -1944,16 +2350,28 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels = (greedy_cuda, nw_cuda, nw_band, leap_cuda, roofline_cuda)
-    with ThreadPoolExecutor(len(kernels) + 1) as ex:
-        builds = [ex.submit(timed, k.build_kernel) for k in kernels]
+    shapes = shape_builds()
+    # one nvcc per core, the longest build (the tuned LEAP table) first
+    with ThreadPoolExecutor(os.cpu_count() or 8) as ex:
+        builds = {k: ex.submit(timed, k.build_kernel) for k in sorted(
+            kernels, key=lambda k: k is not leap_cuda)}
+        builds = [builds[k] for k in kernels]
         native = ex.submit(timed, build_native)
+        shape_jobs = [ex.submit(timed, lambda m=m, a=a: m.build_kernel(*a))
+                      for m, a in shapes]
         secs = {k.__name__.rsplit(".", 1)[1]: f.result()
                 for k, f in zip(kernels, builds)}
         secs["native"] = native.result()
+        shape_secs = {shape_stem(m, a): f.result()
+                      for (m, a), f in zip(shapes, shape_jobs)}
     ptxas = "; ".join(ptxas_summary(k.ptxas_report()) for k in kernels)
-    phase(f"[2 build] {len(kernels)} kernel libraries + native library in "
-          f"{time.perf_counter() - t0:.1f}s (seconds each: {secs}); "
-          f"ptxas: {ptxas}")
+    phase(f"[2 build] {len(kernels)} kernel libraries + native library + "
+          f"{len(shapes)} per-shape libraries in "
+          f"{time.perf_counter() - t0:.1f}s (seconds each: {secs}; per "
+          f"shape: {shape_secs}); ptxas: {ptxas}")
+    phase("[2 build per shape] ptxas: " + "; ".join(
+        f"{shape_stem(m, a)}: {ptxas_summary(m.ptxas_report(*a))}"
+        for m, a in shapes))
 
     entry, greedy_rows = greedy_phases(dev, name, card)
     entries = [entry]
@@ -1974,6 +2392,7 @@ def main() -> int:
     entries += long_sequences(dev, name, card)
     msa_path(dev, card)
     sharded_path(dev, card)
+    entries += shapes_path(dev, name, card)
 
     print(json.dumps({"kernels": entries}))
     print(card_line(), flush=True)

@@ -116,14 +116,14 @@ GREEDY_CASES = [
 ]
 
 
-def long_edges(L=512, seed=31, err=0.05):
-    """Pairs of lengths 0, 1, 31, 32, 33, 496, L - 1 and L, each against
-    each (reads random, refs a copy with `err` substitutions, cut or
-    extended to their length), beside the same lengths on both sides
-    with a third of the error as indels; numpy only, so the CPU tests
-    share it."""
+def long_edges(L=512, seed=31, err=0.05, lens=None):
+    """Pairs of lengths 0, 1, 31, 32, 33, 496, L - 1 and L (or `lens`),
+    each against each (reads random, refs a copy with `err`
+    substitutions, cut or extended to their length), beside the same
+    lengths on both sides with a third of the error as indels; numpy
+    only, so the CPU tests share it."""
     rng = np.random.default_rng(seed)
-    lens = [0, 1, 31, 32, 33, 496, L - 1, L]
+    lens = lens or [0, 1, 31, 32, 33, 496, L - 1, L]
     reads, refs = [], []
     for a in lens:
         for b in lens:
@@ -210,18 +210,96 @@ def test_kernel_occupancy_and_spills(dev):
     assert got["spill_stores"] == 0
 
 
-def test_kernel_refuses_unbuilt_shapes(dev):
-    rc, rl, fc, fl = _corpus(dev, num_reads=8, length=50, error_rate=0.1,
-                             seed=1)
-    with pytest.raises(NotImplementedError):
-        greedy_cuda.greedy_align_cuda(rc, rl, fc, fl, AlignConfig(k=5))
-    rc3, rl3, fc3, fl3 = _corpus(dev, num_reads=8, length=50,
-                                 error_rate=0.1, seed=1, max_len=384)
-    with pytest.raises(NotImplementedError):
-        greedy_cuda.greedy_align_cuda(rc3, rl3, fc3, fl3,
-                                      AlignConfig(max_len=384))
+# shapes outside the tuned tables, each built into a library of its own
+# (kernels/shapes.py): greedy (max_len, k); LEAP (max_len, k, (x, o, e));
+# NW full, trace and band max_len
+GREEDY_SHAPES = [(32, 0), (96, 1), (160, 5), (224, 8), (288, 3), (384, 10),
+                 (480, 16), (128, 0), (512, 16)]
+LEAP_SHAPES = [(32, 0, (1, 1, 1)), (96, 1, (1, 1, 1)), (160, 5, (1, 1, 1)),
+               (160, 5, (1, 4, 2)), (64, 5, (3, 5, 2)), (224, 8, (1, 1, 1)),
+               (288, 3, (2, 3, 1)), (384, 10, (1, 1, 1)),
+               (512, 16, (1, 1, 1)), (256, 8, (2, 3, 1)),
+               (128, 3, (8, 8, 8))]
+NW_SHAPES = [32, 96, 160, 224, 288, 384, 480]
+
+
+@pytest.fixture(scope="module")
+def shape_libs():
+    """Every library the new-shape tests launch, built at once (one nvcc
+    per library), as chip_smoke's phase 2 builds them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from asm_tpu_torch.kernels import leap_cuda
+
+    jobs = [(greedy_cuda.build_kernel, (k, L)) for L, k in GREEDY_SHAPES]
+    jobs += [(greedy_cuda.build_kernel, (5, 128))]  # the mapper at k = 5
+    jobs += [(leap_cuda.build_kernel, (k, L, pens))
+             for L, k, pens in LEAP_SHAPES]
+    jobs += [(leap_cuda.build_kernel, (k, L, (1, 1, 1)))
+             for L, k, pens in LEAP_SHAPES if pens != (1, 1, 1)]
+    jobs += [(m.build_kernel, (L,)) for L in NW_SHAPES
+             for m in (nw_cuda, nw_band)]
+    with ThreadPoolExecutor(8) as ex:
+        for f in [ex.submit(fn, *a) for fn, a in jobs]:
+            f.result()
+
+
+def shape_corpus(L, seed):
+    """Edge pairs at max_len L (lengths 0, 1, 31-33, L/2, L-1 and L each
+    against each, with substitutions and with indels) beside generated
+    pairs of L - 6 - L // 50 bases at err 0.05 and 0.15: 600-700 pairs."""
+    lens = sorted({n for n in (0, 1, 31, 32, 33, L // 2, L - 1, L)
+                   if n <= L})
+    parts = [long_edges(L, seed, 0.05, lens)] + [
+        generate_dataset_arrays(301 - 100 * i, max(1, L - 6 - L // 50), err,
+                                0.9, seed=seed + i, max_len=L)
+        for i, err in enumerate((0.05, 0.15))]
+    return tuple(np.concatenate([p[j] for p in parts]) for j in range(4))
+
+
+@pytest.mark.parametrize("L,k", GREEDY_SHAPES)
+def test_kernel_refuses_unbuilt_shapes(dev, shape_libs, L, k):
+    """Every (k, max_len) is built now (the name is the test's from when
+    only the tuned table was): the greedy kernel at a shape outside the
+    table equals the plain version in both input forms, records and
+    CIGARs; what the card cannot hold still raises, naming its limit."""
+    rc, rl, fc, fl = (torch.from_numpy(a).to(dev)
+                      for a in shape_corpus(L, 10 * L + k))
+    cfg = AlignConfig(k=k, max_len=L, max_steps=64)
+    want = greedy_align(rc, rl, fc, fl, cfg, records=True)
+    stem = greedy_cuda.plan(k, L).stem
+    assert stem == f"greedy_k{k}_w{L // 32}"
+    for form in ("codes", "planes_tiled"):
+        a, b = rc, fc
+        if form == "planes_tiled":
+            a, b = (torch.from_numpy(greedy_cuda.stage_planes_tiled_t(
+                x.cpu().numpy(), tile=256).view(np.int32)).to(dev)
+                for x in (rc, fc))
+        before = greedy_cuda.LIB_LAUNCHES[stem]
+        got = greedy_cuda.greedy_align_cuda(
+            a, rl, b, fl, cfg, tile=256,
+            pre_staged="planes_tiled" if form == "planes_tiled" else False)
+        assert greedy_cuda.LIB_LAUNCHES[stem] == before + 1
+        _check(got, want)
+    assert greedy_cuda.block_threads(L, k) == greedy_cuda.plan(k, L).threads
+    assert greedy_cuda.occupancy(k, L) >= 1
+    with pytest.raises(NotImplementedError, match="7 bits"):
+        greedy_cuda.greedy_align_cuda(rc, rl, fc, fl, AlignConfig(
+            k=32, max_len=L))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        greedy_cuda.greedy_align_cuda(*_corpus(
+            dev, num_reads=8, length=50, error_rate=0.1, seed=1,
+            max_len=512),
+            AlignConfig(k=25, max_len=512))
+    with pytest.raises(NotImplementedError, match="max_len"):
+        greedy_cuda.greedy_align_cuda(*_corpus(
+            dev, num_reads=8, length=50, error_rate=0.1, seed=1,
+            max_len=544),
+            AlignConfig(max_len=544))
     with pytest.raises(ValueError):
-        greedy_cuda.greedy_align_cuda(rc, rl.cpu(), fc, fl, AlignConfig())
+        greedy_cuda.greedy_align_cuda(rc, rl.cpu(), fc, fl, cfg)
 
 
 # NW corpora: the main path's profile, indel-heavy, variable lengths,
@@ -434,19 +512,56 @@ def test_nw_kernels_spills_and_occupancy(dev):
     assert got["warps_per_sm"] == nw_cuda.occupancy(True, 128)
 
 
-def test_nw_kernels_refuse_unbuilt_shapes(dev):
-    rc, rl, fc, fl = _corpus(dev, num_reads=8, length=50, error_rate=0.1,
-                             seed=1, max_len=96)
+@pytest.mark.parametrize("L", NW_SHAPES)
+def test_nw_kernels_refuse_unbuilt_shapes(dev, shape_libs, L):
+    """Every max_len is built now (the name is the test's from when only
+    the tuned table was): the full and trace kernels (ops and mask) and
+    the band kernel at every BW in both input forms equal the plain
+    versions at a max_len outside the table; max_len 544 and BW 128 still
+    raise."""
+    from asm_tpu_torch.kernels.shapes import BAND_WIDTHS, nw_instance
+
+    rc, rl, fc, fl = (torch.from_numpy(a).to(dev)
+                      for a in shape_corpus(L, 20 * L))
+    assert nw_cuda.instance(False, L) == nw_instance(False, L)
+    assert nw_cuda.instance(True, L) == nw_instance(True, L)
+    planes = [torch.from_numpy(greedy_cuda.stage_planes_t(
+        a.cpu().numpy()).view(np.int32)).to(dev) for a in (rc, fc)]
+    for x, o, e in [(1, 1, 1), (2, 3, 1), (1, 4, 2)]:
+        pen, ops, mask = nw.nw_align(rc, rl, fc, fl, x, o, e,
+                                     match_mask_threshold=3)
+        got = nw_cuda.nw_penalty_cuda(rc, rl, fc, fl, x, o, e)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pen), (x, o, e)
+        got = nw_cuda.nw_align_cuda(rc, rl, fc, fl, x, o, e,
+                                    match_mask_threshold=3)
+        torch.cuda.synchronize()
+        for g, w, key in zip(got, (pen, ops, mask), ("pen", "ops", "mask")):
+            assert torch.equal(g, w), (x, o, e, key)
+        for bw in BAND_WIDTHS:
+            want = nw_band.banded_plain(rc, rl, fc, fl, bw, x, o, e)
+            for pre, (a, b) in ((False, (rc, fc)), (True, planes)):
+                got = nw_band.nw_penalty_banded(a, rl, b, fl, bw=bw, x=x,
+                                                o=o, e=e, pre_staged=pre)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (x, o, e, bw, pre)
+    stem = nw_cuda.plan(L).stem
+    assert nw_cuda.LIB_LAUNCHES[stem, "nw"] >= 3
+    assert nw_cuda.LIB_LAUNCHES[stem, "nw_trace"] >= 3
+    assert nw_band.LIB_LAUNCHES[nw_band.plan(L).stem] >= 30
+    for trace in (False, True):
+        assert nw_cuda.occupancy(trace, L) >= 1
     with pytest.raises(NotImplementedError):
-        nw_cuda.nw_penalty_cuda(rc, rl, fc, fl)
-    with pytest.raises(NotImplementedError):
-        nw_band.nw_penalty_banded(rc, rl, fc, fl, bw=16)
+        nw_band.nw_penalty_banded(rc, rl, fc, fl, bw=128)
     long = _corpus(dev, num_reads=8, length=50, error_rate=0.1, seed=1,
-                   max_len=384)
-    for fn in (nw_cuda.nw_penalty_cuda, nw_cuda.nw_align_cuda,
-               nw_band.nw_penalty_banded):
-        with pytest.raises(NotImplementedError):
-            fn(*long)
+                   max_len=544)
+    with pytest.raises(NotImplementedError):
+        nw_cuda.nw_penalty_cuda(*long)
+    with pytest.raises(NotImplementedError):
+        nw_band.nw_penalty_banded(*long, bw=16)
+
+
+def test_nw_kernels_refuse_odd_widths_and_mixed_devices(dev):
     rc, rl, fc, fl = _corpus(dev, num_reads=8, length=50, error_rate=0.1,
                              seed=1)
     with pytest.raises(NotImplementedError):
@@ -610,23 +725,49 @@ def test_leap_kernel_spills_and_occupancy(dev):
     assert got["warps_per_sm"] == 4 * leap_cuda.occupancy(3, 512, True)
 
 
-def test_leap_kernel_refuses_unbuilt_shapes(dev):
+@pytest.mark.parametrize("L,k,pens", LEAP_SHAPES)
+def test_leap_kernel_refuses_unbuilt_shapes(dev, shape_libs, L, k, pens):
+    """Every (k, max_len) and lv_bag penalty set is built now (the name is
+    the test's from when only the tuned table was): at a shape outside the
+    table the kernel equals the plain version in both input forms, in its
+    three modes (penalty pass, SHD-gated filter, fused CIGAR) where the
+    semantics allow the penalties, every LeapMode at the first shape; what
+    the card cannot hold still raises, naming its limit."""
     from asm_tpu_torch.kernels import leap_cuda
 
-    rc, rl, fc, fl = _corpus(dev, num_reads=8, length=50, error_rate=0.1,
-                             seed=1)
-    with pytest.raises(NotImplementedError):
-        leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(k=5))
-    long = _corpus(dev, num_reads=8, length=50, error_rate=0.1, seed=1,
-                   max_len=384)
-    with pytest.raises(NotImplementedError):
-        leap_cuda.leap_align_cuda(*long, AlignConfig(max_len=384))
-    with pytest.raises(NotImplementedError):
-        leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(x=1, o=4, e=2))
+    corpus = [torch.from_numpy(a).to(dev)
+              for a in shape_corpus(L, 30 * L + k)]
+    variants = [("lv_bag", False, pens), ("simd_ed_affine", False, pens)]
+    if pens == (1, 1, 1):
+        variants += [("simd_ed_lev", False, pens), ("simd_ed_lev", True, pens)]
+    modes = range(4) if (L, k) == LEAP_SHAPES[0][:2] else (1,)
+    for sem, gate, p in variants:
+        for mode in modes:
+            _leap_check(dev, corpus, _leap_cfg(sem, p, mode, L, k=k), sem,
+                        gate)
+    plan = leap_cuda.plan(k, L, pens)
+    assert not plan.tuned and leap_cuda.LIB_LAUNCHES[plan.stem] >= 2
+    for cigar in (False, True):
+        assert leap_cuda.occupancy(k, L, cigar, pens) >= 1
+    rc, rl, fc, fl = corpus
+    with pytest.raises(NotImplementedError, match="x, o, e"):
+        leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(
+            x=9, k=k, max_len=L))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        leap_cuda.leap_align_cuda(*_corpus(
+            dev, num_reads=8, length=50, error_rate=0.1, seed=1,
+            max_len=512),
+            AlignConfig(k=28, max_len=512))
+    with pytest.raises(NotImplementedError, match="max_len"):
+        leap_cuda.leap_align_cuda(*_corpus(
+            dev, num_reads=8, length=50, error_rate=0.1, seed=1,
+            max_len=544),
+            AlignConfig(max_len=544))
     with pytest.raises(ValueError):
-        leap_cuda.leap_align_cuda(rc, rl.cpu(), fc, fl, AlignConfig())
+        leap_cuda.leap_align_cuda(rc, rl.cpu(), fc, fl, AlignConfig(
+            max_len=L))
     with pytest.raises(ValueError):
-        leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(),
+        leap_cuda.leap_align_cuda(rc, rl, fc, fl, AlignConfig(max_len=L),
                                   semantics="simd_ed_affine", want_cigar=True)
 
 
@@ -795,14 +936,24 @@ def test_mapper_cuda_matches_torch(dev, case):
     assert got[1] == want[1]
 
 
-def test_mapper_refuses_unbuilt_k(dev):
+def test_mapper_refuses_unbuilt_k(dev, shape_libs):
+    """Every k is built now (the name is the test's from when only 2-4
+    were): the mapper at AlignConfig(k=5) rescores on the kernel's k = 5
+    library and writes what its plain route writes."""
     from asm_tpu_torch.mapper.core import MapperConfig, build_index, map_reads
 
-    genome, reads, lens = mapper_planted(n_reads=8)
+    genome, reads, lens = mapper_planted(n_reads=64)
     mcfg = MapperConfig(align=AlignConfig(k=5, max_steps=32))
-    with pytest.raises(NotImplementedError):
-        map_reads(build_index(genome), genome, reads, lens, mcfg=mcfg,
-                  device=dev, impl="cuda")
+    idx = build_index(genome)
+    stem = greedy_cuda.plan(5, 128).stem
+    before = greedy_cuda.LIB_LAUNCHES[stem]
+    got = map_reads(idx, genome, reads, lens, mcfg=mcfg, device=dev,
+                    impl="cuda")
+    assert greedy_cuda.LIB_LAUNCHES[stem] > before
+    want = map_reads(idx, genome, reads, lens, mcfg=mcfg, device=dev,
+                     impl="torch")
+    assert got[0] == want[0]
+    assert got[1] == want[1]
 
 
 def test_msa_on_card_matches_cpu(dev):

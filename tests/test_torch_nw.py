@@ -22,7 +22,7 @@ from asm_tpu.kernels.nw_pallas import nw_align_pallas, nw_penalty_pallas
 from asm_tpu.ops.cigar import batch_nw_cigars as jax_nw_cigars
 from asm_tpu.reference_impl.nw_ref import nw_ref
 from asm_tpu_torch.encoding import decode_string, pack_planes_t
-from asm_tpu_torch.kernels import nw, nw_cuda
+from asm_tpu_torch.kernels import nw, nw_cuda, shapes
 from asm_tpu_torch.ops.cigar import batch_nw_cigars
 
 torch.set_num_threads(1)
@@ -170,16 +170,20 @@ def test_nw_cu_instance_table(L, trace):
         src = f.read()
     assert re.search(r"enum \{ PTR_NONE = 0, PTR_GLOBAL = 1, PTR_SHARED = 2 \}",
                      src)
+    # the shape plan's copy of the table (kernels/shapes.py)
+    assert shapes.nw_instance(trace, L) == (G, route)
+    assert shapes.NW_TUNED == table
     nw_cuda.instance.cache_clear()
     try:
-        nw_cuda._lib = _FakeLib(table)
+        nw_cuda._libs["nw"] = _FakeLib(table)
         assert nw_cuda.instance(trace, L) == (G, route)
         assert nw_cuda.function_name(trace, L) == (
             f"nw_kernelILi{L // 32}ELi{G}ELi{route}E")
+        # past max_len 512 no library is built
         with pytest.raises(NotImplementedError):
-            nw_cuda.instance(trace, 96)
+            nw_cuda.instance(trace, 544)
     finally:
-        nw_cuda._lib = None
+        nw_cuda._libs.pop("nw", None)
         nw_cuda.instance.cache_clear()
 
 

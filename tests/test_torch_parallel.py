@@ -146,6 +146,15 @@ def test_make_mesh_errors_and_one_rank_mesh():
     assert int(stats[0]) == 32
 
 
+def test_make_mesh_default_needs_a_card(monkeypatch):
+    """The default device is the rank's card; without one make_mesh raises
+    instead of quietly computing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    assert make_mesh(device="cpu").device == torch.device("cpu")
+
+
 def test_shard_batch_slices_and_errors():
     a = np.arange(24, dtype=np.int32).reshape(6, 4)
     for rank in range(2):
