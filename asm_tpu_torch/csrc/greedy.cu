@@ -53,10 +53,31 @@
 // values rounded from the host's doubles. Tie-breaks of the two lane
 // scans follow the reference exactly.
 //
+// Long rows (L > 512, W > kShortW = 16; its own path, chosen by W at
+// compile time, so the W <= 16 instantiations are the code they were).
+// Unrolled over W, a thread held its planes (4W words), a row (W) and the
+// chosen lane's row (W) in registers: 208 registers at L = 512, k = 3,
+// which W = 32-64 cannot hold. Of the two layouts weighed, one pair a
+// thread with nothing W-sized in registers was taken over a group of
+// threads a pair: it keeps the lane loops, the scans' tie-breaks and the
+// float heuristic exactly as they are, and shares the rows' layout. The
+// planes are read one word at a time while the rows are built (word w of
+// lane li needs plane words w and w + 1; its denoised word needs row
+// words w - 1 and w + 1, so it is written one word late), and every row
+// query reads the shared rows word by word in rolled loops from the word
+// that holds its start: the highway search stops at its first hurdle past
+// the first gap, a popcount window spans only its words. Only the hurdle
+// rows are kept: a query makes each denoised word it reads from three row
+// words, so shared memory is (W + 4)(2k + 1) words a thread (1,008 B at
+// L = 1024, 1,904 B at 2048 for k = 3; with the denoised rows kept too,
+// as the short path does, one warp fit an SM at 2048), in blocks of 32
+// threads.
+//
 // Shapes: k in {2, 3, 4} x L in {128, 256, 512} are built together (the
-// tuned table); any other (k, L) is built at its first use into a library
-// of its own (block_threads below). k is capped at 31 by the records'
-// 7-bit lane delta, and by shared memory at 32 threads a block.
+// tuned table); any other (k, L), L > 512 too, is built at its first use
+// into a library of its own (block_threads below). k is capped at 31 by
+// the records' 7-bit lane delta, and by shared memory at 32 threads a
+// block (k <= 6 at L = 2048).
 //
 // Records (int16 when L <= 255, else int32): bit 0 final-leap flag, bits
 // 1-7 the in-loop lane delta + 64, bits 8+ the match advance. The pair's
@@ -86,11 +107,15 @@ __host__ __device__ constexpr int block_threads(int W) {
 #endif
 }
 
+// rows of more words than this take the long-row path (below)
+constexpr int kShortW = 16;
+
 // a block's shared memory: per lane, W orig and W den words and 4
-// scalars, per thread
+// scalars, per thread; the long-row path keeps no den rows
 template <int K, int W>
 constexpr size_t smem_bytes() {
-    return sizeof(uint32_t) * (2 * W + 4) * (2 * K + 1) * block_threads(W);
+    return sizeof(uint32_t) * ((W > kShortW ? 1 : 2) * W + 4) * (2 * K + 1) *
+           block_threads(W);
 }
 
 // the blocks per SM that __launch_bounds__ asks for: as many as fit in the
@@ -175,6 +200,133 @@ __device__ __forceinline__ void pack_row(const uint32_t* __restrict__ row,
     }
 }
 
+// ---- the long-row path (W > kShortW) ----
+// Rows longer than 512 do not unroll over W: nothing W-sized lives in
+// registers. The planes are read one word at a time as the rows are
+// built, and every row query reads the rows in shared memory word by word
+// in a rolled loop, so registers do not grow with W. Only the hurdle rows
+// are kept; a denoised word is made from three row words where a query
+// reads it, which halves the rows' shared memory.
+
+// word w of a pair's two code planes (0 past the row): tile-major planes
+// [NBT, 2W, tile] at base, or int8 codes [B, 32W] packed from the row's 8
+// words at 8w
+template <int W, bool kPlanes>
+__device__ __forceinline__ void plane_word(const uint32_t* __restrict__ c,
+                                           int64_t base, int64_t tile, int w,
+                                           uint32_t& p0, uint32_t& p1) {
+    p0 = p1 = 0u;
+    if (w >= W) return;
+    if constexpr (kPlanes) {
+        p0 = c[base + w * tile];
+        p1 = c[base + (W + w) * tile];
+    } else {
+#pragma unroll
+        for (int jj = 0; jj < 8; jj++) {
+            const uint32_t v = c[base + 8 * w + jj];
+            p0 |= (((v & 0x01010101u) * 0x01020408u) >> 24) << (4 * jj);
+            p1 |= ((((v >> 1) & 0x01010101u) * 0x01020408u) >> 24) << (4 * jj);
+        }
+    }
+}
+
+// bit p of the result = bit p + s of the two-word window (lo, hi), 0 <= s < 32
+__device__ __forceinline__ uint32_t funnel2(uint32_t lo, uint32_t hi, int s) {
+    return s == 0 ? lo : (lo >> s) | (hi << (32 - s));
+}
+
+// popcount of positions [lo, hi) of the row whose word w is at row[w * NT]
+template <int W, int NT>
+__device__ __forceinline__ int count_rows(const uint32_t* row, int lo,
+                                          int hi) {
+    lo = max(lo, 0);
+    hi = min(hi, 32 * W);
+    int cnt = 0;
+#pragma unroll 1
+    for (int w = lo >> 5; w < ((hi + 31) >> 5); w++)
+        cnt += __popc(row[w * NT] & mask_ge(lo, w) & ~mask_ge(hi, w));
+    return cnt;
+}
+
+// word w of the denoised row (flip_short_hurdles(1): a hurdle stays when
+// a neighbour is one) from row words w - 1, w and w + 1
+__device__ __forceinline__ uint32_t denoise(uint32_t prev, uint32_t cur,
+                                            uint32_t next) {
+    return cur & (((cur << 1) | (prev >> 31)) | ((cur >> 1) | (next << 31)));
+}
+
+// the highway search on the denoised row of the hurdle row `row` (word w
+// at row[w * NT]) from s: fz, the first gap (zero) at or past s, and
+// no_g, the first hurdle past fz (L where there is none); the short
+// path's carry-add, word by word
+template <int W, int NT>
+__device__ __forceinline__ void gap_rows(const uint32_t* row, int s, int& fz,
+                                         int& no_g) {
+    constexpr int L = 32 * W;
+    fz = L;
+    no_g = L;
+    const int w0 = s >> 5;
+    if (w0 >= W) return;
+    uint32_t prev = w0 > 0 ? row[(w0 - 1) * NT] : 0u, cur = row[w0 * NT];
+#pragma unroll 1
+    for (int w = w0; w < W; w++) {
+        const uint32_t next = w + 1 < W ? row[(w + 1) * NT] : 0u;
+        const uint32_t u = denoise(prev, cur, next) | ~mask_ge(s, w);
+        prev = cur;
+        cur = next;
+        uint32_t v = u;
+        if (fz == L) {
+            const uint32_t nu = ~u;
+            if (nu == 0u) continue;
+            const int b = ctz32(nu);
+            fz = 32 * w + b;
+            v = b == 31 ? 0u : u & (kFull << (b + 1));
+        }
+        if (v) {
+            no_g = 32 * w + ctz32(v);
+            break;
+        }
+    }
+}
+
+// the 2k+1 hurdle rows, built word by word from the planes: word w of
+// lane li needs plane words w and w + 1
+template <int K, int W, bool kPlanes>
+__device__ __forceinline__ void build_rows_long(
+    const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
+    int64_t p, int64_t tile, int m, int n, uint32_t* orig) {
+    constexpr int NL = 2 * K + 1;
+    constexpr int L = 32 * W;
+    constexpr int NT = block_threads(W);
+    static_assert(K < 32, "a lane's shift stays within one word");
+    const int64_t base =
+        kPlanes ? (p / tile) * (2 * W) * tile + (p % tile) : p * (L / 4);
+    uint32_t r0, r1, f0, f1;
+    plane_word<W, kPlanes>(rc, base, tile, 0, r0, r1);
+    plane_word<W, kPlanes>(fc, base, tile, 0, f0, f1);
+#pragma unroll 1
+    for (int w = 0; w < W; w++) {
+        uint32_t r0n, r1n, f0n, f1n;
+        plane_word<W, kPlanes>(rc, base, tile, w + 1, r0n, r1n);
+        plane_word<W, kPlanes>(fc, base, tile, w + 1, f0n, f1n);
+#pragma unroll
+        for (int li = 0; li < NL; li++) {
+            const int lane = li - K;
+            const int a_off = lane < 0 ? -lane : 0;
+            const int b_off = lane > 0 ? lane : 0;
+            const uint32_t h =
+                (funnel2(r0, r0n, a_off) ^ funnel2(f0, f0n, b_off)) |
+                (funnel2(r1, r1n, a_off) ^ funnel2(f1, f1n, b_off)) |
+                mask_ge(m - a_off, w) | mask_ge(n - b_off, w);
+            orig[(li * W + w) * NT] = h;
+        }
+        r0 = r0n;
+        r1 = r1n;
+        f0 = f0n;
+        f1 = f1n;
+    }
+}
+
 struct Params {
     int B, tile, T, x, o, e, is_global;
     float match_sig, mismatch_sig, indel_sig;
@@ -200,8 +352,14 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
     // row li at den + li * W * NT, word w at w * NT
     uint32_t* const orig = g_state + threadIdx.x;
     uint32_t* const den = orig + NL * W * NT;
+    // the long-row path (W > kShortW) keeps only the hurdle rows and reads
+    // them word by word; the short path's W-word arrays go unused there
+    constexpr bool kLong = W > kShortW;
+    constexpr int SW = kLong ? 0 : W;  // words the short path unrolls over
 
-    {
+    if constexpr (kLong) {
+        build_rows_long<K, W, kPlanes>(rc, fc, p, P.tile, m, n, orig);
+    } else {
         // ---- the pair's bit-planes ----
         uint32_t r0[W], r1[W], f0[W], f1[W];
         if constexpr (kPlanes) {
@@ -258,7 +416,7 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
         return m >= n ? dest_ge : dest_lt;
     };
     // the per-lane scalars, after the rows, lane li at li * NT
-    int* const sp = (int*)(den + NL * W * NT);
+    int* const sp = (int*)((kLong ? orig : den) + NL * W * NT);
     int* const hlen = sp + NL * NT;
     int* const nsw = hlen + NL * NT;
     int* const nhur = nsw + NL * NT;
@@ -285,25 +443,27 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
         for (int li = 0; li < NL; li++) {
             const int lane = li - K;
             const int s = cur_col + sfc(cur_lane, lane);
-            uint32_t u[W];
-            load_row<W>(den + li * W * NT, u);
+            uint32_t u[kLong ? 1 : W];
+            if constexpr (!kLong) load_row<W>(den + li * W * NT, u);
 #pragma unroll
-            for (int w = 0; w < W; w++) u[w] |= ~mask_ge(s, w);
+            for (int w = 0; w < SW; w++) u[w] |= ~mask_ge(s, w);
             int fz = L;
 #pragma unroll
-            for (int w = 0; w < W; w++) {
+            for (int w = 0; w < SW; w++) {
                 const uint32_t nu = ~u[w];
                 fz = min(fz, nu == 0u ? L : 32 * w + ctz32(nu));
             }
             uint32_t carry = 1u;
             int no_g = L;
 #pragma unroll
-            for (int w = 0; w < W; w++) {
+            for (int w = 0; w < SW; w++) {
                 const uint32_t s_w = u[w] + carry;
                 carry = carry & (s_w == 0u ? 1u : 0u);
                 const uint32_t v_w = u[w] & s_w;
                 no_g = min(no_g, v_w == 0u ? L : 32 * w + ctz32(v_w));
             }
+            if constexpr (kLong)
+                gap_rows<W, NT>(orig + li * W * NT, s, fz, no_g);
             const int d = dest_of(lane);
             const int sp_new = s > L ? s : fz;
             const int raw_len = (sp_new >= L || no_g >= L) ? L : no_g - sp_new;
@@ -318,9 +478,13 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
                 nsw[li * NT] = iabs(lane - cur_lane);
                 reaching = reaching || clamp;
             }
-            uint32_t h[W];
-            load_row<W>(orig + li * W * NT, h);
-            nhur[li * NT] = count_range<W>(h, s, spv + hl);
+            uint32_t h[kLong ? 1 : W];
+            if constexpr (!kLong) load_row<W>(orig + li * W * NT, h);
+            if constexpr (kLong)
+                nhur[li * NT] = count_rows<W, NT>(orig + li * W * NT, s,
+                                                  spv + hl);
+            else
+                nhur[li * NT] = count_range<W>(h, s, spv + hl);
         }
 
         // ---- selection scan (hurdle_matrix.h:325-352) ----
@@ -353,8 +517,8 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
         const int best_len = hlen[best_li * NT];
         const int sp_b = sp[best_li * NT];
         int stc = swc_of(best_li) + x * nhur[best_li * NT];
-        uint32_t row_b[W];
-        load_row<W>(orig + best_li * W * NT, row_b);
+        uint32_t row_b[kLong ? 1 : W];
+        if constexpr (!kLong) load_row<W>(orig + best_li * W * NT, row_b);
         const bool valid = best_len > 0;  // else: stop without a step
 
         // ---- _choose_best_highway (hurdle_matrix.h:368-401) ----
@@ -369,8 +533,13 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
             const bool skip = (li == best_li) || (spv + fwd_lb > sp_b);
             // the RAW popcount (hurdle_matrix.h:389), nhur's window
             const int ic = swc_of(li) + nhur[li * NT];
-            const int cross = count_range<W>(
-                row_b, fwd_lb + spv + hlen[li * NT], sp_b);
+            int cross;
+            if constexpr (kLong)
+                cross = count_rows<W, NT>(orig + best_li * W * NT,
+                                          fwd_lb + spv + hlen[li * NT], sp_b);
+            else
+                cross = count_range<W>(row_b, fwd_lb + spv + hlen[li * NT],
+                                       sp_b);
             const int tc = ic + slp(lane, best_lane, o, e) + max(0, x * cross);
             if (!skip && tc <= stc && ic <= sic) {
                 stc = tc;
@@ -401,10 +570,16 @@ greedy_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
     // ---- final leap (run(), hurdle_matrix.h:574-590) ----
     const int dl_c = min(max(dest_lane, -K), K);
     const int dest_col = dest_of(dl_c);
-    uint32_t row_dl[W];
-    load_row<W>(orig + (dl_c + K) * W * NT, row_dl);
+    uint32_t row_dl[kLong ? 1 : W];
+    if constexpr (!kLong) load_row<W>(orig + (dl_c + K) * W * NT, row_dl);
     const int lo = cur_col + sfc(cur_lane, dest_lane);
-    const int distance = in_band ? count_range<W>(row_dl, lo, dest_col) : 0;
+    int distance;
+    if constexpr (kLong)
+        distance = in_band ? count_rows<W, NT>(orig + (dl_c + K) * W * NT, lo,
+                                               dest_col)
+                           : 0;
+    else
+        distance = in_band ? count_range<W>(row_dl, lo, dest_col) : 0;
     const bool moved_off = cur_lane != dest_lane;
     const bool needs = in_band ? (moved_off || cur_col < dest_col) : moved_off;
     if (needs) {

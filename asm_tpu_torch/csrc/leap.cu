@@ -14,8 +14,8 @@
 // lv_bag, simd_ed_lev, simd_ed_lev behind the SHD gate, simd_ed_affine),
 // the CIGAR mode and the input route are template parameters (144
 // instantiations in the tuned table: k in {2, 3, 4} x L in {128, 256,
-// 512} x two penalty sets; any other shape is built into a library of
-// its own, kThreads below), and the
+// 512} x two penalty sets; any other shape, L > 512 too, is built into a
+// library of its own, kThreads below), and the
 // LeapMode, a run-time field, is applied by selects, never by a branch,
 // so the energy loop is compiled once. An instantiation thus holds only
 // code its launches run, and the SASS count of the main path's (lv_bag,
@@ -53,6 +53,19 @@
 // card issues (H100 80GB HBM3, 700 W; PERF.md); with the scanning query a
 // level cost 527. In CIGAR mode the history scratch and the record rows'
 // stores weigh more than issue.
+//
+// Long rows (L > 512, W > kShortW = 16; chosen by W at compile time, so
+// the W <= 16 instantiations are the code they were): the rows and the
+// O(1) query already live in shared memory; only the prologue held W-sized
+// arrays (the four planes, 4W words, and the SHD gate over them). The long
+// path reads one plane word at a time from the top word down and makes
+// word w of every lane row, its next-hurdle entry and the gate's word from
+// plane words w and w - 1 at once: 64 registers whatever W. Shared memory
+// stays 2W(2k + 1) words a thread (1,792 B at L = 1024, 3,584 B at 2048
+// for k = 3), blocks of 32 threads: 4 warps per SM at 1024, 2 at 2048. In
+// CIGAR mode the 16-bit cells hold positions to 65,533; the history grows
+// with E (201 levels at af = 200: 11,256 B a pair at k = 3), and the
+// wrapper cuts launches to CIGAR_SCRATCH_BYTES.
 //
 // Left for later: the lengths as a per-lane cutoff instead of bits in
 // every row word (~10 instructions a lane and word in the prologue); the
@@ -209,6 +222,103 @@ __device__ __forceinline__ int count_id(const uint32_t* row, int start,
     return start >= buflen ? start : min(first, buflen);
 }
 
+// ---- the long-row path (W > kShortW) ----
+// Rows longer than 512 do not unroll over W: the planes are read one word
+// at a time, from the top word down, and each word of every lane row (and
+// of the SHD gate) is made from plane words w and w - 1 at once, so no
+// W-sized array lives in registers. The rows and the query are the short
+// path's.
+constexpr int kShortW = 16;
+
+// word w of a pair's two code planes (0 outside the row), bits at and
+// past `len` cleared: tile-major planes [NBT, 2W, tile] at base, or int8
+// codes [B, 32W] packed from the row's 8 words at 8w
+template <int W, bool kPlanes>
+__device__ __forceinline__ void plane_word(const uint32_t* __restrict__ c,
+                                           int64_t base, int64_t tile, int w,
+                                           int len, uint32_t& p0,
+                                           uint32_t& p1) {
+    p0 = p1 = 0u;
+    if (w < 0) return;
+    if constexpr (kPlanes) {
+        p0 = c[base + w * tile];
+        p1 = c[base + (W + w) * tile];
+    } else {
+#pragma unroll
+        for (int jj = 0; jj < 8; jj++) {
+            const uint32_t v = c[base + 8 * w + jj];
+            p0 |= (((v & 0x01010101u) * 0x01020408u) >> 24) << (4 * jj);
+            p1 |= ((((v >> 1) & 0x01010101u) * 0x01020408u) >> 24) << (4 * jj);
+        }
+    }
+    p0 &= ~mask_ge(len, w);
+    p1 &= ~mask_ge(len, w);
+}
+
+// bit p of the result = bit p - s of the two-word window (word w `cur`,
+// word w - 1 `prev`), 0 <= s < 32
+__device__ __forceinline__ uint32_t shl2(uint32_t cur, uint32_t prev, int s) {
+    return s == 0 ? cur : (cur << s) | (prev >> (32 - s));
+}
+
+// The interior lane rows with their next-hurdle entries (the short path's
+// layout), and with kGate the SHD gate, from one top-down pass over the
+// plane words. The planes' bits past each string's length are cleared, as
+// the gate needs; no row bit reads them (the rows force a hurdle there).
+// Returns true where the gate stops the pair.
+template <int K, int W, bool kGate, bool kPlanes>
+__device__ __forceinline__ bool build_rows_long(
+    const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
+    int64_t p, int64_t tile, int m, int n, int buflen, uint32_t* col) {
+    constexpr int L = 32 * W, NI = 2 * K + 1, MID = K + 1;
+    static_assert(K < 32, "a lane's shift stays within one word");
+    const int64_t base =
+        kPlanes ? (p / tile) * (2 * W) * tile + (p % tile) : p * (L / 4);
+    uint32_t r0, r1, f0, f1;
+    plane_word<W, kPlanes>(rc, base, tile, W - 1, m, r0, r1);
+    plane_word<W, kPlanes>(fc, base, tile, W - 1, n, f0, f1);
+    int nx[NI];
+#pragma unroll
+    for (int j = 0; j < NI; j++) nx[j] = L;
+    int count = 0;
+#pragma unroll 1
+    for (int w = W - 1; w >= 0; w--) {
+        uint32_t r0p, r1p, f0p, f1p;
+        plane_word<W, kPlanes>(rc, base, tile, w - 1, m, r0p, r1p);
+        plane_word<W, kPlanes>(fc, base, tile, w - 1, n, f0p, f1p);
+        uint32_t dw = kFull;
+#pragma unroll
+        for (int j = 0; j < NI; j++) {
+            const int l = j + 1;
+            const int a_off = MID - l > 0 ? MID - l : 0;
+            const int b_off = l - MID > 0 ? l - MID : 0;
+            const uint32_t x = (shl2(r0, r0p, a_off) ^ shl2(f0, f0p, b_off)) |
+                               (shl2(r1, r1p, a_off) ^ shl2(f1, f1p, b_off));
+            const uint32_t h = x | mask_ge(m + a_off, w) |
+                               mask_ge(n + b_off, w) |
+                               ~mask_ge(a_off + b_off, w);
+            uint32_t* const row = col + j * 2 * W * kThreads;
+            row[w * kThreads] = h;
+            row[(W + w) * kThreads] = (uint32_t)nx[j];
+            nx[j] = h ? 32 * w + ctz32(h) : nx[j];
+            if (kGate) dw &= x | ~mask_ge(a_off + b_off, w);
+        }
+        if (kGate) {
+            dw &= ~mask_ge(buflen, w) & mask_ge(K, w);
+            const uint32_t starts = dw & ~((dw << 1) & 0xEEEEEEEEu);
+            uint32_t t6 = dw ^ 0x66666666u;
+            t6 |= t6 >> 1;
+            t6 |= t6 >> 2;
+            count += __popc(starts) + __popc(~t6 & 0x11111111u);
+        }
+        r0 = r0p;
+        r1 = r1p;
+        f0 = f0p;
+        f1 = f1p;
+    }
+    return kGate && count > K;
+}
+
 struct Params {
     int n;       // pairs in this launch
     int p0;      // batch index of the launch's first pair
@@ -296,9 +406,15 @@ leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
     const int af = P.af;
     const bool corrected = P.mode == kModeGlobal || P.mode == kModeSemiFreeBegin;
 
+    // the long-row path (W > kShortW) builds the rows and the gate word by
+    // word; the short path's W-word plane arrays go unused there
+    constexpr bool kLong = W > kShortW;
+
     // ---- the pair's bit-planes ----
     uint32_t r0[W], r1[W], f0[W], f1[W];
-    if constexpr (kPlanes) {
+    if constexpr (kLong) {
+        // read word by word with the rows, below
+    } else if constexpr (kPlanes) {
         // tile-major planes [NBT, 2W, tile]: row w plane 0, row W+w plane 1
         const int64_t tile = P.tile;
         const int64_t base = (p / tile) * (2 * W) * tile + (p % tile);
@@ -331,6 +447,10 @@ leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
     // a shifted index lies past its string's length, or before index 0.
     // Each row goes to shared memory with its next-hurdle entries, built
     // from the top word down.
+    if constexpr (kLong) {
+        gated = build_rows_long<K, W, kGate, kPlanes>(rc, fc, p, P.tile, m, n,
+                                                      buflen, col);
+    } else {
 #pragma unroll
     for (int j = 0; j < NI; j++) {
         const int l = j + 1;
@@ -349,8 +469,9 @@ leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
             nx = h ? 32 * w + ctz32(h) : nx;
         }
     }
+    }
 
-    if constexpr (kGate && !kGateFirst)
+    if constexpr (kGate && !kGateFirst && !kLong)
         gated = shd_gate<K, W>(r0, r1, f0, f1, m, n, buflen);
 
     // ---- e = 0 row (LV::init + the first run step) ----

@@ -38,6 +38,19 @@
 // diagonal d goes to column 2L - d; every other column holds OP_NONE. The
 // '='-run match mask is kept as an L-bit mask in registers and flushed by
 // the pair's G threads at the end.
+//
+// Long rows (L > 512: nw_long_kernel below, its own template, so the
+// tuned instantiations are the code they were). G <= 32 and R <= 32 rows
+// a thread in registers cover L <= 1024 in one sweep; above it the matrix
+// is swept in horizontal blocks of 32 x R rows (two at L = 2048), each
+// block's bottom row of H and E (8 L bytes a pair) parked in shared memory
+// for the next, rather than a pair on more than one warp, which would
+// trade its edge rows through shared memory and a barrier every step. One
+// pair a warp, 32-thread blocks; 122 registers (128 with the trace, 8 B of
+// spill), 16 warps per SM at L = 1024 and 12 at 2048. The trace scratch
+// is L x RP / 2 bytes a pair (512 KiB at 1024, 2 MiB at 2048), so the
+// wrapper's launches hold 4,096 and 1,024 pairs; the walk, the ops layout
+// and the mask are the short path's, the mask written byte by byte.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -317,6 +330,213 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
     }
 }
 
+// ---- the long-row path (W > kShortW): 32 threads, one warp, a pair ----
+// A pair's rows are swept in NB horizontal blocks of RB = 32 * R rows
+// (NB = ceil(L / 1024), so R <= 32 rows a thread stay in registers):
+// block b is the strip sweep above with the top border taken from H and E
+// of block b-1's bottom row, which its last thread parks in shared memory
+// column by column (8 bytes a column) and the next block's thread 0 reads
+// at the same column. Thread 31 writes column j at step j + 31 and thread
+// 0 read it at step j, so one row buffer serves every block; a block ends
+// with __syncwarp. A pair runs only the blocks down to its row m. The
+// trace kernel's pointers go to the global scratch, each column RP / 2
+// bytes (RP = NB * RB rows, >= L), and the walker writes the mask's bytes
+// itself (zeroed first), so no W-sized array lives in registers.
+constexpr int kShortW = 16;
+constexpr int kLongG = 32;  // threads a pair on the long path
+constexpr int kBlockRows = 1024;  // rows of a block at most: 32 x 32
+
+__host__ __device__ constexpr int long_blocks(int L) {
+    return (L + kBlockRows - 1) / kBlockRows;
+}
+
+// rows per thread of the long path: each block's share of L, in strips
+__host__ __device__ constexpr int long_rows(int L) {
+    return rows_per_thread((L + long_blocks(L) - 1) / long_blocks(L), kLongG);
+}
+
+// shared bytes of a pair on the long path: its ref codes, with the trace
+// its read codes, and with more than one block the parked row (H, E)
+__host__ __device__ constexpr int long_slot_bytes(int L, bool trace) {
+    return (trace ? 2 * L : L) + (long_blocks(L) > 1 ? 8 * L : 0);
+}
+
+template <int W, bool TRACE>
+__global__ void __launch_bounds__(kLongG)
+nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
+               const int* __restrict__ rl, const int* __restrict__ fl,
+               Params P, int* __restrict__ pen_out,
+               int8_t* __restrict__ ops_out, int8_t* __restrict__ mask_out,
+               uint8_t* __restrict__ scratch) {
+    constexpr int L = 32 * W;
+    constexpr int G = kLongG;
+    constexpr int NB = long_blocks(L);
+    constexpr int R = long_rows(L);
+    constexpr int RB = R * G;    // rows of a block
+    constexpr int RP = NB * RB;  // rows the blocks cover, >= L
+    constexpr int COL = RP / 2;  // pointer bytes of a column
+    static_assert(R % 4 == 0 && R <= 32, "rows per thread");
+    extern __shared__ __align__(16) uint8_t smem[];
+
+    const int t = threadIdx.x;  // the thread's strip in every block
+    const int64_t p = blockIdx.x;
+    const int x = P.x, o = P.o, e = P.e;
+    const int m = min(rl[p], L), n = min(fl[p], L);
+    int8_t* const s_ref = (int8_t*)smem;
+    int8_t* const s_read = s_ref + L;
+    int* const park_h = (int*)(smem + (TRACE ? 2 * L : L));
+    int* const park_e = park_h + L;
+    {
+        const uint32_t* ref = (const uint32_t*)(fc + p * L);
+        const uint32_t* src = (const uint32_t*)(rc + p * L);
+        for (int w = t; w < L / 4; w += G) {
+            ((uint32_t*)s_ref)[w] = ref[w];
+            if (TRACE) ((uint32_t*)s_read)[w] = src[w];
+        }
+    }
+    uint8_t* const ptr = TRACE ? scratch + p * ((int64_t)L * COL) : nullptr;
+    __syncwarp();
+
+    const int nb = (m > 0 && n > 0) ? (m - 1) / RB + 1 : 0;
+    for (int b = 0; b < nb; b++) {
+        const int row0 = b * RB + R * t;  // rows row0 + 1 .. row0 + R
+        int a[R];
+        {
+            const uint32_t* src = (const uint32_t*)(rc + p * L) + row0 / 4;
+#pragma unroll
+            for (int w = 0; w < R / 4; w++) {
+                // words past the row read as code 0; their rows feed no
+                // cell of the pair
+                const uint32_t v = row0 / 4 + w < L / 4 ? src[w] : 0u;
+#pragma unroll
+                for (int q = 0; q < 4; q++) a[4 * w + q] = (int8_t)(v >> (8 * q));
+            }
+        }
+        // column 0 (the left border): H = E = o + (i-1)*e, F infinite
+        int h[R], f[R];
+#pragma unroll
+        for (int r = 0; r < R; r++) {
+            h[r] = o + (row0 + r) * e;
+            f[r] = kInf;
+        }
+        int hb = h[R - 1], eb = h[R - 1];
+        // thread 0's diagonal input at column 1: H(b * RB, 0)
+        int dg = b == 0 ? 0 : o + (b * RB - 1) * e;
+        // the last block runs until the thread holding row m reaches
+        // column n; the others until their last thread does
+        const int steps = b < nb - 1 ? n + G - 1 : n + (m - 1 - b * RB) / R;
+        for (int s = 1; s <= steps; s++) {
+            const int j = s - t;
+            int uh = __shfl_up_sync(kFull, hb, 1);
+            int ue = __shfl_up_sync(kFull, eb, 1);
+            if (t == 0) {
+                if (b == 0) {  // the top border, H(0, j)
+                    uh = o + (s - 1) * e;
+                    ue = kInf;
+                } else if (s <= n) {  // block b-1's bottom row
+                    uh = park_h[s - 1];
+                    ue = park_e[s - 1];
+                }
+            }
+            const int top = uh;
+            if (j >= 1 && j <= n) {
+                const int bc = s_ref[j - 1];
+                int hd = dg;
+                uint32_t nib[(R + 7) / 8];
+#pragma unroll
+                for (int w = 0; w < (R + 7) / 8; w++) nib[w] = 0u;
+#pragma unroll
+                for (int r = 0; r < R; r++) {
+                    const int sub = hd + (a[r] != bc ? x : 0);
+                    const int e_open = uh + o, e_ext = ue + e;
+                    const int f_open = h[r] + o, f_ext = f[r] + e;
+                    const int ev = min(e_open, e_ext);
+                    const int fv = min(f_open, f_ext);
+                    const int hv = min(sub, min(ev, fv));
+                    if (TRACE) {
+                        const uint32_t ph = hv == sub ? 0u : (hv == ev ? 1u : 2u);
+                        nib[r / 8] |= (ph | ((uint32_t)(e_open <= e_ext) << 2) |
+                                       ((uint32_t)(f_open <= f_ext) << 3))
+                                      << (4 * (r % 8));
+                    }
+                    hd = h[r];
+                    h[r] = hv;
+                    f[r] = fv;
+                    uh = hv;
+                    ue = ev;
+                }
+                hb = uh;
+                eb = ue;
+                if (t == G - 1 && b < nb - 1) {
+                    park_h[j - 1] = hb;
+                    park_e[j - 1] = eb;
+                }
+                if (TRACE)
+                    store_nibbles<R>(ptr + (j - 1) * COL + (row0 >> 1), nib);
+            }
+            dg = top;
+        }
+        if (b == nb - 1 && t == (m - 1 - b * RB) / R) {
+            int v = 0;
+#pragma unroll
+            for (int r = 0; r < R; r++) v = r == (m - 1 - b * RB) % R ? h[r] : v;
+            pen_out[p] = v;
+        }
+        __syncwarp();
+    }
+    if (nb == 0 && t == 0)  // an empty side: the border's closed form
+        pen_out[p] = m + n == 0 ? 0 : o + (m + n - 1) * e;
+    if (!TRACE) return;
+
+    // ---- traceback: zero the ops and mask rows, then one thread walks ----
+    int8_t* const ops = ops_out + p * 2 * L;
+    for (int w = t; w < L / 2; w += G) ((uint32_t*)ops)[w] = 0u;
+    if (mask_out != nullptr)
+        for (int w = t; w < L / 4; w += G) ((uint32_t*)(mask_out + p * L))[w] = 0u;
+    __syncwarp();  // pointer nibbles and zeroed rows visible to the walker
+    if (t != 0) return;
+    int8_t* const mk = mask_out == nullptr ? nullptr : mask_out + p * L;
+    const int thr = P.thr < 0 ? 4 * L : P.thr;  // no mask: no run is long enough
+    int i = m, j = n, st = 0, run = 0;
+    for (int step = 0; (i > 0 || j > 0) && i >= 0 && j >= 0 && step < 2 * L;
+         step++) {
+        const int d = i + j;
+        int ptr_h, e_open, f_open, mis = 0;
+        if (i == 0) {  // the virtual top cell: F, opened iff j == 1
+            ptr_h = 2;
+            e_open = 0;
+            f_open = d == 1;
+        } else if (j == 0) {  // the left border: E, opened iff i == 1
+            ptr_h = 1;
+            e_open = i == 1;
+            f_open = 0;
+        } else {
+            const int byte = ptr[(int64_t)(j - 1) * COL + ((i - 1) >> 1)];
+            const int nbl = (i - 1) & 1 ? byte >> 4 : byte;
+            ptr_h = nbl & 3;
+            e_open = (nbl >> 2) & 1;
+            f_open = (nbl >> 3) & 1;
+            mis = s_read[i - 1] != s_ref[j - 1];
+        }
+        const bool go_diag = st == 0 && ptr_h == 0;
+        const bool go_e = (st == 0 && ptr_h == 1) || st == 1;
+        const bool go_f = (st == 0 && ptr_h == 2) || st == 2;
+        ops[2 * L - d] = go_diag ? (mis ? OP_X : OP_EQ) : (go_e ? OP_I : OP_D);
+        // a '=' run ending at read cursor i covered [i, i + run)
+        const bool is_eq = go_diag && !mis;
+        if (!is_eq && run > 0 && run >= thr && mk != nullptr)
+            for (int q = i; q < i + run; q++) mk[q] = 1;
+        run = is_eq ? run + 1 : 0;
+        const int new_st = go_diag ? 0 : (go_e ? (e_open ? 0 : 1) : (f_open ? 0 : 2));
+        i -= (go_diag || go_e);
+        j -= (go_diag || go_f);
+        st = new_st;
+    }
+    // flush a run still open at the start of the alignment
+    if (run > 0 && run >= thr && mk != nullptr)
+        for (int q = i; q < i + run; q++) mk[q] = 1;
+}
+
 // The instantiations the wrappers launch, by W = L / 32 and kernel: G
 // threads per pair, each the fastest of 8, 16 and 32 on the card (PERF.md
 // section 5; at L = 512 of 16 and 32: G = 8 would hold 64 rows a thread),
@@ -351,10 +571,42 @@ struct Launch {
     cudaStream_t stream;
 };
 
+// the long path's launch: one 32-thread block a pair, the pointers (with
+// TRACE) in the global scratch
+template <int W, bool TRACE>
+cudaError_t run_long(const Launch* L, int* warps) {
+    auto* kernel = nw_long_kernel<W, TRACE>;
+    constexpr size_t smem = long_slot_bytes(32 * W, TRACE);
+    static const cudaError_t prepared = [&] {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return err;
+        return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    (int)cudaSharedmemCarveoutMaxShared);
+    }();
+    if (prepared != cudaSuccess) return prepared;
+    if (L == nullptr) {
+        int blocks = 0;
+        const cudaError_t err =
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kLongG, smem);
+        *warps = blocks;
+        return err;
+    }
+    if (TRACE && L->scratch == nullptr) return cudaErrorInvalidValue;
+    kernel<<<L->P.B, kLongG, smem, L->stream>>>(
+        (const int8_t*)L->rc, (const int8_t*)L->fc, (const int*)L->rl,
+        (const int*)L->fl, L->P, (int*)L->pen, (int8_t*)L->ops,
+        (int8_t*)L->mask, (uint8_t*)L->scratch);
+    return cudaGetLastError();
+}
+
 // launches the instantiation of (W, TRACE), or with L == nullptr stores its
 // resident warps per SM in *warps
 template <int W, bool TRACE>
 cudaError_t run(const Launch* L, int* warps) {
+    if constexpr (W > kShortW) {
+        return run_long<W, TRACE>(L, warps);
+    } else {
     constexpr int G = Inst<W, TRACE>::G, ROUTE = Inst<W, TRACE>::ROUTE;
     static_assert(TRACE == (ROUTE != PTR_NONE), "route");
     auto* kernel = nw_kernel<W, G, ROUTE>;
@@ -385,6 +637,7 @@ cudaError_t run(const Launch* L, int* warps) {
         (const int*)L->fl, L->P, (int*)L->pen, (int8_t*)L->ops,
         (int8_t*)L->mask, (uint8_t*)L->scratch);
     return cudaGetLastError();
+    }
 }
 
 cudaError_t dispatch(int W, bool trace, const Launch* L, int* warps) {

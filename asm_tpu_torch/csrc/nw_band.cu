@@ -30,10 +30,12 @@
 // 32-bit shared store, into rows padded by BW/4 codes on both sides, so
 // the running code indices need no clamps.
 //
-// Shapes: BW 4-64 at every L = 32W; W in {4, 8, 16} is built together,
+// Shapes: BW 4-128 at every L = 32W; W in {4, 8, 16} is built together,
 // any other W at its first use into a library of its own. BW 4 packs 16
 // pairs a warp, and at L >= 384 a block of 64 threads keeps its rows in
-// the 48 KB of static shared memory (block_threads).
+// the 48 KB of static shared memory (block_threads). BW 128 at every L,
+// and every BW above L = 512, take band_wide_kernel (below): four offsets
+// a thread at BW 128, the code rows in dynamic shared memory.
 //
 // What bounds it: integer issue. A pair reads 64 B of planes and writes
 // 4 B, so memory is far below. By the SASS count (tools/roofline.py
@@ -253,6 +255,195 @@ band_kernel(const uint32_t* __restrict__ rp, const uint32_t* __restrict__ fp,
     if (in_band ? owner : t == 0) pen_out[p] = min(closed, hit);
 }
 
+// ---- the wide path: BW 128 at every L, and every BW at L > 512 ----
+// Each thread owns NP pairs of adjacent offsets, A_q at u = 2(NP t + q)
+// and B_q at u + 1, q < NP: NP = 2 at BW 128, so a pair's 64 offsets stay
+// in one warp (SEG = 32 threads) and keep the shuffle scheme above, the
+// two offset pairs exchanging E and F inside the thread; a pair spanning
+// two warps would trade both edges through shared memory and a barrier
+// every diagonal. NP = 1 below BW 128 is band_kernel's layout. The code
+// rows live in dynamic shared memory: at L > 512 the two rows of 64/BW
+// pairs a warp pass the 48 KB of static shared memory at 32 threads a
+// block from BW 4 on (L = 2048: 65,920 B a warp), and the borders' trips
+// stay rolled.
+constexpr int kShortW = 16;
+constexpr int kWideSmem = 64 * 1024;  // a wide block's shared memory, at most,
+                                      // while more than one warp fits
+
+__host__ __device__ constexpr int wide_np(int BW) { return BW > 64 ? BW / 64 : 1; }
+__host__ __device__ constexpr int wide_seg(int BW) { return BW / (2 * wide_np(BW)); }
+// dynamic shared bytes of a wide block of `threads`: two code rows a pair
+__host__ __device__ constexpr int wide_smem(int BW, int L, int threads) {
+    return threads / 32 * (32 / wide_seg(BW)) * 2 * row_words(BW, L) * 4;
+}
+__host__ __device__ constexpr int wide_threads(int BW, int L) {
+    return wide_smem(BW, L, 128) <= kWideSmem  ? 128
+           : wide_smem(BW, L, 64) <= kWideSmem ? 64
+                                               : 32;
+}
+
+template <int BW, int W>
+__global__ void __launch_bounds__(wide_threads(BW, 32 * W))
+band_wide_kernel(const uint32_t* __restrict__ rp,
+                 const uint32_t* __restrict__ fp, const int* __restrict__ rl,
+                 const int* __restrict__ fl, Params P,
+                 int* __restrict__ pen_out) {
+    constexpr int L = 32 * W;
+    constexpr int NP = wide_np(BW);
+    constexpr int SEG = wide_seg(BW);  // threads per pair
+    constexpr int PPW = 32 / SEG;      // pairs per warp
+    constexpr int PPB = (wide_threads(BW, L) / 32) * PPW;
+    constexpr int KB = BW / 2 - 1;
+    constexpr int PAD = pad_codes(BW);
+    constexpr int ROWW = row_words(BW, L);
+    extern __shared__ __align__(16) uint32_t s_rows[];  // [PPB][2][ROWW]
+
+    const int lane = threadIdx.x & 31;
+    const int slot = (threadIdx.x >> 5) * PPW + lane / SEG;
+    const int t = lane % SEG;
+    const int64_t p = (int64_t)blockIdx.x * PPB + slot;
+    const bool live = p < P.B;
+    const int64_t B = P.B;
+    const int x = P.x, o = P.o, e = P.e;
+    uint32_t* const s_read = s_rows + slot * 2 * ROWW;
+    uint32_t* const s_ref = s_read + ROWW;
+
+    int m = 0, n = 0;
+    if (live) {
+        m = min(rl[p], L);
+        n = min(fl[p], L);
+    }
+    // unpack the planes: thread t takes words t, t + SEG, ..., 8 quads each
+    for (int w = t; w < W; w += SEG) {
+        uint32_t rlo = 0, rhi = 0, flo = 0, fhi = 0;
+        if (live) {
+            rlo = rp[w * B + p];
+            rhi = rp[(W + w) * B + p];
+            flo = fp[w * B + p];
+            fhi = fp[(W + w) * B + p];
+        }
+#pragma unroll
+        for (int q = 0; q < 8; q++) {
+            const int at = PAD / 4 + 8 * w + q;
+            s_read[at] = spread4(rlo >> (4 * q)) | (spread4(rhi >> (4 * q)) << 1);
+            s_ref[at] = spread4(flo >> (4 * q)) | (spread4(fhi >> (4 * q)) << 1);
+        }
+    }
+    for (int u = t; u < PAD / 2; u += SEG) {  // the pads: don't-care
+        const int at = u < PAD / 4 ? u : u + 8 * W;
+        s_read[at] = 0;
+        s_ref[at] = 0;
+    }
+    __syncwarp();
+
+    const int mn = m + n, dk = m - n;
+    const int trips = (__reduce_max_sync(kFull, mn) + 1) >> 1;
+    // the destination's owner captures H on diagonal m+n: offset ud lies
+    // in thread ud / (2 NP), pair q = ud / 2 % NP, slot A where ud is even
+    const int ud = dk + KB;
+    const bool in_band = ud >= 0 && ud < BW;
+    const bool owner = in_band && ud / (2 * NP) == t;
+    int ha[NP], ea[NP], fa[NP], hb[NP], eb[NP], fb[NP], ka[NP], hit_a[NP],
+        hit_b[NP];
+#pragma unroll
+    for (int q = 0; q < NP; q++) {
+        ka[q] = 2 * (NP * t + q) - KB;
+        ha[q] = ea[q] = fa[q] = eb[q] = fb[q] = kInf;
+        hb[q] = ka[q] + 1 == 0 ? 0 : kInf;  // diagonal 0: only cell (0, 0)
+        const bool mine = owner && ud / 2 % NP == q;
+        hit_a[q] = mine && !(ud & 1) ? mn : -1;
+        hit_b[q] = mine && (ud & 1) ? mn : -1;
+    }
+    int hit = kInf;
+    // trip tau: A_q's cell is (i, j) = (tau + v + 1 - BW/4, tau - v + BW/4),
+    // v = NP t + q, B_q's (i + 1, j); the read codes of A_q and B_q are
+    // pr[tau + q] and pr[tau + q + 1], their ref code pc[tau - q]
+    const uint8_t* pr =
+        reinterpret_cast<const uint8_t*>(s_read) + PAD + NP * t - BW / 4;
+    const uint8_t* pc =
+        reinterpret_cast<const uint8_t*>(s_ref) + PAD + BW / 4 - 1 - NP * t;
+    int rw[NP + 1], cw[NP];  // pr[tau .. tau + NP], pc[tau - q]
+#pragma unroll
+    for (int q = 0; q <= NP; q++) rw[q] = pr[q];
+#pragma unroll
+    for (int q = 0; q < NP; q++) cw[q] = pc[-q];
+#pragma unroll 1
+    for (int tau = 0; tau < trips; tau++) {
+        const int d = 2 * tau + 1;
+        const bool borders = tau < BW / 4;
+        {  // A on odd d: E from B_{q-1} (q = 0: B_{NP-1} of thread t-1)
+            int uh = __shfl_up_sync(kFull, hb[NP - 1], 1, SEG);
+            int ue = __shfl_up_sync(kFull, eb[NP - 1], 1, SEG);
+            if (t == 0) {
+                uh = kInf;
+                ue = kInf;
+            }
+#pragma unroll
+            for (int q = 0; q < NP; q++) {
+                const int ph = q == 0 ? uh : hb[q - 1];
+                const int pe = q == 0 ? ue : eb[q - 1];
+                int en = min(ph + o, pe + e);
+                int fn = min(hb[q] + o, fb[q] + e);
+                int hn = min(ha[q] + (rw[q] != cw[q] ? x : 0), min(en, fn));
+                if (borders) border(ka[q], d, o, e, hn, en, fn);
+                if (d == hit_a[q]) hit = hn;
+                ha[q] = hn;
+                ea[q] = en;
+                fa[q] = fn;
+            }
+        }
+        {  // B on d + 1: F from A_{q+1} (q = NP-1: A_0 of thread t+1)
+            int dh = __shfl_down_sync(kFull, ha[0], 1, SEG);
+            int df = __shfl_down_sync(kFull, fa[0], 1, SEG);
+            if (t == SEG - 1) {
+                dh = kInf;
+                df = kInf;
+            }
+#pragma unroll
+            for (int q = 0; q < NP; q++) {
+                const int nh = q == NP - 1 ? dh : ha[q + 1];
+                const int nf = q == NP - 1 ? df : fa[q + 1];
+                int en = min(ha[q] + o, ea[q] + e);
+                int fn = min(nh + o, nf + e);
+                int hn = min(hb[q] + (rw[q + 1] != cw[q] ? x : 0), min(en, fn));
+                if (borders) border(ka[q] + 1, d + 1, o, e, hn, en, fn);
+                if (d + 1 == hit_b[q]) hit = hn;
+                hb[q] = hn;
+                eb[q] = en;
+                fb[q] = fn;
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < NP; q++) rw[q] = rw[q + 1];
+        rw[NP] = pr[tau + NP + 1];
+#pragma unroll
+        for (int q = NP - 1; q > 0; q--) cw[q] = cw[q - 1];
+        cw[0] = pc[tau + 1];
+    }
+
+    if (!live) return;
+    const int closed = mn == 0 ? 0 : (m == 0 ? o + (mn - 1) * e : kInf);
+    if (in_band ? owner : t == 0) pen_out[p] = min(closed, hit);
+}
+
+template <int BW, int W>
+cudaError_t launch_wide(const void* rp, const void* fp, const void* rl,
+                        const void* fl, const Params& P, void* pen,
+                        cudaStream_t s) {
+    constexpr int threads = wide_threads(BW, 32 * W);
+    constexpr int smem = wide_smem(BW, 32 * W, threads);
+    constexpr int PPB = (threads / 32) * (32 / wide_seg(BW));
+    static const cudaError_t prepared = cudaFuncSetAttribute(
+        band_wide_kernel<BW, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (prepared != cudaSuccess) return prepared;
+    const int blocks = (P.B + PPB - 1) / PPB;
+    band_wide_kernel<BW, W><<<blocks, threads, smem, s>>>(
+        (const uint32_t*)rp, (const uint32_t*)fp, (const int*)rl,
+        (const int*)fl, P, (int*)pen);
+    return cudaGetLastError();
+}
+
 template <int BW, int W>
 cudaError_t launch(const void* rp, const void* fp, const void* rl,
                    const void* fl, const Params& P, void* pen,
@@ -270,13 +461,26 @@ template <int W>
 cudaError_t dispatch(int bw, const void* rp, const void* fp, const void* rl,
                      const void* fl, const Params& P, void* pen,
                      cudaStream_t s) {
+    if constexpr (W > kShortW) {
+        switch (bw) {
+            case 4: return launch_wide<4, W>(rp, fp, rl, fl, P, pen, s);
+            case 8: return launch_wide<8, W>(rp, fp, rl, fl, P, pen, s);
+            case 16: return launch_wide<16, W>(rp, fp, rl, fl, P, pen, s);
+            case 32: return launch_wide<32, W>(rp, fp, rl, fl, P, pen, s);
+            case 64: return launch_wide<64, W>(rp, fp, rl, fl, P, pen, s);
+            case 128: return launch_wide<128, W>(rp, fp, rl, fl, P, pen, s);
+            default: return cudaErrorInvalidValue;
+        }
+    } else {
     switch (bw) {
         case 4: return launch<4, W>(rp, fp, rl, fl, P, pen, s);
         case 8: return launch<8, W>(rp, fp, rl, fl, P, pen, s);
         case 16: return launch<16, W>(rp, fp, rl, fl, P, pen, s);
         case 32: return launch<32, W>(rp, fp, rl, fl, P, pen, s);
         case 64: return launch<64, W>(rp, fp, rl, fl, P, pen, s);
+        case 128: return launch_wide<128, W>(rp, fp, rl, fl, P, pen, s);
         default: return cudaErrorInvalidValue;
+    }
     }
 }
 

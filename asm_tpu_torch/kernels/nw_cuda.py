@@ -23,7 +23,10 @@ one launch; at L = 256 and 512 it keeps them in a global scratch of
 L * L / 2 bytes per pair, its launches cut at TRACE_SCRATCH_BYTES. At
 another L, G and the route follow the table's rule
 (`shapes.nw_instance`), and the G strips may cover a few rows past L
-(`shapes.nw_rows`), which the scratch holds too.
+(`shapes.nw_rows`), which the scratch holds too. Above max_len 512 both
+kernels take csrc/nw.cu's long path (`nw_long_kernel`): one pair a warp,
+swept in blocks of up to 1,024 rows (`shapes.nw_long_rows`,
+`shapes.nw_blocks`), the trace's pointers in the global scratch.
 """
 
 from __future__ import annotations
@@ -39,11 +42,15 @@ import torch
 from asm_tpu_torch.kernels.greedy_cuda import check_tensor
 from asm_tpu_torch.kernels.nw import nw_align, nw_penalty
 from asm_tpu_torch.kernels.shapes import (
+    LONG_W,
+    NW_LONG_G,
     ROUTE_GLOBAL,
     ROUTE_NONE,
     ROUTE_SHARED,
+    TRACE_SCRATCH_BYTES,
     Plan,
     nw_launch,
+    nw_long_rows,
     nw_plan,
     nw_rows,
 )
@@ -56,12 +63,8 @@ LIB_LAUNCHES = collections.Counter()
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "nw.cu")
 # ROUTE_*, imported above: csrc/nw.cu's ROUTE, where the trace kernel
-# keeps its pointer nibbles
-# the global route parks L * L / 2 pointer bytes per pair in a per-launch
-# scratch; its launches are cut so it stays within this many bytes: 16,384
-# pairs at L = 512 (65,536 at 256), within 3% of 4 GiB's time, where 256
-# MiB (2,048 pairs a launch) took 1.37x as long (PERF.md section 6)
-TRACE_SCRATCH_BYTES = 2 << 30
+# keeps its pointer nibbles; TRACE_SCRATCH_BYTES, imported above: the
+# global route's per-launch scratch, to which its launches are cut
 _libs = {}  # library stem -> bound library
 
 
@@ -79,7 +82,10 @@ def instance(trace: bool, L: int) -> tuple[int, int]:
 
 
 def function_name(trace: bool, L: int) -> str:
-    """The mangled name of the instantiation nw_kernel<L/32, G, ROUTE>."""
+    """The mangled name of the instantiation: nw_kernel<L/32, G, ROUTE>,
+    or above max_len 512 nw_long_kernel<L/32, trace>."""
+    if L // 32 > LONG_W:
+        return f"nw_long_kernelILi{L // 32}ELb{int(trace)}E"
     G, route = instance(trace, L)
     return f"nw_kernelILi{L // 32}ELi{G}ELi{route}E"
 
@@ -88,10 +94,19 @@ def warp_steps(m, n, L: int, G: int) -> np.ndarray:
     """Column steps each warp of 32 / G pairs (launch order) runs: the
     largest n + (m-1) // R among its pairs, R = shapes.nw_rows(L, G) rows
     per thread, 0 for a pair with an empty side; lengths clamped to L as
-    the kernel clamps them."""
+    the kernel clamps them. Above max_len 512 (one pair a warp, swept in
+    blocks of RB = 32 R rows): n + 31 for each block above the pair's
+    last, and n + (m-1 - b RB) // R for that block b."""
     m = np.minimum(np.asarray(m, np.int64), L)
     n = np.minimum(np.asarray(n, np.int64), L)
-    steps = np.where((m > 0) & (n > 0), n + (m - 1) // nw_rows(L, G), 0)
+    live = (m > 0) & (n > 0)
+    if L // 32 > LONG_W:
+        R = nw_long_rows(L)
+        RB = R * NW_LONG_G
+        last = np.where(live, (m - 1) // RB, 0)
+        return np.where(live, last * (n + NW_LONG_G - 1) + n
+                        + (m - 1 - last * RB) // R, 0)
+    steps = np.where(live, n + (m - 1) // nw_rows(L, G), 0)
     ppw = 32 // G
     pad = -steps.size % ppw
     return np.concatenate([steps, np.zeros(pad, np.int64)]).reshape(

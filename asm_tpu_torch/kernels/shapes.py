@@ -3,23 +3,29 @@ for a shape, with what block size and shared memory, and which shapes
 the card cannot hold.
 
 Each hand-written kernel (csrc/greedy.cu, csrc/leap.cu, csrc/nw.cu,
-csrc/nw_band.cu) takes its shape as template parameters and unrolls over
-them. By default its source is built for a fixed table of shapes, the
-ones measured and tuned on the card (the "tuned table", library stem =
-the kernel's name). Every other shape the Pallas kernel takes is built
-at first use into a library of its own: the same source, with that one
-shape given by -D defines and the table compiled out, named by the
-shape (stem "leap_k5_w5_x1o4e2": build/libleap_k5_w5_x1o4e2_<hash>.so).
-This module is that mapping; it is plain Python, so the CPU tests hold
-it, and the wrappers raise NotImplementedError from here, naming the
-limit, for a shape the card cannot hold.
+csrc/nw_band.cu) takes its shape as template parameters. By default its
+source is built for a fixed table of shapes, the ones measured and tuned
+on the card (the "tuned table", library stem = the kernel's name). Every
+other shape the Pallas kernel takes is built at first use into a library
+of its own: the same source, with that one shape given by -D defines and
+the table compiled out, named by the shape (stem "leap_k5_w5_x1o4e2":
+build/libleap_k5_w5_x1o4e2_<hash>.so). This module is that mapping; it
+is plain Python, so the CPU tests hold it, and the wrappers raise
+NotImplementedError from here, naming the limit, for a shape the card
+cannot hold.
 
-Ranges: max_len any multiple of 32 from 32 to 512 for all four kernels
-(above 512 is not built: every kernel unrolls a pair's loops over W =
-L/32 words and greedy and LEAP hold its 4W plane words in registers; a
-longer row needs a tiled layout, a later piece of work); greedy any k >=
-0 whose records and shared memory fit; LEAP any k whose rows fit in
-shared memory and any lv_bag penalty set with 1 <= x, o, e <= 8.
+Ranges: max_len any multiple of 32 from 32 up, for all four kernels, as
+far as a computed limit allows. Up to max_len 512 (W = L/32 <= 16) each
+kernel unrolls a pair's loops over W; above it (W > LONG_W) each source
+has a long-row path of its own, whose registers do not grow with W:
+greedy and LEAP read the planes and rows word by word in rolled loops, at
+32 threads a block; NW sweeps one pair per warp in horizontal blocks of
+NW_BLOCK_ROWS rows; the band kernel keeps its code rows in dynamic shared
+memory. The limits: shared memory per block (SMEM_BLOCK_LIMIT) at 32
+threads for greedy, LEAP, the NW long path and the band kernel; greedy's
+7-bit lane delta (k <= 31); LEAP's penalties (1-8) and its 16-bit history
+cells (L < 2^16 - 2); NW's trace scratch per pair (TRACE_SCRATCH_BYTES).
+The band takes BW 4-128 at every max_len.
 """
 
 from __future__ import annotations
@@ -28,7 +34,20 @@ import dataclasses
 
 # bytes of shared memory one block may take on Hopper (227 KB)
 SMEM_BLOCK_LIMIT = 232_448
-MAX_LEN = 512
+# above this many words a row (max_len 512) every kernel takes its
+# long-row path
+LONG_W = 16
+# the NW long path: 32 threads a pair, rows swept in blocks of at most
+# 32 x 32 rows
+NW_LONG_G = 32
+NW_BLOCK_ROWS = 1024
+# the NW trace kernel's global pointer scratch per launch (its launches
+# are cut to it, nw_cuda.nw_align_cuda): 16,384 pairs at L = 512 (65,536
+# at 256), within 3% of 4 GiB's time, where 256 MiB (2,048 pairs a
+# launch) took 1.37x as long (PERF.md); one pair's must fit it
+TRACE_SCRATCH_BYTES = 2 << 30
+# LEAP's history cells hold a position + 2 in 16 bits above L = 253
+LEAP_MAX_LEN = (1 << 16) - 3
 THREAD_CHOICES = (128, 64, 32)  # the block sizes a new shape may take
 TUNED_WS = (4, 8, 16)  # words per row of the tuned tables (128, 256, 512)
 GREEDY_KS = (2, 3, 4)
@@ -43,10 +62,13 @@ ROUTE_NONE, ROUTE_GLOBAL, ROUTE_SHARED = 0, 1, 2
 NW_TUNED = {(4, False): (8, ROUTE_NONE), (8, False): (8, ROUTE_NONE),
             (16, False): (16, ROUTE_NONE), (4, True): (16, ROUTE_SHARED),
             (8, True): (8, ROUTE_GLOBAL), (16, True): (16, ROUTE_GLOBAL)}
-# the band widths csrc/nw_band.cu is built for: BW/2 threads per pair, so
-# a pair's band lies in one warp up to BW 64 (asm_tpu's kernel also takes
-# 128, a band of 64 threads, which would span two warps)
-BAND_WIDTHS = (4, 8, 16, 32, 64)
+# the band widths csrc/nw_band.cu is built for: BW/2 threads per pair up
+# to BW 64; at BW 128 each thread owns four offsets, 32 threads a pair
+BAND_WIDTHS = (4, 8, 16, 32, 64, 128)
+# the band kernel's wide path (BW 128, and every BW above max_len 512)
+# takes the largest of 128, 64 and 32 threads whose code rows fit this
+# much shared memory, else 32
+BAND_WIDE_SMEM = 64 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,14 +87,11 @@ class Plan:
 
 
 def words(max_len: int, kernel: str) -> int:
-    """W = max_len / 32; raises for a max_len the kernels do not take."""
-    if max_len % 32:
-        raise ValueError(f"max_len must be a multiple of 32, got {max_len}")
-    if not 32 <= max_len <= MAX_LEN:
-        raise NotImplementedError(
-            f"the {kernel} kernel is built for max_len 32-{MAX_LEN}, got "
-            f"{max_len}: it unrolls a pair's rows over W = max_len / 32 "
-            f"words held per thread, and longer rows need a tiled layout")
+    """W = max_len / 32; raises ValueError for a max_len off the 32 grid
+    (the kernels' limits on W are each plan's own)."""
+    if max_len % 32 or max_len < 32:
+        raise ValueError(f"the {kernel} kernel takes max_len a positive "
+                         f"multiple of 32, got {max_len}")
     return max_len // 32
 
 
@@ -88,10 +107,23 @@ def fit_threads(smem_of, what: str) -> int:
         f"threads per block, above the {SMEM_BLOCK_LIMIT} a block may take")
 
 
+def long_threads(smem_of, what: str) -> int:
+    """The long-row path's block size: 32 threads, the finest packing of
+    an SM (a block of 32 pairs' rows takes tens of KB); raises naming the
+    shared-memory limit."""
+    nt = THREAD_CHOICES[-1]
+    if smem_of(nt) > SMEM_BLOCK_LIMIT:
+        raise NotImplementedError(
+            f"{what} needs {smem_of(nt)} bytes of shared memory a block at "
+            f"{nt} threads per block, above the {SMEM_BLOCK_LIMIT} a block "
+            f"may take")
+    return nt
+
+
 def greedy_smem(k: int, W: int, threads: int) -> int:
     """csrc/greedy.cu's smem_bytes: per thread and lane, W orig and W den
-    words and 4 scalars."""
-    return 4 * (2 * W + 4) * (2 * k + 1) * threads
+    words and 4 scalars (the long-row path keeps no den words)."""
+    return 4 * ((W if W > LONG_W else 2 * W) + 4) * (2 * k + 1) * threads
 
 
 def greedy_plan(k: int, max_len: int) -> Plan:
@@ -105,8 +137,9 @@ def greedy_plan(k: int, max_len: int) -> Plan:
     if k in GREEDY_KS and W in TUNED_WS:
         nt = 32 if W == 16 else 128
         return Plan("greedy", (), nt, greedy_smem(k, W, nt))
-    nt = fit_threads(lambda t: greedy_smem(k, W, t),
-                     f"greedy at k={k}, max_len={max_len}")
+    what = f"greedy at k={k}, max_len={max_len}"
+    nt = (long_threads(lambda t: greedy_smem(k, W, t), what) if W > LONG_W
+          else fit_threads(lambda t: greedy_smem(k, W, t), what))
     return Plan(f"greedy_k{k}_w{W}",
                 (("ASM_SHAPE_K", k), ("ASM_SHAPE_W", W),
                  ("ASM_SHAPE_THREADS", nt)), nt, greedy_smem(k, W, nt))
@@ -129,8 +162,13 @@ def leap_plan(k: int, max_len: int, x: int, o: int, e: int) -> Plan:
             f"x, o, e <= {LEAP_MAX_PENALTY}; got {(x, o, e)}")
     if k in LEAP_KS and W in TUNED_WS and (x, o, e) in LEAP_PENALTIES:
         return Plan("leap", (), 128, leap_smem(k, W, 128))
-    nt = fit_threads(lambda t: leap_smem(k, W, t),
-                     f"LEAP at k={k}, max_len={max_len}")
+    if max_len > LEAP_MAX_LEN:
+        raise NotImplementedError(
+            f"LEAP's history cells hold a position + 2 in 16 bits, which "
+            f"caps max_len at {LEAP_MAX_LEN}; got {max_len}")
+    what = f"LEAP at k={k}, max_len={max_len}"
+    nt = (long_threads(lambda t: leap_smem(k, W, t), what) if W > LONG_W
+          else fit_threads(lambda t: leap_smem(k, W, t), what))
     return Plan(f"leap_k{k}_w{W}_x{x}o{o}e{e}",
                 (("ASM_SHAPE_K", k), ("ASM_SHAPE_W", W), ("ASM_SHAPE_X", x),
                  ("ASM_SHAPE_O", o), ("ASM_SHAPE_G", e),
@@ -146,15 +184,30 @@ def nw_rows(L: int, G: int) -> int:
     return -(-r // 4) * 4
 
 
+def nw_blocks(L: int) -> int:
+    """Horizontal blocks of csrc/nw.cu's long path at max_len L: one up to
+    NW_BLOCK_ROWS rows, two up to twice that, ..."""
+    return -(-L // NW_BLOCK_ROWS)
+
+
+def nw_long_rows(L: int) -> int:
+    """Rows per thread of the long path: each block's share of L over
+    NW_LONG_G strips (nw_rows), at most 32."""
+    return nw_rows(-(-L // nw_blocks(L)), NW_LONG_G)
+
+
 def nw_instance(trace: bool, max_len: int) -> tuple[int, int]:
     """(G threads per pair, pointer route) of the NW kernel (`trace`) at
     max_len: the tuned table's, else by the rule behind it: G8 up to W =
     8 and G16 above; the trace pointers in shared memory up to W = 4
     (L * L / 2 <= 8 KB a pair; at L = 256 the tuned table found shared
-    pointers 1.5x slower), in the global scratch above."""
+    pointers 1.5x slower), in the global scratch above. Above W = LONG_W
+    the long path: G32, the pointers in the global scratch."""
     W = words(max_len, "NW")
     if W in TUNED_WS:
         return NW_TUNED[W, trace]
+    if W > LONG_W:
+        return NW_LONG_G, ROUTE_GLOBAL if trace else ROUTE_NONE
     G = 8 if W <= 8 else 16
     if not trace:
         return G, ROUTE_NONE
@@ -171,14 +224,37 @@ def nw_slot_bytes(L: int, rows: int, route: int) -> int:
     return ((2 * L + L * rows // 2 + 63) // 128) * 128 + 64
 
 
+def nw_long_slot_bytes(L: int, trace: bool) -> int:
+    """csrc/nw.cu's long_slot_bytes: a pair's codes (two rows with the
+    trace) and, with more than one block, the parked row's H and E."""
+    return (2 * L if trace else L) + (8 * L if nw_blocks(L) > 1 else 0)
+
+
 def nw_launch(trace: bool, max_len: int) -> dict:
-    """G, route, rows per thread, threads and shared bytes per block of
-    the NW kernel's launch, and the global scratch bytes per pair (0
-    unless the route is global)."""
+    """G, route, rows per thread (a block's, on the long path), the
+    horizontal blocks, threads and shared bytes per block of the NW
+    kernel's launch, and the global scratch bytes per pair (0 unless the
+    route is global); raises naming the limit the card cannot hold."""
     G, route = nw_instance(trace, max_len)
+    if max_len // 32 > LONG_W:
+        rows, nb = nw_long_rows(max_len), nw_blocks(max_len)
+        smem = nw_long_slot_bytes(max_len, trace)
+        if smem > SMEM_BLOCK_LIMIT:
+            raise NotImplementedError(
+                f"the NW long path at max_len {max_len} needs {smem} bytes "
+                f"of shared memory a pair, above the {SMEM_BLOCK_LIMIT} a "
+                f"block may take")
+        scratch = max_len * rows * G * nb // 2 if trace else 0
+        if scratch > TRACE_SCRATCH_BYTES:
+            raise NotImplementedError(
+                f"the NW trace at max_len {max_len} parks {scratch} pointer "
+                f"bytes a pair, above the {TRACE_SCRATCH_BYTES} trace scratch "
+                f"a launch may take")
+        return dict(G=G, route=route, rows=rows, blocks=nb, threads=G,
+                    smem_bytes=smem, scratch_per_pair=scratch)
     rows = nw_rows(max_len, G)
     threads = 32 if route == ROUTE_SHARED else 128
-    return dict(G=G, route=route, rows=rows, threads=threads,
+    return dict(G=G, route=route, rows=rows, blocks=1, threads=threads,
                 smem_bytes=threads // G * nw_slot_bytes(max_len, rows * G,
                                                         route),
                 scratch_per_pair=(max_len * rows * G // 2
@@ -190,6 +266,7 @@ def nw_plan(max_len: int) -> Plan:
     W = words(max_len, "NW")
     if W in TUNED_WS:
         return Plan("nw")
+    nw_launch(True, max_len)  # raises for a max_len the card cannot hold
     G, _ = nw_instance(False, max_len)
     Gt, route = nw_instance(True, max_len)
     return Plan(f"nw_w{W}", (("ASM_SHAPE_W", W), ("ASM_NW_G", G),
@@ -197,13 +274,42 @@ def nw_plan(max_len: int) -> Plan:
                              ("ASM_NW_TRACE_ROUTE", route)))
 
 
+def band_row_words(bw: int, L: int) -> int:
+    """csrc/nw_band.cu's row_words: a code row's words, L codes padded by
+    max(4, BW/4) on both sides, made odd."""
+    w = (L + 2 * max(4, bw // 4)) // 4
+    return w if w % 2 else w + 1
+
+
+def band_wide_launch(bw: int, L: int) -> dict:
+    """Threads and dynamic shared bytes per block of the band kernel's wide
+    path (csrc/nw_band.cu wide_threads / wide_smem): one pair per 32
+    threads at BW 128, 64/BW pairs a warp below."""
+    seg = bw // 2 if bw <= 64 else 32
+
+    def smem(threads):
+        return threads // 32 * (32 // seg) * 2 * band_row_words(bw, L) * 4
+
+    for nt in THREAD_CHOICES:
+        if smem(nt) <= BAND_WIDE_SMEM:
+            return dict(threads=nt, smem_bytes=smem(nt))
+    return dict(threads=32, smem_bytes=smem(32))
+
+
 def band_plan(max_len: int, bw: int) -> Plan:
     """The library of the band kernel at max_len (all BAND_WIDTHS)."""
     if bw not in BAND_WIDTHS:
         raise NotImplementedError(
             f"the band kernel is built for BW in {BAND_WIDTHS} (BW/2 "
-            f"threads a pair, within one warp); got {bw}")
+            f"threads a pair, four offsets a thread at 128); got {bw}")
     W = words(max_len, "NW band")
+    if W > LONG_W or bw == 128:
+        got = band_wide_launch(bw, max_len)["smem_bytes"]
+        if got > SMEM_BLOCK_LIMIT:
+            raise NotImplementedError(
+                f"the band kernel at BW {bw}, max_len {max_len} needs {got} "
+                f"bytes of shared memory a block at 32 threads per block, "
+                f"above the {SMEM_BLOCK_LIMIT} a block may take")
     if W in TUNED_WS:
         return Plan("nw_band")
     return Plan(f"nw_band_w{W}", (("ASM_SHAPE_W", W),))

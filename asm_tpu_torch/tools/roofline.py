@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from asm_tpu_torch.kernels import roofline_cuda
-from asm_tpu_torch.kernels.shapes import nw_rows
+from asm_tpu_torch.kernels.shapes import LONG_W, nw_long_rows, nw_rows
 from asm_tpu_torch.utils.bounds import HBM_BYTES_PER_S, INT32_OPS_PER_S
 from asm_tpu_torch.utils.build import ptxas_usage
 from asm_tpu_torch.utils.timing import best_of_reps, log, time_dispatches
@@ -648,9 +648,11 @@ def nw_loop_counts(listing: str, warp_steps, cells: float,
     loops = count_sass(listing)["loops"]
     main = [lp for lp in loops
             if any(op.startswith("SHFL") for op in lp["opcodes"])]
-    if len(main) != 1:
-        raise ValueError(f"expected one loop with shuffles, got {main}")
-    lp = main[0]
+    if not main:
+        raise ValueError("expected a loop with shuffles, got none")
+    # the long path's step loop may be compiled twice (its first block and
+    # the later ones): count the longer copy
+    lp = max(main, key=lambda x: sum(x["body"].values()))
     shfl = sum(v for op, v in lp["opcodes"].items() if op.startswith("SHFL"))
     steps_per_trip = shfl / NW_SHFL_PER_STEP
     insts = sum(lp["body"].values())
@@ -668,11 +670,15 @@ def nw_loop_counts(listing: str, warp_steps, cells: float,
                existing_share=float(cells) / slots if slots else 0.0,
                insts_per_existing_cell=32 * total * per_step / cells
                if cells else 0.0)
+    if len(main) > 1:
+        out["loop_copies"] = len(main)
     if walk_steps is None:
         return out
     walks = [w for w in loops if w is not lp and w["depth"] == 0
              and any(op.startswith(("STG", "ST.")) for op in w["opcodes"])
              and not any(op.startswith("SHFL") for op in w["opcodes"])]
+    if len(walks) > 1:  # the long path also zeroes its rows in loops
+        walks = [max(walks, key=lambda w: sum(w["body"].values()))]
     if len(walks) != 1:
         raise ValueError(f"expected one walk loop, got {walks}")
     ws = np.asarray(walk_steps, dtype=np.float64)
@@ -699,17 +705,18 @@ def nw_resources(trace: bool, L: int = 128,
                 warps_per_sm=nw_cuda.occupancy(trace, L))
 
 
-def nw_line(name: str, m, n, ms: float, bound: dict, ops=None) -> dict:
+def nw_line(name: str, m, n, ms: float, bound: dict, ops=None,
+            max_len: int = 128) -> dict:
     """The roofline line of the NW full (`name` "nw") or trace
     ("nw_trace", with its `ops` int8[B, 2L] for the walk's steps) kernel
     on one launch's pairs: lengths m, n (launch order, max_len L read from
-    ops or 128), its measured ms and its bound (`utils.bounds.
+    ops, else `max_len`), its measured ms and its bound (`utils.bounds.
     bound_entry`): `nw_loop_counts` of the instantiation the wrapper
     launches, `nw_resources`, and the time over the bound."""
     from asm_tpu_torch.kernels import nw_cuda
 
     trace = name == "nw_trace"
-    L = ops.shape[1] // 2 if ops is not None else 128
+    L = ops.shape[1] // 2 if ops is not None else max_len
     G, route = nw_cuda.instance(trace, L)
     m = np.minimum(np.asarray(m, np.int64), L)
     n = np.minimum(np.asarray(n, np.int64), L)
@@ -718,7 +725,7 @@ def nw_line(name: str, m, n, ms: float, bound: dict, ops=None) -> dict:
         sass_listing(nw_cuda.build_kernel(L)[0],
                      nw_cuda.function_name(trace, L)),
         nw_cuda.warp_steps(m, n, L, G), float(np.sum(m * n)), G,
-        nw_rows(L, G),
+        nw_long_rows(L) if L // 32 > LONG_W else nw_rows(L, G),
         walk)
     line = dict(kernel=name, max_len=L, G=G, route=route, pairs=int(m.size),
                 **counts, **nw_resources(trace, L), ms=ms,

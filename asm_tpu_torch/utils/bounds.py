@@ -53,10 +53,14 @@ def greedy_work(steps, bounds, chunk, k=3, L=128,
     the selection compare (2) and the choice test (4). Bytes: 2 x L/4 of
     planes (with codes, the int8 codes route's 2 x L), 8 of lengths, 8 of
     cost and steps, and each chunk's (T+1) records (int16, int32 above
-    L = 255)."""
+    L = 255). Above max_len 512 the long-row path's queries read only the
+    words from their start on, stopping where they are answered, so a
+    step needs at least the one word that holds each query's start: per
+    lane 10 + 12."""
     NL, W = 2 * k + 1, L // 32
     n = len(steps)
-    ops = n * NL * W * 8 + float(np.sum(steps)) * NL * (10 * W + 12)
+    QW = 1 if W > 16 else W  # words a step's queries need, per lane
+    ops = n * NL * W * 8 + float(np.sum(steps)) * NL * (10 * QW + 12)
     rb = 2 if L <= 255 else 4
     rec = sum(min(chunk, n - i * chunk) * (b + 1) * rb
               for i, b in enumerate(bounds))

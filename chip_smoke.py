@@ -139,9 +139,23 @@ line:
      of the five kernels at that shape against its plain version, timed;
      (c) the long-sequence flow at max_len 160 and 384 (k = 3) on
      1,048,576 and 524,288 pairs, as 14b, pinned from asm_tpu.
+ 18. rows longer than 512 (each kernel's long-row path, per-shape
+     libraries built in phase 2): (a) every kernel against its plain
+     version at max_len 544, 800, 1024 and 2048 on edge lengths (0, 1,
+     31, L/2, L - 1, L) and generated pairs at err 0.05 and 0.15: greedy
+     at k = 3 and 4 in both forms, LEAP's fused CIGAR, gated filter and
+     penalty pass with both penalty sets, NW full and trace, the band at
+     BW 8-128 (BW 128 also at max_len 128 and 256); (b) the long-sequence
+     flow at max_len 1024 on 262,144 pairs and 2048 on 65,536, pinned from
+     asm_tpu, the plain versions equal on 16,384 pairs of each; (c) the
+     harness at max_len 1024 on 8,192 pairs, its counts pinned from
+     asm_tpu; (d) the harness at 2048 on 512 pairs; the
+     band, full and trace kernels timed at 1024 and 2048 against their
+     plain versions and bounds, with their SASS per step; each of the
+     five kernels must have launched at max_len >= 1024 in (b)-(d).
 Prints a JSON line of per-kernel results (time, plain version's time,
-bound, launches; the W = 16 instantiations and phase 17's shapes as
-entries of their own), the card line, and last {"ok": true, "device":
+bound, launches; the W = 16 instantiations and phases 17's and 18's
+shapes as entries of their own), the card line, and last {"ok": true, "device":
 {...}}. Any failure raises (exit code != 0).
 """
 
@@ -296,6 +310,38 @@ SHAPE_FLOW = {
                   "2777163bad57e071bd433939f4f91cc3"
                   "7b85fa09a8f88eacf21b7cc12a0058b5", 65_536)),
 }
+# Phase 18, rows longer than 512: (b) the long-sequence flow at max_len
+# 1024 and 2048, computed as LONG_FLOW, in 8,192-pair chunks (greedy at
+# max_steps L / 2: max steps 256 at L = 1024, 510 at 2048, no walk cut;
+# the CIGAR digest's E, the largest passed energy among the digest's
+# pairs: 200 at both), on 262,144 and 65,536 pairs.
+ROW_FLOW = {
+    1024: dict(pairs=262_144, greedy_cost=10764830, leap_penalty=10164241,
+               leap_passed=260_928, digest=(
+                   "efa5bb2587a4601e8bca20e66331cacf"
+                   "f479c84a142c5f009efed01259a77bc9", 65_225)),
+    2048: dict(pairs=65_536, greedy_cost=7087042, leap_penalty=5604328,
+               leap_passed=61_022, digest=(
+                   "5300bbef05f88b3d8a5505f0c2f6f1c6"
+                   "7e768f3365f46d95b16e8f71bcf46d69", 61_022)),
+}
+ROW_PLAIN_SAMPLE = 16_384  # pairs of each flow held against the plain versions
+# (c) the harness at max_len 1024: 8,192 native pairs of 998 bases, err
+# 0.05, seed 42, x = o = e = 1, k = 3 (max_steps = max_len); (greedy ==
+# NW, LEAP == NW, covered) of asm_tpu.bench.harness.run_benchmark(impl=
+# "xla", chunk=1024) on the CPU, coverage on every pair.
+ROW_HARNESS_PAIRS = 8192
+ROW_HARNESS = (2778, 7667, 5861)
+# (d) the harness at max_len 2048 on 512 pairs of 2,002 bases (seed 42),
+# no pin (its kernels are held against their plain versions)
+ROW_HARNESS_2048_PAIRS = 512
+ROW_LENGTHS = (544, 800, 1024, 2048)
+ROW_CASE_PAIRS = 200  # (a)'s generated err 0.05 pairs per max_len below 2048
+# (a)'s LEAP cases: the fused CIGAR (lv_bag, both penalty sets), the gated
+# filter and the penalty pass (simd_ed_affine)
+ROW_LEAP_VARIANTS = [("lv_bag", False, (1, 1, 1)), ("lv_bag", False, (2, 3, 1)),
+                     ("simd_ed_lev", True, (1, 1, 1)),
+                     ("simd_ed_affine", False, (2, 3, 1))]
 # Phase 15, profile-profile alignment: 65,536 pairs of profiles at max_len
 # 128 from msa_alignments(2 * MSA_PAIRS) (the first half against the
 # second), the exact float64 sum of the float32 scores (math.fsum) and
@@ -341,6 +387,12 @@ def _instance_name(name: str) -> str | None:
     m = re.search(r"band_kernelILi(\d+)ELi(\d+)E", name)
     if m:
         return f"nw_band BW{m[1]}/W{m[2]}"
+    m = re.search(r"band_wide_kernelILi(\d+)ELi(\d+)E", name)
+    if m:
+        return f"nw_band wide BW{m[1]}/W{m[2]}"
+    m = re.search(r"nw_long_kernelILi(\d+)ELb(\d)E", name)
+    if m:
+        return f"{'nw_trace' if m[2] == '1' else 'nw'} long W{m[1]}"
     m = re.search(r"nw_kernelILi(\d+)ELi(\d+)ELi(\d)E", name)
     if m:
         route = ("", "/global", "/shared")[int(m[3])]
@@ -1409,10 +1461,13 @@ def long_kernels_vs_plain(dev, name) -> dict:
 
 
 def long_flow(dev, card, err, pins=None, tag="14b",
-              entry_lengths=(512,)) -> list[dict]:
+              entry_lengths=(512,), plain_sample=None,
+              suffix=None) -> list[dict]:
     """Phase 14b: the long-sequence flow at max_len 256 and 512 (or, as
-    phase 17c, at `pins`' lengths); returns the greedy and LEAP kernels'
-    JSON entries at `entry_lengths`."""
+    phases 17c and 18b, at `pins`' lengths); returns the greedy and LEAP
+    kernels' JSON entries at `entry_lengths`, named kernel_L<L><suffix>
+    (suffix "_k3" with pins by default). The plain versions run on every
+    pair, or on `plain_sample` pairs spread over the corpus."""
     from asm_tpu_torch.kernels import greedy_cuda, leap_cuda
     from asm_tpu_torch.kernels.greedy import greedy_align
     from asm_tpu_torch.kernels.leap import leap_align
@@ -1438,20 +1493,24 @@ def long_flow(dev, card, err, pins=None, tag="14b",
                    digest=res["digest"])
         if got != pin:
             raise AssertionError(f"long flow L = {L}: {got} != pinned {pin}")
-        # the plain versions on every pair, on the card
-        args = [torch.from_numpy(a).to(dev) for a in corpus]
+        # the plain versions on every pair (or a sample), on the card
+        rows_ = (np.arange(res["pairs"]) if plain_sample is None else
+                 np.linspace(0, res["pairs"] - 1, plain_sample).astype(
+                     np.int64))
+        args = [torch.from_numpy(np.ascontiguousarray(a[rows_])).to(dev)
+                for a in corpus]
         g = res["by_row"]["greedy"]
         gcfg = lh.greedy_config(L, g["bound"])
         plain_g_ms, want = cuda_ms(lambda: greedy_align(*args, gcfg), 1)
         for key in ("cost", "steps"):
             err["greedy"] = max(err["greedy"], max_diff(
-                torch.from_numpy(g[key]).to(dev), want[key],
+                torch.from_numpy(g[key][rows_]).to(dev), want[key],
                 f"long flow L = {L}: greedy {key}"))
         plain_l_ms, want = cuda_ms(
             lambda: leap_align(*args, lh.leap_config(L)), 1)
         for key, v in res["by_row"]["leap"].items():
             err["leap"] = max(err["leap"], max_diff(
-                torch.from_numpy(v).to(dev), want[key],
+                torch.from_numpy(v[rows_]).to(dev), want[key],
                 f"long flow L = {L}: leap {key}"))
         del args, want
         parts = "; ".join(
@@ -1470,7 +1529,9 @@ def long_flow(dev, card, err, pins=None, tag="14b",
               f"{rows['leap_cigar']['energy_max']}, CIGAR bounds "
               f"{rows['leap_cigar']['chunk_bounds']}; launches {launches}; "
               f"{parts}; plain greedy {plain_g_ms:.3f} ms, LEAP "
-              f"{plain_l_ms:.3f} ms, equal on every pair; {wall:.1f} s "
+              f"{plain_l_ms:.3f} ms, equal on "
+              f"{'every pair' if plain_sample is None else f'{len(rows_)} pairs'}"
+              f"; {wall:.1f} s "
               f"wall (corpus {t_gen:.1f} s); on {card}")
         if L not in entry_lengths:
             continue
@@ -1479,8 +1540,10 @@ def long_flow(dev, card, err, pins=None, tag="14b",
                  "greedy_pallas.py:91", plain_g_ms),
                 ("leap", rows["leap_penalty"], "leap.cu", "leap_pallas.py:49",
                  plain_l_ms)):
+            if suffix is None:
+                suffix = "_k3" if pins else ""
             entries.append(dict(
-                name=f"{kernel}_L{L}" + ("_k3" if pins else ""),
+                name=f"{kernel}_L{L}{suffix}",
                 route="cuda", source=f"asm_tpu_torch/csrc/{source}",
                 replaces=f"asm_tpu/kernels/{replaces}",
                 launches=launches[kernel], max_abs_err=float(err[kernel]),
@@ -1491,7 +1554,9 @@ def long_flow(dev, card, err, pins=None, tag="14b",
                     shape=dict(max_len=L, k=3), bound_share=row["bound_share"],
                     registers=row.get("registers"),
                     spill_stores=row.get("spill_stores"),
-                    block_threads=row.get("block_threads")))))
+                    block_threads=row.get("block_threads"))),
+                **({} if plain_sample is None else
+                   {"plain_pairs": int(len(rows_))})))
     return entries
 
 
@@ -1957,6 +2022,290 @@ def shapes_path(dev, name, card) -> list[dict]:
     return entries
 
 
+def row_builds() -> list[tuple]:
+    """(module, build_kernel arguments) of every per-shape library phase
+    18 launches: greedy at k = 3 and 4, LEAP at k = 3 with both penalty
+    sets, NW and the band, at each of ROW_LENGTHS."""
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band, nw_cuda
+
+    jobs = []
+    for L in ROW_LENGTHS:
+        jobs += [(greedy_cuda, (k, L)) for k in (3, 4)]
+        jobs += [(leap_cuda, (3, L, pens)) for pens in ((1, 1, 1), (2, 3, 1))]
+        jobs += [(nw_cuda, (L,)), (nw_band, (L,))]
+    return jobs
+
+
+def row_corpora(L):
+    """(label, corpus) pairs of phase 18a at max_len L: every pair of the
+    lengths 0, 1, 31, L/2, L - 1 and L, twice (reads random, refs a copy
+    with 5% substitutions, cut or extended to their length); and generated
+    pairs of L - 6 - L // 50 bases at err 0.05 and 0.15 (ROW_CASE_PAIRS
+    and half that; half those at 2048)."""
+    from asm_tpu_torch.data.generator import generate_dataset_arrays
+    from asm_tpu_torch.encoding import encode_batch
+
+    rng = np.random.default_rng(180 + L // 32)
+    lens = (0, 1, 31, L // 2, L - 1, L)
+    reads, refs = [], []
+    for a in lens * 2:
+        for b in lens:
+            read, ref = rng.integers(0, 4, a), rng.integers(0, 4, b)
+            n = min(a, b)
+            ref[:n] = np.where(rng.random(n) < 0.05, rng.integers(0, 4, n),
+                               read[:n])
+            reads.append("".join("ACGT"[c] for c in read))
+            refs.append("".join("ACGT"[c] for c in ref))
+    n = ROW_CASE_PAIRS if L < 2048 else ROW_CASE_PAIRS // 2
+    length = L - 6 - L // 50
+    return [("lengths", encode_batch(reads, refs, L)),
+            ("err0.05", generate_dataset_arrays(n, length, 0.05, 0.96,
+                                                seed=181 + L, max_len=L)),
+            ("err0.15", generate_dataset_arrays(n // 2, length, 0.15, 0.96,
+                                                seed=182 + L, max_len=L))]
+
+
+def row_kernels_vs_plain(dev, name) -> dict:
+    """Phase 18a; returns the max abs error per kernel (all 0)."""
+    from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.kernels import nw
+    from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
+    from asm_tpu_torch.kernels.nw_band import banded_plain, nw_penalty_banded
+    from asm_tpu_torch.kernels.nw_cuda import nw_align_cuda, nw_penalty_cuda
+
+    t0 = time.perf_counter()
+    err = dict(greedy=0, leap=0, nw_band=0, nw=0, nw_trace=0)
+    n = dict(err)
+    bws = (8, 16, 32, 64, 128)
+
+    def band(corpus, what, x=1, o=1, e=1, widths=bws):
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in corpus]
+        planes = [torch.from_numpy(stage_planes_t(a).view(np.int32)).to(dev)
+                  for a in (corpus[0], corpus[2])]
+        for bw in widths:
+            want = banded_plain(*t, bw, x, o, e)
+            for pre, (a, b) in ((False, (t[0], t[2])), (True, planes)):
+                err["nw_band"] = max(err["nw_band"], max_diff(
+                    nw_penalty_banded(a, t[1], b, t[3], bw=bw, x=x, o=o, e=e,
+                                      pre_staged=pre), want,
+                    f"{what}/BW{bw}/pre_staged={pre}: pen"))
+                n["nw_band"] += 1
+
+    for L in ROW_LENGTHS:
+        for ci, (label, corpus) in enumerate(row_corpora(L)):
+            what = f"L{L}/{label}"
+            for k in ((3, 4) if ci == 0 else (3,)):
+                err["greedy"] = max(err["greedy"], greedy_check(
+                    dev, corpus, AlignConfig(k=k, max_len=L,
+                                             max_steps=L // 2),
+                    f"{what}/k{k}"))
+                n["greedy"] += 2
+            for sem, gate, pens in ROW_LEAP_VARIANTS:
+                cfg = leap_cfg(sem, pens, 1 if ci else 0, L, af=200)
+                err["leap"] = max(err["leap"], leap_check(
+                    dev, corpus, cfg, sem, gate,
+                    f"{what}/{sem}/gate{int(gate)}/{pens}"))
+                n["leap"] += 2
+            # the band at every BW on the lengths corpus (x/o/e 1/1/1), at
+            # BW 128 on the err 0.05 one (2/3/1); NW full and trace on the
+            # lengths and err 0.15 ones (the plain versions loop over the
+            # 2L diagonals in Python)
+            if ci == 0:
+                band(corpus, what)
+            elif ci == 1:
+                band(corpus, f"{what}/x2o3e1", 2, 3, 1, widths=(128,))
+            if ci != 1:
+                sub = [torch.from_numpy(np.ascontiguousarray(a[:200])).to(dev)
+                       for a in corpus]
+                x, o, e = (2, 3, 1) if ci == 2 else (1, 1, 1)
+                pen, ops, mask = nw.nw_align(*sub, x, o, e,
+                                             match_mask_threshold=3)
+                err["nw"] = max(err["nw"], max_diff(
+                    nw_penalty_cuda(*sub, x, o, e), pen,
+                    f"{what}/x{x}o{o}e{e}/nw: pen"))
+                got = nw_align_cuda(*sub, x, o, e, match_mask_threshold=3)
+                for g, w, key in zip(got, (pen, ops, mask),
+                                     ("pen", "ops", "mask")):
+                    err["nw_trace"] = max(err["nw_trace"], max_diff(
+                        g, w, f"{what}/x{x}o{o}e{e}/nw_trace: {key}"))
+                n["nw"] += 1
+                n["nw_trace"] += 1
+                del sub, pen, ops, mask, got
+    # BW 128 at max_len 128 and 256, on the corpora of 544 cut to them
+    for L in (128, 256):
+        for label, corpus in row_corpora(544)[:2]:
+            cut = (np.ascontiguousarray(corpus[0][:, :L]),
+                   np.minimum(corpus[1], L),
+                   np.ascontiguousarray(corpus[2][:, :L]),
+                   np.minimum(corpus[3], L))
+            band(cut, f"L{L}/{label}", widths=(128,))
+            band(cut, f"L{L}/{label}/x2o3e1", 2, 3, 1, widths=(128,))
+    phase(f"[18a row kernels vs plain] max_len {ROW_LENGTHS} on {name}: "
+          f"cases {n} (greedy k = 3, 4 in both forms with records, trips "
+          f"and CIGARs; LEAP penalty pass (simd_ed_affine), gated filter and "
+          f"fused CIGAR (lv_bag, both penalty sets) in both forms; NW band "
+          f"BW {bws} in both forms, BW 128 also at max_len 128 and 256; "
+          f"full; trace with ops and mask; x/o/e 1/1/1 and 2/3/1; lengths "
+          f"0, 1, 31, L/2, L - 1 and L) exactly equal (max abs err "
+          f"{max(err.values())}); {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def row_harness(dev, card, err, L, corpus, pins=None) -> list[dict]:
+    """Phase 18c (max_len 1024, counts pinned from asm_tpu) and 18d
+    (2048; its kernels held against the plain versions in 18a and below):
+    the harness on `corpus`, the band, full and trace kernels' launches
+    in it; then those kernels timed on
+    the corpus's first 2,048 pairs (all 512 at 2048) against their plain
+    versions and bounds (and BW 128 beside the partition's widths).
+    Returns the three NW kernels' entries, kernel_L<L>."""
+    from asm_tpu_torch.bench.harness import run_benchmark
+    from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw, nw_band, \
+        nw_cuda
+    from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
+    from asm_tpu_torch.tools import roofline as rl
+    from asm_tpu_torch.utils.bounds import bound_entry, nw_band_work, \
+        nw_full_work
+
+    tag = "18c" if pins else "18d"
+    cfg = AlignConfig(x=1, o=1, e=1, k=3, max_len=L)
+    greedy_cuda.LAUNCHES = nw_band.LAUNCHES = leap_cuda.LAUNCHES = 0
+    nw_cuda.LAUNCHES.update(nw=0, nw_trace=0)
+    t0 = time.perf_counter()
+    r = run_benchmark(*corpus, cfg, impl="cuda", device=dev, chunk=4096)
+    wall = time.perf_counter() - t0
+    launches = dict(greedy=greedy_cuda.LAUNCHES, nw_band=nw_band.LAUNCHES,
+                    nw=nw_cuda.LAUNCHES["nw"],
+                    nw_trace=nw_cuda.LAUNCHES["nw_trace"],
+                    leap=leap_cuda.LAUNCHES)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the L = {L} harness launched {launches}")
+    got = harness_counts(r)
+    if r.coverage_checked != r.total or (pins is not None and got != pins):
+        raise AssertionError(f"L = {L} harness {got} on {r.coverage_checked} "
+                             f"checked != pinned {pins}")
+    vs = "pinned from asm_tpu" if pins is not None else "no pin"
+    npt = min(2048, corpus[1].size)
+    sub = [np.ascontiguousarray(a[:npt]) for a in corpus]
+    t = [torch.from_numpy(a).to(dev) for a in sub]
+    planes = [torch.from_numpy(stage_planes_t(a).view(np.int32)).to(dev)
+              for a in (sub[0], sub[2])]
+    m, n = sub[1], sub[3]
+    times, bounds, band128 = {}, {}, None
+    for bw in (64, 128):
+        ms, pen = cuda_ms(lambda: nw_band.nw_penalty_banded(
+            planes[0], t[1], planes[1], t[3], bw=bw, pre_staged=True), 5)
+        plain_ms, want = cuda_ms(lambda: nw_band.banded_plain(*t, bw), 1)
+        err["nw_band"] = max(err["nw_band"], max_diff(
+            pen, want, f"L = {L} band BW {bw}"))
+        b = bound_entry(*nw_band_work(m, n, np.full(m.size, bw), L))
+        if bw == 64:
+            times["nw_band"], bounds["nw_band"] = (ms, plain_ms), b
+        else:
+            band128 = (ms, plain_ms, b)
+    nw_ms, pen = cuda_ms(lambda: nw_cuda.nw_penalty_cuda(*t), 5)
+    nw_plain_ms, want_pen = cuda_ms(lambda: nw.nw_penalty(*t), 1)
+    err["nw"] = max(err["nw"], max_diff(pen, want_pen, f"L = {L} nw"))
+    trace_ms, got_t = cuda_ms(
+        lambda: nw_cuda.nw_align_cuda(*t, match_mask_threshold=3), 3)
+    trace_plain_ms, want = cuda_ms(
+        lambda: nw.nw_align(*t, match_mask_threshold=3), 1)
+    for g, w, key in zip(got_t, want, ("pen", "ops", "mask")):
+        err["nw_trace"] = max(err["nw_trace"], max_diff(
+            g, w, f"L = {L} nw_trace {key}"))
+    ops = got_t[1].cpu().numpy()
+    del got_t, want
+    times.update(nw=(nw_ms, nw_plain_ms), nw_trace=(trace_ms, trace_plain_ms))
+    bounds.update(nw=bound_entry(*nw_full_work(m, n, L)),
+                  nw_trace=bound_entry(*nw_full_work(m, n, L, trace=True)))
+    # the long kernels' SASS per step and per existing cell
+    for k in ("nw", "nw_trace"):
+        line = rl.nw_line(k, m, n, times[k][0], bounds[k],
+                          ops=ops if k == "nw_trace" else None, max_len=L)
+        phase(f"[{tag} roofline {k} L={L}] " + json.dumps(
+            {key: line[key] for key in (
+                "function", "rows_per_thread", "insts_per_step",
+                "insts_per_slot", "existing_share",
+                "insts_per_existing_cell", "walk_insts_per_step",
+                "registers", "spill_stores", "warps_per_sm", "ms",
+                "bound_ms", "bound_share") if key in line}))
+    res = {k: rl.ptxas_entry(nw_cuda, nw_cuda.function_name(k == "nw_trace",
+                                                            L),
+                             open(nw_cuda.ptxas_report(L)).read())
+           for k in ("nw", "nw_trace")}
+    warps = {k: nw_cuda.occupancy(k == "nw_trace", L)
+             for k in ("nw", "nw_trace")}
+    parts = "; ".join(
+        f"{k} {times[k][0]:.4f} ms, bound {b['bound_ms']:.4f} "
+        f"({b['bound_by']}, {100 * b['bound_ms'] / times[k][0]:.1f}%), "
+        f"plain {times[k][1]:.3f} ms" for k, b in bounds.items())
+    phase(f"[{tag} row harness L={L}] {r.total} pairs of "
+          f"{int(corpus[1].max())} bases err 0.05: greedy == NW {got[0]}, "
+          f"LEAP == NW {got[1]}, covered {got[2]} of {r.coverage_checked} "
+          f"({vs}); launches {launches}; NW {r.nw_time * 1e3:.3f} / LEAP "
+          f"{r.leap_time * 1e3:.3f} / greedy {r.greedy_time * 1e3:.3f} ms, "
+          f"{wall:.1f} s wall with coverage; on {npt} pairs: band BW 64, "
+          f"full, trace: {parts}; band BW 128 {band128[0]:.4f} ms, bound "
+          f"{band128[2]['bound_ms']:.4f} ({band128[2]['bound_by']}), plain "
+          f"{band128[1]:.3f} ms; full / trace: registers "
+          f"{[res[k]['registers'] for k in res]}, spills "
+          f"{[res[k]['spill_stores'] for k in res]} B, warps per SM "
+          f"{[warps[k] for k in res]}; on {card}")
+    names = dict(nw_band=("nw_band.cu", "nw_band.py:174"),
+                 nw=("nw.cu", "nw_pallas.py:88"),
+                 nw_trace=("nw.cu", "nw_pallas.py:218"))
+    out = []
+    for k in bounds:
+        extra = dict(bw=64, bw128_ms=band128[0],
+                     bw128_bound_ms=band128[2]["bound_ms"],
+                     bw128_plain_ms=band128[1]) if k == "nw_band" else dict(
+            instantiation=nw_instance(k == "nw_trace", L),
+            registers=res[k]["registers"],
+            spill_stores=res[k]["spill_stores"], warps_per_sm=warps[k])
+        out.append(dict(name=f"{k}_L{L}", route="cuda",
+                        source=f"asm_tpu_torch/csrc/{names[k][0]}",
+                        replaces=f"asm_tpu/kernels/{names[k][1]}",
+                        launches=launches[k], max_abs_err=float(err[k]),
+                        ms=times[k][0], plain_ms=times[k][1],
+                        **bounds[k], timed_pairs=npt,
+                        bound_share=bounds[k]["bound_ms"] / times[k][0],
+                        **extra))
+    return out
+
+
+def rows_path(dev, name, card) -> list[dict]:
+    """Phase 18: rows longer than 512; returns the long-row entries."""
+    from asm_tpu_torch.data.generator import generate_dataset_native
+
+    walls = [time.perf_counter()]
+    err = row_kernels_vs_plain(dev, name)
+    walls.append(time.perf_counter())
+    entries = long_flow(dev, card, err, pins=ROW_FLOW, tag="18b",
+                        entry_lengths=tuple(ROW_FLOW),
+                        plain_sample=ROW_PLAIN_SAMPLE, suffix="")
+    walls.append(time.perf_counter())
+    entries += row_harness(dev, card, err, 1024, generate_dataset_native(
+        ROW_HARNESS_PAIRS, 998, 0.05, 0.96, seed=42, max_len=1024),
+        pins=ROW_HARNESS)
+    walls.append(time.perf_counter())
+    entries += row_harness(dev, card, err, 2048, generate_dataset_native(
+        ROW_HARNESS_2048_PAIRS, 2002, 0.05, 0.96, seed=42, max_len=2048))
+    walls.append(time.perf_counter())
+    for kernel in ("greedy", "leap", "nw_band", "nw", "nw_trace"):
+        hit = [e for e in entries
+               if e["name"].startswith(f"{kernel}_L") and e["launches"] > 0
+               and int(e["name"].rsplit("_L", 1)[1]) >= 1024]
+        if not hit:
+            raise AssertionError(f"phase 18: {kernel} launched at no "
+                                 f"max_len >= 1024")
+    phase(f"[18 rows] {walls[-1] - walls[0]:.1f} s (a, b, c, d: "
+          f"{[round(b - a, 1) for a, b in zip(walls, walls[1:])]} s) on "
+          f"{name}")
+    return entries
+
+
 def msa_path(dev, card) -> None:
     """Phase 15: profile-profile alignment of 65,536 profile pairs at
     max_len 128 on the card; the score sum and the ops digest pinned from
@@ -2350,7 +2699,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels = (greedy_cuda, nw_cuda, nw_band, leap_cuda, roofline_cuda)
-    shapes = shape_builds()
+    shapes = shape_builds() + row_builds()
     # one nvcc per core, the longest build (the tuned LEAP table) first
     with ThreadPoolExecutor(os.cpu_count() or 8) as ex:
         builds = {k: ex.submit(timed, k.build_kernel) for k in sorted(
@@ -2393,6 +2742,7 @@ def main() -> int:
     msa_path(dev, card)
     sharded_path(dev, card)
     entries += shapes_path(dev, name, card)
+    entries += rows_path(dev, name, card)
 
     print(json.dumps({"kernels": entries}))
     print(card_line(), flush=True)

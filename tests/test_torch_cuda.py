@@ -293,11 +293,19 @@ def test_kernel_refuses_unbuilt_shapes(dev, shape_libs, L, k):
             dev, num_reads=8, length=50, error_rate=0.1, seed=1,
             max_len=512),
             AlignConfig(k=25, max_len=512))
-    with pytest.raises(NotImplementedError, match="max_len"):
+    # max_len 544 is the long-row path's; past its shared memory it raises
+    got = greedy_cuda.greedy_align_cuda(*_corpus(
+        dev, num_reads=8, length=50, error_rate=0.1, seed=1, max_len=544),
+        AlignConfig(max_len=544))
+    want = greedy_align(*_corpus(
+        dev, num_reads=8, length=50, error_rate=0.1, seed=1, max_len=544),
+        AlignConfig(max_len=544), records=True)
+    _check(got, want)
+    with pytest.raises(NotImplementedError, match="shared memory"):
         greedy_cuda.greedy_align_cuda(*_corpus(
             dev, num_reads=8, length=50, error_rate=0.1, seed=1,
-            max_len=544),
-            AlignConfig(max_len=544))
+            max_len=8192),
+            AlignConfig(max_len=8192))
     with pytest.raises(ValueError):
         greedy_cuda.greedy_align_cuda(rc, rl.cpu(), fc, fl, cfg)
 
@@ -517,8 +525,8 @@ def test_nw_kernels_refuse_unbuilt_shapes(dev, shape_libs, L):
     """Every max_len is built now (the name is the test's from when only
     the tuned table was): the full and trace kernels (ops and mask) and
     the band kernel at every BW in both input forms equal the plain
-    versions at a max_len outside the table; max_len 544 and BW 128 still
-    raise."""
+    versions at a max_len outside the table; max_len 544 and BW 128 are
+    built too, and past its shared memory each kernel raises."""
     from asm_tpu_torch.kernels.shapes import BAND_WIDTHS, nw_instance
 
     rc, rl, fc, fl = (torch.from_numpy(a).to(dev)
@@ -551,14 +559,21 @@ def test_nw_kernels_refuse_unbuilt_shapes(dev, shape_libs, L):
     assert nw_band.LIB_LAUNCHES[nw_band.plan(L).stem] >= 30
     for trace in (False, True):
         assert nw_cuda.occupancy(trace, L) >= 1
-    with pytest.raises(NotImplementedError):
-        nw_band.nw_penalty_banded(rc, rl, fc, fl, bw=128)
+    # max_len 544 (the long-row path) and BW 128 are built now (BW 128 ran
+    # in the loop above); past their shared memory the kernels raise
     long = _corpus(dev, num_reads=8, length=50, error_rate=0.1, seed=1,
                    max_len=544)
-    with pytest.raises(NotImplementedError):
-        nw_cuda.nw_penalty_cuda(*long)
-    with pytest.raises(NotImplementedError):
-        nw_band.nw_penalty_banded(*long, bw=16)
+    assert torch.equal(nw_cuda.nw_penalty_cuda(*long), nw.nw_penalty(*long))
+    assert torch.equal(nw_band.nw_penalty_banded(*long, bw=16),
+                       nw_band.banded_plain(*long, 16))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        nw_cuda.nw_penalty_cuda(*_corpus(
+            dev, num_reads=8, length=50, error_rate=0.1, seed=1,
+            max_len=32 * 1024))
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        nw_band.nw_penalty_banded(*_corpus(
+            dev, num_reads=8, length=50, error_rate=0.1, seed=1,
+            max_len=8192), bw=4)
 
 
 def test_nw_kernels_refuse_odd_widths_and_mixed_devices(dev):
@@ -758,11 +773,20 @@ def test_leap_kernel_refuses_unbuilt_shapes(dev, shape_libs, L, k, pens):
             dev, num_reads=8, length=50, error_rate=0.1, seed=1,
             max_len=512),
             AlignConfig(k=28, max_len=512))
-    with pytest.raises(NotImplementedError, match="max_len"):
+    # max_len 544 is the long-row path's; past its shared memory it raises
+    from asm_tpu_torch.kernels.leap import leap_align
+
+    small = _corpus(dev, num_reads=8, length=50, error_rate=0.1, seed=1,
+                    max_len=544)
+    got = leap_cuda.leap_align_cuda(*small, AlignConfig(max_len=544))
+    want = leap_align(*small, AlignConfig(max_len=544))
+    for key in ("passed", "penalty", "lane_shift"):
+        assert torch.equal(got[key], want[key]), key
+    with pytest.raises(NotImplementedError, match="shared memory"):
         leap_cuda.leap_align_cuda(*_corpus(
             dev, num_reads=8, length=50, error_rate=0.1, seed=1,
-            max_len=544),
-            AlignConfig(max_len=544))
+            max_len=4096),
+            AlignConfig(k=4, max_len=4096))
     with pytest.raises(ValueError):
         leap_cuda.leap_align_cuda(rc, rl.cpu(), fc, fl, AlignConfig(
             max_len=L))
@@ -934,6 +958,106 @@ def test_mapper_cuda_matches_torch(dev, case):
                      impl="torch")
     assert got[0] == want[0]
     assert got[1] == want[1]
+
+
+ROW_LENGTHS = [544, 800, 1024, 2048]
+
+
+@pytest.fixture(scope="module")
+def row_libs():
+    """The long-row libraries (max_len 544-2048), built at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from asm_tpu_torch.kernels import leap_cuda
+
+    jobs = [(greedy_cuda.build_kernel, (k, L)) for L in ROW_LENGTHS
+            for k in (3, 4)]
+    jobs += [(leap_cuda.build_kernel, (3, L, pens)) for L in ROW_LENGTHS
+             for pens in ((1, 1, 1), (2, 3, 1))]
+    jobs += [(m.build_kernel, (L,)) for L in ROW_LENGTHS
+             for m in (nw_cuda, nw_band)]
+    with ThreadPoolExecutor(8) as ex:
+        for f in [ex.submit(fn, *a) for fn, a in jobs]:
+            f.result()
+
+
+@pytest.mark.parametrize("L", ROW_LENGTHS)
+def test_long_rows_match_plain(dev, row_libs, L):
+    """Rows longer than 512 (each kernel's long-row path): greedy at k = 3
+    and 4, LEAP in its three modes with both penalty sets (af 200), the NW
+    full and trace kernels and the band at BW 4-128, each in both input
+    forms where it has two, against the plain versions on edge lengths
+    (0, 1, 31-33, L/2, L - 1, L) and generated pairs; each launch goes to
+    the shape's own library."""
+    from asm_tpu_torch.config import LeapMode
+    from asm_tpu_torch.kernels import leap_cuda
+    from asm_tpu_torch.kernels.shapes import BAND_WIDTHS
+
+    corpus = [torch.from_numpy(a).to(dev) for a in shape_corpus(L, 7 * L)]
+    rc, rl, fc, fl = corpus
+    planes = [torch.from_numpy(greedy_cuda.stage_planes_tiled_t(
+        a.cpu().numpy(), tile=256).view(np.int32)).to(dev) for a in (rc, fc)]
+    for k in (3, 4):
+        cfg = AlignConfig(k=k, max_len=L, max_steps=L // 2)
+        want = greedy_align(rc, rl, fc, fl, cfg, records=True)
+        stem = greedy_cuda.plan(k, L).stem
+        for pre, (a, b) in ((False, (rc, fc)), ("planes_tiled", planes)):
+            before = greedy_cuda.LIB_LAUNCHES[stem]
+            got = greedy_cuda.greedy_align_cuda(a, rl, b, fl, cfg,
+                                                pre_staged=pre, tile=256)
+            assert greedy_cuda.LIB_LAUNCHES[stem] == before + 1
+            _check(got, want)
+    for sem, gate, pens in LEAP_VARIANTS:
+        x, o, e = pens
+        cfg = (AlignConfig(k=3, leap_af_threshold=3, max_len=L,
+                           leap_mode=LeapMode(1)) if sem == "simd_ed_lev" else
+               AlignConfig(x=x, o=o, e=e, k=3, leap_af_threshold=200,
+                           leap_max_energy=200, max_len=L,
+                           leap_mode=LeapMode(1)))
+        _leap_check(dev, corpus, cfg, sem, gate)
+        assert leap_cuda.LIB_LAUNCHES[leap_cuda.plan(3, L, pens).stem] > 0
+    sub = [a[:200] for a in corpus]
+    bplanes = [torch.from_numpy(greedy_cuda.stage_planes_t(
+        a.cpu().numpy()).view(np.int32)).to(dev) for a in (rc, fc)]
+    for x, o, e in [(1, 1, 1), (2, 3, 1)]:
+        pen, ops, mask = nw.nw_align(*sub, x, o, e, match_mask_threshold=3)
+        assert torch.equal(nw_cuda.nw_penalty_cuda(*sub, x, o, e), pen)
+        got = nw_cuda.nw_align_cuda(*sub, x, o, e, match_mask_threshold=3)
+        for g, w, key in zip(got, (pen, ops, mask), ("pen", "ops", "mask")):
+            assert torch.equal(g, w), (x, o, e, key)
+        for bw in BAND_WIDTHS:
+            want = nw_band.banded_plain(rc, rl, fc, fl, bw, x, o, e)
+            for pre, (a, b) in ((False, (rc, fc)), (True, bplanes)):
+                got = nw_band.nw_penalty_banded(a, rl, b, fl, bw=bw, x=x,
+                                                o=o, e=e, pre_staged=pre)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (x, o, e, bw, pre)
+    assert nw_cuda.LIB_LAUNCHES[nw_cuda.plan(L).stem, "nw_trace"] >= 2
+    assert nw_cuda.function_name(True, L).startswith("nw_long_kernel")
+    for trace in (False, True):
+        assert nw_cuda.occupancy(trace, L) >= 1
+    assert greedy_cuda.occupancy(3, L) >= 1
+    assert leap_cuda.occupancy(3, L, True) >= 1
+
+
+@pytest.mark.parametrize("L", [128, 256, 512])
+def test_band_bw128_matches_plain(dev, L):
+    """BW 128 at the tuned table's max_lens (four offsets a thread, one
+    warp a pair) equals the plain version in both input forms, INF and
+    uncertified upper bounds included."""
+    rc, rl, fc, fl = (torch.from_numpy(a).to(dev)
+                      for a in shape_corpus(L, 11 * L))
+    planes = [torch.from_numpy(greedy_cuda.stage_planes_t(
+        a.cpu().numpy()).view(np.int32)).to(dev) for a in (rc, fc)]
+    for x, o, e in [(1, 1, 1), (2, 3, 1), (1, 4, 2)]:
+        want = nw_band.banded_plain(rc, rl, fc, fl, 128, x, o, e)
+        for pre, (a, b) in ((False, (rc, fc)), (True, planes)):
+            got = nw_band.nw_penalty_banded(a, rl, b, fl, bw=128, x=x, o=o,
+                                            e=e, pre_staged=pre)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (x, o, e, pre)
 
 
 def test_mapper_refuses_unbuilt_k(dev, shape_libs):

@@ -179,9 +179,14 @@ def test_nw_cu_instance_table(L, trace):
         assert nw_cuda.instance(trace, L) == (G, route)
         assert nw_cuda.function_name(trace, L) == (
             f"nw_kernelILi{L // 32}ELi{G}ELi{route}E")
-        # past max_len 512 no library is built
-        with pytest.raises(NotImplementedError):
-            nw_cuda.instance(trace, 544)
+        # past max_len 512 the long path: G32 and the global route (the
+        # trace), a kernel of its own; past its shared memory a refusal
+        assert shapes.nw_instance(trace, 544) == (
+            32, nw_cuda.ROUTE_GLOBAL if trace else nw_cuda.ROUTE_NONE)
+        assert nw_cuda.function_name(trace, 544) == (
+            f"nw_long_kernelILi17ELb{int(trace)}E")
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            nw_cuda.plan(32 * 1024)
     finally:
         nw_cuda._libs.pop("nw", None)
         nw_cuda.instance.cache_clear()

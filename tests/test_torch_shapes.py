@@ -352,23 +352,41 @@ def test_nw_and_band_plans():
     (lambda: shapes.greedy_plan(25, 512), "shared memory"),
     (lambda: shapes.leap_plan(28, 512, 1, 1, 1), "shared memory"),
     (lambda: shapes.leap_plan(3, 128, 9, 1, 1), "x, o, e"),
-    (lambda: shapes.leap_plan(3, 544, 1, 1, 1), "max_len"),
-    (lambda: shapes.nw_plan(544), "max_len"),
-    (lambda: shapes.band_plan(160, 128), "one warp"),
+    (lambda: _long_plan_then(shapes.leap_plan(3, 544, 1, 1, 1),
+                             "leap_k3_w17_x1o1e1",
+                             lambda: shapes.leap_plan(4, 4096, 1, 1, 1)),
+     "shared memory"),
+    (lambda: _long_plan_then(shapes.nw_plan(544), "nw_w17",
+                             lambda: shapes.nw_plan(32 * 1024)),
+     "shared memory"),
+    (lambda: _long_plan_then(shapes.band_plan(160, 128), "nw_band_w5",
+                             lambda: shapes.band_plan(8192, 4)),
+     "shared memory"),
 ], ids=["greedy-record", "greedy-smem", "leap-smem", "leap-penalty",
         "leap-544", "nw-544", "band-128"])
 def test_plan_limits_raise_naming_them(call, match):
+    """Each limit raises NotImplementedError naming it. max_len 544 and
+    BW 128 have plans now (the long-row path, the band's four offsets a
+    thread): their cases check the plan, then the computed limit past
+    it."""
     with pytest.raises(NotImplementedError, match=match):
         call()
 
 
+def _long_plan_then(plan, stem, refused):
+    assert plan.stem == stem and not plan.tuned
+    refused()
+
+
 def test_plan_range_is_whole():
-    """Every shape the issue's range names has a plan: k 0-16 at every
-    max_len 32-512 for greedy and LEAP (LEAP at every penalty set of 1-8
-    at k 0-16 fits too), and every max_len for the NW kernels; a max_len
-    off the 32 grid is a ValueError, as the wrappers raise it."""
-    for L in range(32, 513, 32):
-        for k in range(17):
+    """Every shape the range names has a plan: k 0-16 at every max_len
+    32-512 for greedy and LEAP (LEAP at every penalty set of 1-8 at k
+    0-16 fits too), k 0-4 at every max_len 544-2048 (the long-row path),
+    and every max_len 32-2048 for the NW kernels and the band at BW
+    4-128; a max_len off the 32 grid is a ValueError, as the wrappers
+    raise it."""
+    for L in range(32, 2049, 32):
+        for k in range(17 if L <= 512 else 5):
             shapes.greedy_plan(k, L)
             shapes.leap_plan(k, L, 1, 1, 1)
             shapes.leap_plan(k, L, 8, 8, 8)
