@@ -54,18 +54,33 @@
 // level cost 527. In CIGAR mode the history scratch and the record rows'
 // stores weigh more than issue.
 //
-// Long rows (L > 512, W > kShortW = 16; chosen by W at compile time, so
-// the W <= 16 instantiations are the code they were): the rows and the
-// O(1) query already live in shared memory; only the prologue held W-sized
-// arrays (the four planes, 4W words, and the SHD gate over them). The long
-// path reads one plane word at a time from the top word down and makes
-// word w of every lane row, its next-hurdle entry and the gate's word from
-// plane words w and w - 1 at once: 64 registers whatever W. Shared memory
-// stays 2W(2k + 1) words a thread (1,792 B at L = 1024, 3,584 B at 2048
-// for k = 3), blocks of 32 threads: 4 warps per SM at 1024, 2 at 2048. In
-// CIGAR mode the 16-bit cells hold positions to 65,533; the history grows
-// with E (201 levels at af = 200: 11,256 B a pair at k = 3), and the
-// wrapper cuts launches to CIGAR_SCRATCH_BYTES.
+// Long rows (L > 512, W > kShortW = 16): leap_long_kernel below, chosen by
+// W at compile time, so the W <= 16 instantiations are the code they were.
+// There, 2W(2k + 1) words of rows and next-hurdle table a thread (3,584 B
+// at L = 2048, k = 3) leave 2 warps per SM. So a group of G threads
+// (kGroup: the least power of two >= 2k + 1, at least 4 and at most 32;
+// 8 at k = 2-3)
+// takes each pair, thread g owning interior lanes g * LPT .. g * LPT +
+// LPT - 1 (LPT = 1 up to k = 15) with their endh / ih / dh shift
+// registers; a level reads the neighbour lanes' rows by __shfl_up_sync /
+// __shfl_down_sync within the group, and the convergence and lane choice
+// are group reductions (__reduce_min_sync / __reduce_max_sync) with the
+// tie rules below. No lane row is kept: the block stages its pairs' planes
+// in shared memory, word w's four planes in one 16-byte word ((W + 1) x 16
+// B a pair, 1 KB at L = 2048 whatever k is; bits past each length
+// cleared), and count_ID_length makes its lane's hurdle word from the
+// staged words w and w - 1 where it reads it, scanning forward from the
+// start's word (a match run ends within a word or two off the true
+// diagonal). The SHD gate splits the words over the group and sums its
+// counts. In CIGAR mode each thread parks its own lanes' cells, the
+// scratch laid out so that a warp's stores at one level are consecutive
+// words; one thread of the group walks the history. The 16-bit cells hold
+// positions to 65,533 (kernels/shapes.py LEAP_MAX_LEN). What bounds it:
+// issue; each of a pair's threads makes its hurdle word anew at every
+// level and runs the group's shuffles, several times the short path's
+// instructions per pair and level, bought back by 48 warps per SM; a
+// level where no lane converges runs one vote instead of the reductions
+// of the lane choice.
 //
 // Left for later: the lengths as a per-lane cutoff instead of bits in
 // every row word (~10 instructions a lane and word in the prologue); the
@@ -222,102 +237,8 @@ __device__ __forceinline__ int count_id(const uint32_t* row, int start,
     return start >= buflen ? start : min(first, buflen);
 }
 
-// ---- the long-row path (W > kShortW) ----
-// Rows longer than 512 do not unroll over W: the planes are read one word
-// at a time, from the top word down, and each word of every lane row (and
-// of the SHD gate) is made from plane words w and w - 1 at once, so no
-// W-sized array lives in registers. The rows and the query are the short
-// path's.
+// rows of more words than this take the long-row path (leap_long_kernel)
 constexpr int kShortW = 16;
-
-// word w of a pair's two code planes (0 outside the row), bits at and
-// past `len` cleared: tile-major planes [NBT, 2W, tile] at base, or int8
-// codes [B, 32W] packed from the row's 8 words at 8w
-template <int W, bool kPlanes>
-__device__ __forceinline__ void plane_word(const uint32_t* __restrict__ c,
-                                           int64_t base, int64_t tile, int w,
-                                           int len, uint32_t& p0,
-                                           uint32_t& p1) {
-    p0 = p1 = 0u;
-    if (w < 0) return;
-    if constexpr (kPlanes) {
-        p0 = c[base + w * tile];
-        p1 = c[base + (W + w) * tile];
-    } else {
-#pragma unroll
-        for (int jj = 0; jj < 8; jj++) {
-            const uint32_t v = c[base + 8 * w + jj];
-            p0 |= (((v & 0x01010101u) * 0x01020408u) >> 24) << (4 * jj);
-            p1 |= ((((v >> 1) & 0x01010101u) * 0x01020408u) >> 24) << (4 * jj);
-        }
-    }
-    p0 &= ~mask_ge(len, w);
-    p1 &= ~mask_ge(len, w);
-}
-
-// bit p of the result = bit p - s of the two-word window (word w `cur`,
-// word w - 1 `prev`), 0 <= s < 32
-__device__ __forceinline__ uint32_t shl2(uint32_t cur, uint32_t prev, int s) {
-    return s == 0 ? cur : (cur << s) | (prev >> (32 - s));
-}
-
-// The interior lane rows with their next-hurdle entries (the short path's
-// layout), and with kGate the SHD gate, from one top-down pass over the
-// plane words. The planes' bits past each string's length are cleared, as
-// the gate needs; no row bit reads them (the rows force a hurdle there).
-// Returns true where the gate stops the pair.
-template <int K, int W, bool kGate, bool kPlanes>
-__device__ __forceinline__ bool build_rows_long(
-    const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
-    int64_t p, int64_t tile, int m, int n, int buflen, uint32_t* col) {
-    constexpr int L = 32 * W, NI = 2 * K + 1, MID = K + 1;
-    static_assert(K < 32, "a lane's shift stays within one word");
-    const int64_t base =
-        kPlanes ? (p / tile) * (2 * W) * tile + (p % tile) : p * (L / 4);
-    uint32_t r0, r1, f0, f1;
-    plane_word<W, kPlanes>(rc, base, tile, W - 1, m, r0, r1);
-    plane_word<W, kPlanes>(fc, base, tile, W - 1, n, f0, f1);
-    int nx[NI];
-#pragma unroll
-    for (int j = 0; j < NI; j++) nx[j] = L;
-    int count = 0;
-#pragma unroll 1
-    for (int w = W - 1; w >= 0; w--) {
-        uint32_t r0p, r1p, f0p, f1p;
-        plane_word<W, kPlanes>(rc, base, tile, w - 1, m, r0p, r1p);
-        plane_word<W, kPlanes>(fc, base, tile, w - 1, n, f0p, f1p);
-        uint32_t dw = kFull;
-#pragma unroll
-        for (int j = 0; j < NI; j++) {
-            const int l = j + 1;
-            const int a_off = MID - l > 0 ? MID - l : 0;
-            const int b_off = l - MID > 0 ? l - MID : 0;
-            const uint32_t x = (shl2(r0, r0p, a_off) ^ shl2(f0, f0p, b_off)) |
-                               (shl2(r1, r1p, a_off) ^ shl2(f1, f1p, b_off));
-            const uint32_t h = x | mask_ge(m + a_off, w) |
-                               mask_ge(n + b_off, w) |
-                               ~mask_ge(a_off + b_off, w);
-            uint32_t* const row = col + j * 2 * W * kThreads;
-            row[w * kThreads] = h;
-            row[(W + w) * kThreads] = (uint32_t)nx[j];
-            nx[j] = h ? 32 * w + ctz32(h) : nx[j];
-            if (kGate) dw &= x | ~mask_ge(a_off + b_off, w);
-        }
-        if (kGate) {
-            dw &= ~mask_ge(buflen, w) & mask_ge(K, w);
-            const uint32_t starts = dw & ~((dw << 1) & 0xEEEEEEEEu);
-            uint32_t t6 = dw ^ 0x66666666u;
-            t6 |= t6 >> 1;
-            t6 |= t6 >> 2;
-            count += __popc(starts) + __popc(~t6 & 0x11111111u);
-        }
-        r0 = r0p;
-        r1 = r1p;
-        f0 = f0p;
-        f1 = f1p;
-    }
-    return kGate && count > K;
-}
 
 struct Params {
     int n;       // pairs in this launch
@@ -406,15 +327,9 @@ leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
     const int af = P.af;
     const bool corrected = P.mode == kModeGlobal || P.mode == kModeSemiFreeBegin;
 
-    // the long-row path (W > kShortW) builds the rows and the gate word by
-    // word; the short path's W-word plane arrays go unused there
-    constexpr bool kLong = W > kShortW;
-
     // ---- the pair's bit-planes ----
     uint32_t r0[W], r1[W], f0[W], f1[W];
-    if constexpr (kLong) {
-        // read word by word with the rows, below
-    } else if constexpr (kPlanes) {
+    if constexpr (kPlanes) {
         // tile-major planes [NBT, 2W, tile]: row w plane 0, row W+w plane 1
         const int64_t tile = P.tile;
         const int64_t base = (p / tile) * (2 * W) * tile + (p % tile);
@@ -447,10 +362,6 @@ leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
     // a shifted index lies past its string's length, or before index 0.
     // Each row goes to shared memory with its next-hurdle entries, built
     // from the top word down.
-    if constexpr (kLong) {
-        gated = build_rows_long<K, W, kGate, kPlanes>(rc, fc, p, P.tile, m, n,
-                                                      buflen, col);
-    } else {
 #pragma unroll
     for (int j = 0; j < NI; j++) {
         const int l = j + 1;
@@ -469,9 +380,8 @@ leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
             nx = h ? 32 * w + ctz32(h) : nx;
         }
     }
-    }
 
-    if constexpr (kGate && !kGateFirst && !kLong)
+    if constexpr (kGate && !kGateFirst)
         gated = shd_gate<K, W>(r0, r1, f0, f1, m, n, buflen);
 
     // ---- e = 0 row (LV::init + the first run step) ----
@@ -657,6 +567,507 @@ leap_kernel(const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
     rec[p] = term;
 }
 
+// ---- the long-row path (W > kShortW): a group of threads per pair ----
+
+// threads per pair on the long-row path (kernels/shapes.py leap_group).
+// Every long shape is built per shape with it; the tuned table (W <= 16)
+// builds no long instantiation, and leap_long_kernel refuses to build
+// without it.
+#ifdef ASM_SHAPE_GROUP
+constexpr int kGroup = ASM_SHAPE_GROUP;
+constexpr bool kGroupSet = true;
+#else
+constexpr int kGroup = 1;
+constexpr bool kGroupSet = false;
+#endif
+
+// the threads of this thread's group: G consecutive lanes of its warp
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+    if constexpr (G == 32)
+        return kFull;
+    else
+        return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+}
+
+// the long path's shared memory: the block's pairs' planes, W + 1 16-byte
+// words a pair
+template <int W>
+constexpr size_t long_smem_bytes() {
+    return sizeof(uint4) * (W + 1) * (kThreads / kGroup);
+}
+
+// The block's PB pairs (the first nb of them real) staged in shared
+// memory: pair q's word w of read plane 0, read plane 1, ref plane 0 and
+// ref plane 1 in the 16-byte sm[q * (W + 1) + w] (x, y, z, w), the bits
+// at and past each string's length cleared (padding reads as 'A', as the
+// SHD gate needs). Tile-major planes are read pair-fastest (a warp's load
+// spans PB adjacent pairs), int8 codes word-fastest (a row is contiguous).
+template <int W, int PB, int NT, bool kPlanes>
+__device__ __forceinline__ void stage_planes(
+    const uint32_t* __restrict__ rc, const uint32_t* __restrict__ fc,
+    const int* __restrict__ rl, const int* __restrict__ fl, int64_t first,
+    int nb, int64_t tile, uint4* sm) {
+    constexpr int L = 32 * W;
+    uint32_t* const words = reinterpret_cast<uint32_t*>(sm);
+    if constexpr (kPlanes) {
+        // NT is a multiple of PB: a thread keeps its pair q
+        const int q = threadIdx.x % PB;
+        if (q >= nb) return;
+        const int64_t p = first + q;
+        const int64_t base = (p / tile) * (2 * W) * tile + p % tile;
+        const int m = min(rl[p], L), n = min(fl[p], L);
+#pragma unroll 1
+        for (int row = threadIdx.x / PB; row < 4 * W; row += NT / PB) {
+            const bool ref = row >= 2 * W;
+            const int pr = ref ? row - 2 * W : row;  // plane row: w or W + w
+            const int w = pr < W ? pr : pr - W;
+            const uint32_t v = (ref ? fc : rc)[base + pr * tile];
+            words[4 * (q * (W + 1) + w) + 2 * ref + (pr >= W)] =
+                v & ~mask_ge(ref ? n : m, w);
+        }
+    } else {
+#pragma unroll 1
+        for (int idx = threadIdx.x; idx < 2 * PB * W; idx += NT) {
+            const int w = idx % W, sq = idx / W;
+            const int q = sq % PB;
+            const bool ref = sq >= PB;
+            if (q >= nb) continue;
+            const int64_t p = first + q;
+            const uint32_t* row = (ref ? fc : rc) + p * (L / 4) + 8 * w;
+            uint32_t p0 = 0, p1 = 0;
+#pragma unroll
+            for (int jj = 0; jj < 8; jj++) {
+                const uint32_t v = row[jj];
+                p0 |= (((v & 0x01010101u) * 0x01020408u) >> 24) << (4 * jj);
+                p1 |= ((((v >> 1) & 0x01010101u) * 0x01020408u) >> 24)
+                      << (4 * jj);
+            }
+            const uint32_t keep = ~mask_ge(min((ref ? fl : rl)[p], L), w);
+            uint32_t* const at = words + 4 * (q * (W + 1) + w) + 2 * ref;
+            at[0] = p0 & keep;
+            at[1] = p1 & keep;
+        }
+    }
+}
+
+// the mismatch bits of a word of the lane that shifts the read by a_off
+// and the ref by b_off (0 <= shifts < 32), from the staged planes of that
+// word (cur) and the one below it (prev): bit p is set where A[p - a_off]
+// and B[p - b_off] differ
+__device__ __forceinline__ uint32_t lane_xor(uint4 prev, uint4 cur, int a_off,
+                                             int b_off) {
+    return (__funnelshift_l(prev.x, cur.x, a_off) ^
+            __funnelshift_l(prev.z, cur.z, b_off)) |
+           (__funnelshift_l(prev.y, cur.y, a_off) ^
+            __funnelshift_l(prev.w, cur.w, b_off));
+}
+
+// One interior lane on the long path: its shifts, and the hurdles no
+// mismatch makes, a shifted index past its length (positions >= cut) or
+// before index 0 (lo, the low bits of word 0).
+struct LaneLong {
+    int a_off, b_off, cut;
+    uint32_t lo;
+};
+
+__device__ __forceinline__ LaneLong lane_long(int j, int MID, int m, int n) {
+    LaneLong ln;
+    ln.a_off = MID - (j + 1) > 0 ? MID - (j + 1) : 0;
+    ln.b_off = (j + 1) - MID > 0 ? (j + 1) - MID : 0;
+    ln.cut = min(m + ln.a_off, n + ln.b_off);
+    ln.lo = ~(kFull << (ln.a_off + ln.b_off));
+    return ln;
+}
+
+// count_ID_length on one interior lane without its row: the first hurdle
+// at or past start (>= 0), capped at buflen; a start at or past buflen
+// answers itself (count_id's answers). Word w of the lane's hurdle row is
+// made where it is read, scanning up from the start's word.
+template <int W>
+__device__ __forceinline__ int count_id_long(const uint4* pl, int start,
+                                             const LaneLong& ln, int buflen) {
+    if (start >= buflen) return start;
+    const int last = (buflen - 1) >> 5;  // a hurdle past it answers buflen
+    int w = start >> 5;
+    uint4 prev = w > 0 ? pl[w - 1] : make_uint4(0u, 0u, 0u, 0u);
+    uint4 cur = pl[w];
+    uint32_t h = (lane_xor(prev, cur, ln.a_off, ln.b_off) |
+                  mask_ge(ln.cut, w) | (w == 0 ? ln.lo : 0u)) &
+                 (kFull << (start & 31));
+#pragma unroll 1
+    while (h == 0u && w < last) {
+        prev = cur;
+        cur = pl[++w];
+        h = lane_xor(prev, cur, ln.a_off, ln.b_off) | mask_ge(ln.cut, w);
+    }
+    return h ? min(32 * w + ctz32(h), buflen) : buflen;
+}
+
+// CIGAR-mode history of the long path: cell (level ev, lane j) of launch
+// pair t, lane j held by thread j / LPT of its group as its lane j % LPT;
+// word c of the cell at (((ev * CW + c) * LPT + r) * n + t) * G + g, so the
+// warp's stores at one level are consecutive words
+template <int CW, int G, int LPT>
+__device__ __forceinline__ int64_t cell_at(int ev, int c, int j, int64_t n,
+                                           int64_t t) {
+    return ((((int64_t)ev * CW + c) * LPT + j % LPT) * n + t) * G + j / LPT;
+}
+
+template <int CW, int G, int LPT>
+__device__ __forceinline__ Cell<CW> load_cell_long(
+    const uint32_t* __restrict__ hist, int NI, int ev, int j, int64_t n,
+    int64_t t) {
+    Cell<CW> c{kUnr, kUnr, kUnr, kUnr};
+    if (j < 0 || j >= NI) return c;  // border lanes are UNREACHED
+    if (CW == 1) {
+        const uint32_t w = hist[cell_at<CW, G, LPT>(ev, 0, j, n, t)];
+        c.s = (int)(w & 0xFF) - 2;
+        c.e = (int)((w >> 8) & 0xFF) - 2;
+        c.i = (int)((w >> 16) & 0xFF) - 2;
+        c.d = (int)(w >> 24) - 2;
+    } else {
+        const uint32_t a = hist[cell_at<CW, G, LPT>(ev, 0, j, n, t)];
+        const uint32_t b = hist[cell_at<CW, G, LPT>(ev, 1, j, n, t)];
+        c.s = (int)(a & 0xFFFF) - 2;
+        c.e = (int)(a >> 16) - 2;
+        c.i = (int)(b & 0xFFFF) - 2;
+        c.d = (int)(b >> 16) - 2;
+    }
+    return c;
+}
+
+template <int CW, int G, int LPT>
+__device__ __forceinline__ void park_cell_long(uint32_t* __restrict__ hist,
+                                               int ev, int j, int64_t n,
+                                               int64_t t, int s, int e, int i,
+                                               int d) {
+    if (CW == 1) {
+        hist[cell_at<CW, G, LPT>(ev, 0, j, n, t)] =
+            (uint32_t)(s + 2) | ((uint32_t)(e + 2) << 8) |
+            ((uint32_t)(i + 2) << 16) | ((uint32_t)(d + 2) << 24);
+    } else {
+        hist[cell_at<CW, G, LPT>(ev, 0, j, n, t)] =
+            (uint32_t)(s + 2) | ((uint32_t)(e + 2) << 16);
+        hist[cell_at<CW, G, LPT>(ev, 1, j, n, t)] =
+            (uint32_t)(i + 2) | ((uint32_t)(d + 2) << 16);
+    }
+}
+
+// The wavefront of leap_kernel for rows of W > kShortW words, G = kGroup
+// threads a pair (the header's "Long rows"); template parameters, inputs
+// and outputs as leap_kernel's, the history scratch in cell_at's layout.
+template <int K, int W, int X, int O, int Ge, int SEM, bool CIGAR,
+          bool kPlanes>
+__global__ void __launch_bounds__(kThreads)
+leap_long_kernel(const uint32_t* __restrict__ rc,
+                 const uint32_t* __restrict__ fc, const int* __restrict__ rl,
+                 const int* __restrict__ fl, const Params P,
+                 uint8_t* __restrict__ passed_out, int* __restrict__ pen_out,
+                 int* __restrict__ shift_out, int* __restrict__ rec,
+                 uint32_t* __restrict__ hist) {
+    constexpr int NI = 2 * K + 1;  // interior lanes l = 1..2K+1, j = l - 1
+    constexpr int MID = K + 1;
+    constexpr int L = 32 * W;
+    constexpr int DE = X > O ? X : O;  // end rows kept: levels e-1..e-DE
+    constexpr int CW = L > 253 ? 2 : 1;
+    constexpr int G = kGroup, PB = kThreads / G;
+    constexpr int LPT = (NI + G - 1) / G;  // lanes a thread owns
+    constexpr bool kLev = SEM == kSimdLev || SEM == kSimdLevGated;
+    constexpr bool kGate = SEM == kSimdLevGated;
+    static_assert(!CIGAR || SEM == kLvBag, "CIGARs mirror LV_BAG only");
+    static_assert(kGroupSet || W <= kShortW,
+                  "a long-row instantiation needs -D ASM_SHAPE_GROUP");
+    static_assert(K < 32, "a lane's shift stays within one word");
+    static_assert(kThreads % G == 0 && 32 % G == 0, "whole groups in a warp");
+    extern __shared__ __align__(16) uint32_t g_planes[];
+    uint4* const planes = reinterpret_cast<uint4*>(g_planes);
+    const int64_t first = (int64_t)blockIdx.x * PB;  // launch-relative
+    const int64_t left = (int64_t)P.n - first;  // pairs from this block on
+    const int nb = left < PB ? (int)left : PB;
+    stage_planes<W, PB, kThreads, kPlanes>(rc, fc, rl, fl, P.p0 + first, nb,
+                                           P.tile, planes);
+    __syncthreads();
+    const int q = threadIdx.x / G, g = threadIdx.x % G;
+    if (q >= nb) return;  // a group leaves whole
+    const unsigned gm = group_mask<G>();
+    const int64_t t = first + q;
+    const int64_t p = P.p0 + t;
+    const int64_t n_launch = P.n;
+    const int m = min(rl[p], L);
+    const int n = min(fl[p], L);
+    const int buflen = max(m, n);  // benchmark_utils.h:162
+    const int af = P.af;
+    const bool corrected = P.mode == kModeGlobal || P.mode == kModeSemiFreeBegin;
+    const uint4* const pl = planes + q * (W + 1);
+
+    // ---- the SHD gate: the group's threads take every G-th word ----
+    bool gated = false;
+    if constexpr (kGate) {
+        int count = 0;
+#pragma unroll 1
+        for (int w = g; w < W; w += G) {
+            const uint4 prev = w > 0 ? pl[w - 1] : make_uint4(0u, 0u, 0u, 0u);
+            const uint4 cur = pl[w];
+            uint32_t dw = kFull;
+#pragma unroll
+            for (int j = 0; j < NI; j++) {
+                const int l = j + 1;
+                const int a_off = MID - l > 0 ? MID - l : 0;
+                const int b_off = l - MID > 0 ? l - MID : 0;
+                dw &= lane_xor(prev, cur, a_off, b_off) |
+                      ~mask_ge(a_off + b_off, w);
+            }
+            dw &= ~mask_ge(buflen, w) & mask_ge(K, w);
+            const uint32_t starts = dw & ~((dw << 1) & 0xEEEEEEEEu);
+            uint32_t t6 = dw ^ 0x66666666u;
+            t6 |= t6 >> 1;
+            t6 |= t6 >> 2;
+            count += __popc(starts) + __popc(~t6 & 0x11111111u);
+        }
+        gated = __reduce_add_sync(gm, count) > K;
+    }
+
+    // this thread's lanes: j = g * LPT + r (lanes past NI are padding:
+    // they run no query and converge never, and no real lane reads them,
+    // its neighbour past NI - 1 being UNREACHED)
+    auto lane_of = [g](int r) { return g * LPT + r; };
+    LaneLong lanes[LPT];
+#pragma unroll
+    for (int r = 0; r < LPT; r++) lanes[r] = lane_long(lane_of(r), MID, m, n);
+
+    // ---- e = 0 row (LV::init + the first run step) ----
+    int endh[DE][LPT], ih[Ge][LPT], dh[Ge][LPT];
+    int first_conv = kBig, last_conv = -1;
+    const bool free_begin = P.mode == kModeLocal || P.mode == kModeSemiFreeBegin;
+#pragma unroll
+    for (int r = 0; r < LPT; r++) {
+        const int j = lane_of(r);
+        const int ld = iabs(j + 1 - MID);
+        const int s0 = free_begin ? ld : (ld == 0 ? 0 : kUnr);
+        const bool real = j < NI;
+        const int e0 = real && s0 >= 0
+                           ? count_id_long<W>(pl, s0, lanes[r], buflen)
+                           : kUnr;
+        endh[0][r] = e0;
+#pragma unroll
+        for (int d = 1; d < DE; d++) endh[d][r] = kUnr;
+#pragma unroll
+        for (int d = 0; d < Ge; d++) ih[d][r] = dh[d][r] = kUnr;
+        if (real && e0 == buflen && s0 >= 0) {
+            first_conv = min(first_conv, j);
+            last_conv = max(last_conv, j);
+        }
+        if (CIGAR && real)
+            park_cell_long<CW, G, LPT>(hist, 0, j, n_launch, t, s0, e0, kUnr,
+                                       kUnr);
+    }
+    // lv_bag takes the first converged lane, SIMD_ED (mirrored) the last
+    int lane0;
+    bool conv_any;
+    if constexpr (SEM == kLvBag) {
+        const int jf = __reduce_min_sync(gm, first_conv);
+        conv_any = jf < kBig;
+        lane0 = conv_any ? jf + 1 : MID;
+    } else {
+        const int jl = __reduce_max_sync(gm, last_conv);
+        conv_any = jl >= 0;
+        lane0 = conv_any ? jl + 1 : MID;
+    }
+    int pen0, default_pen;
+    if (SEM == kSimdAffine && corrected) {
+        pen0 = default_pen = 1000000;  // reset_affine converge_ED
+    } else if (corrected || SEM == kLvBag) {
+        pen0 = 0;
+        default_pen = af + 1;
+    } else {
+        pen0 = default_pen = 0;
+    }
+    bool stop = conv_any, passed = conv_any;
+    int pen = conv_any ? pen0 : default_pen;
+    int flane = lane0;
+    if (gated) {  // the reference stops a gated pair before e = 0
+        stop = true;
+        passed = false;
+        pen = 0;
+    }
+
+    // ---- the energy loop (the same trips on the whole group) ----
+    int e = 1;
+    for (; e <= af && !stop; e++) {
+        // the neighbour threads' edge lanes: the I row from below and the D
+        // row from above, with their end rows
+        const int up_end = __shfl_up_sync(gm, endh[O - 1][LPT - 1], 1, G);
+        const int up_i = __shfl_up_sync(gm, ih[Ge - 1][LPT - 1], 1, G);
+        const int dn_end = __shfl_down_sync(gm, endh[O - 1][0], 1, G);
+        const int dn_d = __shfl_down_sync(gm, dh[Ge - 1][0], 1, G);
+        int ns[LPT], ne[LPT], ni[LPT], nd[LPT];
+        bool conv[LPT];
+#pragma unroll
+        for (int r = 0; r < LPT; r++) {
+            const int j = lane_of(r);
+            const int l = j + 1;
+            const int top = l >= MID ? 1 : 0;  // LV_BAG.cpp:153-157
+            const int bot = l <= MID ? 1 : 0;
+            const int end_up =
+                j == 0 ? kUnr : (r > 0 ? endh[O - 1][r - 1] : up_end);
+            const int i_up = j == 0 ? kUnr : (r > 0 ? ih[Ge - 1][r - 1] : up_i);
+            const int ic = max(end_up, i_up);
+            const int iv = ic >= 0 ? ic + top : kUnr;
+            const int end_dn =
+                j >= NI - 1 ? kUnr : (r < LPT - 1 ? endh[O - 1][r + 1] : dn_end);
+            const int d_dn =
+                j >= NI - 1 ? kUnr : (r < LPT - 1 ? dh[Ge - 1][r + 1] : dn_d);
+            const int dc = max(end_dn, d_dn);
+            const int dv = dc >= 0 ? dc + bot : kUnr;
+            const int em = endh[X - 1][r];
+            const int sm = em >= 0 ? em + 1 : kUnr;
+            const int s = max(sm, max(iv, dv));
+            const int en = j < NI && s >= 0
+                               ? count_id_long<W>(pl, s, lanes[r], buflen)
+                               : kUnr;
+            ns[r] = s;
+            ne[r] = en;
+            ni[r] = iv;
+            nd[r] = dv;
+            conv[r] = j < NI && en == buflen && s >= 0;
+        }
+
+        bool stop_now = false, pass_now = false;
+        int lane_now = 0, pen_now = e;
+        bool conv_mine = false;
+#pragma unroll
+        for (int r = 0; r < LPT; r++) conv_mine = conv_mine || conv[r];
+        // a level with no converged lane stops nothing: one vote, and the
+        // lane choice only where a lane converged
+        if (__any_sync(gm, conv_mine)) {
+            if constexpr (kLev) {
+                // run_levenshtein stops at its first converged lane (our
+                // last) whether or not the converge correction passes it
+                int mine = -1;
+#pragma unroll
+                for (int r = 0; r < LPT; r++)
+                    if (conv[r]) mine = lane_of(r);
+                const int jl = __reduce_max_sync(gm, mine);
+                stop_now = true;
+                lane_now = jl + 1;
+                pen_now = corrected ? e + iabs(lane_now - MID) : e;
+                pass_now = !corrected || pen_now <= af;
+            } else {
+                // the lane of least (corrected) penalty within af: lv_bag
+                // corrected keeps the first of equals, simd_ed_affine and
+                // the uncorrected modes the last (LV_BAG.cpp:233-237)
+                const bool last_of_equals = SEM == kSimdAffine || !corrected;
+                int tt[LPT], tmine = kBig;
+#pragma unroll
+                for (int r = 0; r < LPT; r++) {
+                    const int ld = iabs(lane_of(r) + 1 - MID);
+                    const int tc =
+                        e + (corrected && ld > 0 ? O + (ld - 1) * Ge : 0);
+                    tt[r] = conv[r] && tc <= af ? tc : kBig;
+                    tmine = min(tmine, tt[r]);
+                }
+                const int tmin = __reduce_min_sync(gm, tmine);
+                int pick_last = -1, pick_first = kBig;
+#pragma unroll
+                for (int r = 0; r < LPT; r++) {
+                    if (tt[r] == tmin) {
+                        pick_last = max(pick_last, lane_of(r));
+                        pick_first = min(pick_first, lane_of(r));
+                    }
+                }
+                const int jsel = last_of_equals
+                                     ? __reduce_max_sync(gm, pick_last)
+                                     : __reduce_min_sync(gm, pick_first);
+                pass_now = stop_now = tmin < kBig;
+                lane_now = jsel + 1;
+                if (SEM == kSimdAffine) pen_now = tmin;
+            }
+        }
+        if (stop_now) {
+            stop = true;
+            passed = pass_now;
+            pen = pen_now;
+            flane = lane_now;
+        }
+
+#pragma unroll
+        for (int r = 0; r < LPT; r++) {
+#pragma unroll
+            for (int d = DE - 1; d > 0; d--) endh[d][r] = endh[d - 1][r];
+            endh[0][r] = ne[r];
+#pragma unroll
+            for (int d = Ge - 1; d > 0; d--) {
+                ih[d][r] = ih[d - 1][r];
+                dh[d][r] = dh[d - 1][r];
+            }
+            ih[0][r] = ni[r];
+            dh[0][r] = nd[r];
+            if (CIGAR && e <= P.E && lane_of(r) < NI)
+                park_cell_long<CW, G, LPT>(hist, e, lane_of(r), n_launch, t,
+                                           ns[r], ne[r], ni[r], nd[r]);
+        }
+    }
+
+    if (!CIGAR) {
+        if (g == 0) {
+            passed_out[p] = passed ? 1 : 0;
+            pen_out[p] = pen;
+            shift_out[p] = flane - MID;
+        }
+        return;
+    }
+    __syncwarp(gm);  // the group's parked cells, seen by its walker
+    if (g != 0) return;
+    passed_out[p] = passed ? 1 : 0;
+    pen_out[p] = pen;
+    shift_out[p] = flane - MID;
+    // ---- the backtrack walk (LV::backtrack, LV_BAG.cpp:250-354) ----
+    // cm: 0 a fresh arrival, 1 inside an insertion chain, 2 a deletion chain
+    const int64_t B = P.B;
+    int row_hi = P.E;  // rows above row_hi are written
+    int term = 0;
+    if (passed && pen <= P.E) {
+        int cur = pen, ln = flane, cm = 0;
+        for (int guard = 0; cur > 0 && guard <= P.E; guard++) {
+            const int ev = cur;
+            const Cell<CW> c =
+                load_cell_long<CW, G, LPT>(hist, NI, ev, ln - 1, n_launch, t);
+            const bool ok_ge = ev - Ge >= 0;
+            const int evg = ok_ge ? ev - Ge : 0;
+            const int i_prev =
+                load_cell_long<CW, G, LPT>(hist, NI, evg, ln - 2, n_launch, t)
+                    .i;
+            const int d_prev =
+                load_cell_long<CW, G, LPT>(hist, NI, evg, ln, n_launch, t).d;
+            const bool fresh = cm == 0;
+            const int run = fresh ? c.e - c.s : 0;
+            const bool is_i = fresh ? c.s == c.i : cm == 1;
+            const bool is_d = fresh ? (c.s != c.i && c.s == c.d) : cm == 2;
+            const int top = ln >= MID ? 1 : 0;
+            const int bot = ln <= MID ? 1 : 0;
+            const bool ext_i = ok_ge && i_prev != kUnr && i_prev + top == c.i;
+            const bool ext_d = ok_ge && d_prev != kUnr && d_prev + bot == c.d;
+            const int op = is_i ? 2 : (is_d ? 3 : 1);
+            const bool is_open = (is_i && !ext_i) || (is_d && !ext_d);
+            for (int r = row_hi; r > ev; r--) rec[r * B + p] = 0;
+            rec[ev * B + p] = op | ((is_open ? 1 : 0) << 2) | (run << 3);
+            row_hi = ev - 1;
+            const int de =
+                is_i ? (ext_i ? Ge : O) : (is_d ? (ext_d ? Ge : O) : X);
+            cur = max(ev - de, 0);
+            ln += is_i ? -1 : (is_d ? 1 : 0);
+            cm = (is_i && ext_i) ? 1 : ((is_d && ext_d) ? 2 : 0);
+        }
+        // the terminal match run at energy 0 on the walk's final lane
+        const Cell<CW> c0 =
+            load_cell_long<CW, G, LPT>(hist, NI, 0, ln - 1, n_launch, t);
+        term = c0.e - c0.s;
+    }
+    for (int r = row_hi; r >= 1; r--) rec[r * B + p] = 0;
+    rec[p] = term;
+}
+
 // once per instantiation: room for the rows above the 48 KB default, and
 // the carveout that gives shared memory the most of the SM's 256 KB
 template <typename F>
@@ -684,19 +1095,32 @@ struct Choice {
     int pens, sem, gate, cigar;
 };
 
+// the kernel of the instantiation: the long-row path's above kShortW words
+template <int K, int W, int X, int O, int G, int SEM, bool CIGAR,
+          bool kPlanes>
+auto kernel_of() {
+    if constexpr (W > kShortW)
+        return leap_long_kernel<K, W, X, O, G, SEM, CIGAR, kPlanes>;
+    else
+        return leap_kernel<K, W, X, O, G, SEM, CIGAR, kPlanes>;
+}
+
 // launches the instantiation (a != nullptr) or, with a == nullptr, stores
 // its resident blocks per SM in *blocks
 template <int K, int W, int X, int O, int G, int SEM, bool CIGAR,
           bool kPlanes>
 cudaError_t run(const Launch* a, int* blocks) {
-    const auto kernel = leap_kernel<K, W, X, O, G, SEM, CIGAR, kPlanes>;
-    constexpr size_t smem = smem_bytes<K, W>();
+    const auto kernel = kernel_of<K, W, X, O, G, SEM, CIGAR, kPlanes>();
+    constexpr bool kLong = W > kShortW;
+    constexpr size_t smem = kLong ? long_smem_bytes<W>() : smem_bytes<K, W>();
+    // pairs per block: one a thread, one a group on the long path
+    constexpr int PB = kLong ? kThreads / kGroup : kThreads;
     static const cudaError_t attr = set_attributes(kernel, smem);
     if (attr != cudaSuccess) return attr;
     if (a == nullptr)
         return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
                                                              kThreads, smem);
-    const int grid = (a->P.n + kThreads - 1) / kThreads;
+    const int grid = (a->P.n + PB - 1) / PB;
     kernel<<<grid, kThreads, smem, a->stream>>>(
         (const uint32_t*)a->rc, (const uint32_t*)a->fc, (const int*)a->rl,
         (const int*)a->fl, a->P, (uint8_t*)a->passed, (int*)a->pen,

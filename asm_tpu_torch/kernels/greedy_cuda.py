@@ -219,8 +219,9 @@ def occupancy(k: int = 3, max_len: int = 128, planes: bool = True) -> int:
 
 
 def block_threads(max_len: int = 128, k: int = 3) -> int:
-    """Threads per block (one pair each) of the instantiation of (k,
-    max_len), as its library reports it (csrc/greedy.cu's block_threads;
+    """Threads per block of the instantiation of (k, max_len), one pair
+    each (above max_len 512 a group of `plan(k, max_len).group` per
+    pair), as its library reports it (csrc/greedy.cu's block_threads;
     `plan(k, max_len).threads` says the same without a card)."""
     return _load(k, max_len).asm_greedy_block_threads(max_len // 32)
 

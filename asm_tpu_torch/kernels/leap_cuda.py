@@ -77,20 +77,25 @@ def build_kernel(k: int = 3, max_len: int = 128,
     return nvcc_library(p.stem, SOURCE, p.defines)
 
 
+def bind(path: str):
+    """The library at `path` (a build of csrc/leap.cu), its functions
+    typed for ctypes."""
+    lib = ctypes.CDLL(path)
+    c = ctypes
+    lib.asm_leap_launch.restype = c.c_int
+    lib.asm_leap_launch.argtypes = (
+        [c.c_void_p] * 4 + [c.c_int] * 14 + [c.c_void_p] * 5
+        + [c.c_int, c.c_void_p])
+    lib.asm_leap_occupancy.restype = c.c_int
+    lib.asm_leap_occupancy.argtypes = [c.c_int] * 3
+    return lib
+
+
 def _load(k: int = 3, max_len: int = 128, pens=(1, 1, 1)):
     """The bound library holding the shape, built at its first use."""
     p = plan(k, max_len, pens)
     if p.stem not in _libs:
-        path, _ = build_kernel(k, max_len, pens)
-        lib = ctypes.CDLL(path)
-        c = ctypes
-        lib.asm_leap_launch.restype = c.c_int
-        lib.asm_leap_launch.argtypes = (
-            [c.c_void_p] * 4 + [c.c_int] * 14 + [c.c_void_p] * 5
-            + [c.c_int, c.c_void_p])
-        lib.asm_leap_occupancy.restype = c.c_int
-        lib.asm_leap_occupancy.argtypes = [c.c_int] * 3
-        _libs[p.stem] = lib
+        _libs[p.stem] = bind(build_kernel(k, max_len, pens)[0])
     return _libs[p.stem]
 
 
@@ -110,10 +115,12 @@ def occupancy(k: int = 3, max_len: int = 128, cigar: bool = False,
 
 def history_words(cfg: AlignConfig) -> int:
     """uint32 words of parked history per pair in CIGAR mode: (E+1)
-    levels x 2k+1 interior lanes x 1 word (8-bit cells, L <= 253) or 2
-    (16-bit cells)."""
+    levels x 2k+1 interior lanes (on the long-row path the group's G x
+    lanes-a-thread slots, padding lanes included) x 1 word (8-bit cells,
+    L <= 253) or 2 (16-bit cells)."""
     cw = 2 if cfg.max_len > 253 else 1
-    return (cfg.leap_energy_bound + 1) * (2 * cfg.k + 1) * cw
+    G = plan(cfg.k, cfg.max_len, (cfg.x, cfg.o, cfg.e)).group
+    return (cfg.leap_energy_bound + 1) * -(-(2 * cfg.k + 1) // G) * G * cw
 
 
 def _launch(read, read_len, ref, ref_len, cfg: AlignConfig, planes: bool,

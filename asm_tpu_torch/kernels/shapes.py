@@ -17,15 +17,17 @@ cannot hold.
 Ranges: max_len any multiple of 32 from 32 up, for all four kernels, as
 far as a computed limit allows. Up to max_len 512 (W = L/32 <= 16) each
 kernel unrolls a pair's loops over W; above it (W > LONG_W) each source
-has a long-row path of its own, whose registers do not grow with W:
-greedy and LEAP read the planes and rows word by word in rolled loops, at
-32 threads a block; NW sweeps one pair per warp in horizontal blocks of
+has a long-row path of its own: greedy and LEAP take a group of
+long_group(k) threads per pair (LEAP at least 4: leap_group), one lane a
+thread, greedy with the pair's hurdle rows once in shared memory, LEAP
+with its planes staged there and no rows; NW sweeps one pair per warp in horizontal blocks of
 NW_BLOCK_ROWS rows; the band kernel keeps its code rows in dynamic shared
 memory. The limits: shared memory per block (SMEM_BLOCK_LIMIT) at 32
 threads for greedy, LEAP, the NW long path and the band kernel; greedy's
-7-bit lane delta (k <= 31); LEAP's penalties (1-8) and its 16-bit history
-cells (L < 2^16 - 2); NW's trace scratch per pair (TRACE_SCRATCH_BYTES).
-The band takes BW 4-128 at every max_len.
+7-bit lane delta (k <= 31); LEAP's penalties (1-8), its 16-bit history
+cells (L < 2^16 - 2) and, on its long path, a lane's shift within one
+word (k <= 31); NW's trace scratch per pair (TRACE_SCRATCH_BYTES). The
+band takes BW 4-128 at every max_len.
 """
 
 from __future__ import annotations
@@ -57,6 +59,12 @@ LEAP_PENALTIES = ((1, 1, 1), (2, 3, 1))
 LEAP_MAX_PENALTY = 8
 # the greedy records' in-loop lane delta (at most 2k) + 64 in 7 bits
 GREEDY_MAX_K = 31
+# the LEAP long-row path's lane shifts (at most k) stay within one word
+LEAP_LONG_MAX_K = 31
+# the least group of the LEAP long-row path: at 32 threads a block then
+# stages at most 8 pairs' planes, 128 (W + 1) bytes, so k = 0 reaches
+# max_len 58,080 (one thread a pair would stage 32 and stop at 14,496)
+LEAP_MIN_GROUP = 4
 # csrc/nw.cu's pointer routes and its tuned table: (W, trace) -> (G, route)
 ROUTE_NONE, ROUTE_GLOBAL, ROUTE_SHARED = 0, 1, 2
 NW_TUNED = {(4, False): (8, ROUTE_NONE), (8, False): (8, ROUTE_NONE),
@@ -75,11 +83,17 @@ BAND_WIDE_SMEM = 64 * 1024
 class Plan:
     """The library of one shape: its stem (lib<stem>_<hash>.so), the -D
     defines that select the shape (empty for the tuned table), threads
-    per block and dynamic shared memory per block."""
+    per block, dynamic shared memory per block and threads per pair (1,
+    or the group of a greedy or LEAP long-row path)."""
     stem: str
     defines: tuple = ()
     threads: int = 0
     smem_bytes: int = 0
+    group: int = 1
+
+    @property
+    def pairs_per_block(self) -> int:
+        return self.threads // self.group
 
     @property
     def tuned(self) -> bool:
@@ -107,23 +121,37 @@ def fit_threads(smem_of, what: str) -> int:
         f"threads per block, above the {SMEM_BLOCK_LIMIT} a block may take")
 
 
-def long_threads(smem_of, what: str) -> int:
-    """The long-row path's block size: 32 threads, the finest packing of
-    an SM (a block of 32 pairs' rows takes tens of KB); raises naming the
-    shared-memory limit."""
-    nt = THREAD_CHOICES[-1]
-    if smem_of(nt) > SMEM_BLOCK_LIMIT:
-        raise NotImplementedError(
-            f"{what} needs {smem_of(nt)} bytes of shared memory a block at "
-            f"{nt} threads per block, above the {SMEM_BLOCK_LIMIT} a block "
-            f"may take")
-    return nt
-
-
 def greedy_smem(k: int, W: int, threads: int) -> int:
-    """csrc/greedy.cu's smem_bytes: per thread and lane, W orig and W den
-    words and 4 scalars (the long-row path keeps no den words)."""
-    return 4 * ((W if W > LONG_W else 2 * W) + 4) * (2 * k + 1) * threads
+    """csrc/greedy.cu's smem_bytes (the short path): per thread and lane,
+    W orig and W den words and 4 scalars."""
+    return 4 * (2 * W + 4) * (2 * k + 1) * threads
+
+
+def greedy_long_smem(k: int, W: int, group: int, threads: int) -> int:
+    """csrc/greedy.cu's long_smem_bytes: the 2k+1 hurdle rows, at an odd
+    stride of W | 1 words, of each of the block's threads / group pairs."""
+    return 4 * (2 * k + 1) * (W | 1) * (threads // group)
+
+
+def leap_long_smem(W: int, group: int, threads: int) -> int:
+    """csrc/leap.cu's long_smem_bytes: the staged planes, W + 1 words of
+    16 bytes (the four planes' word w), for each of the block's threads /
+    group pairs."""
+    return 16 * (W + 1) * (threads // group)
+
+
+def long_group(k: int) -> int:
+    """Threads per pair of the greedy long-row path: one lane a thread,
+    the least power of two >= 2k + 1 (8 at k = 2-3, 16 at 4-7), at most 32
+    (k >= 16: two lanes a thread)."""
+    return min(32, 1 << (2 * k).bit_length())
+
+
+def leap_group(k: int) -> int:
+    """Threads per pair of the LEAP long-row path: long_group(k), at least
+    LEAP_MIN_GROUP, so that a block holds few enough pairs' staged planes
+    (at k = 0 one real lane and three padding lanes a pair)."""
+    return max(LEAP_MIN_GROUP, long_group(k))
 
 
 def greedy_plan(k: int, max_len: int) -> Plan:
@@ -138,8 +166,14 @@ def greedy_plan(k: int, max_len: int) -> Plan:
         nt = 32 if W == 16 else 128
         return Plan("greedy", (), nt, greedy_smem(k, W, nt))
     what = f"greedy at k={k}, max_len={max_len}"
-    nt = (long_threads(lambda t: greedy_smem(k, W, t), what) if W > LONG_W
-          else fit_threads(lambda t: greedy_smem(k, W, t), what))
+    if W > LONG_W:
+        G = long_group(k)
+        nt = fit_threads(lambda t: greedy_long_smem(k, W, G, t), what)
+        return Plan(f"greedy_k{k}_w{W}",
+                    (("ASM_SHAPE_K", k), ("ASM_SHAPE_W", W),
+                     ("ASM_SHAPE_THREADS", nt), ("ASM_SHAPE_GROUP", G)), nt,
+                    greedy_long_smem(k, W, G, nt), G)
+    nt = fit_threads(lambda t: greedy_smem(k, W, t), what)
     return Plan(f"greedy_k{k}_w{W}",
                 (("ASM_SHAPE_K", k), ("ASM_SHAPE_W", W),
                  ("ASM_SHAPE_THREADS", nt)), nt, greedy_smem(k, W, nt))
@@ -167,12 +201,23 @@ def leap_plan(k: int, max_len: int, x: int, o: int, e: int) -> Plan:
             f"LEAP's history cells hold a position + 2 in 16 bits, which "
             f"caps max_len at {LEAP_MAX_LEN}; got {max_len}")
     what = f"LEAP at k={k}, max_len={max_len}"
-    nt = (long_threads(lambda t: leap_smem(k, W, t), what) if W > LONG_W
-          else fit_threads(lambda t: leap_smem(k, W, t), what))
-    return Plan(f"leap_k{k}_w{W}_x{x}o{o}e{e}",
-                (("ASM_SHAPE_K", k), ("ASM_SHAPE_W", W), ("ASM_SHAPE_X", x),
-                 ("ASM_SHAPE_O", o), ("ASM_SHAPE_G", e),
-                 ("ASM_SHAPE_THREADS", nt)), nt, leap_smem(k, W, nt))
+    defines = (("ASM_SHAPE_K", k), ("ASM_SHAPE_W", W), ("ASM_SHAPE_X", x),
+               ("ASM_SHAPE_O", o), ("ASM_SHAPE_G", e))
+    stem = f"leap_k{k}_w{W}_x{x}o{o}e{e}"
+    if W > LONG_W:
+        if k > LEAP_LONG_MAX_K:
+            raise NotImplementedError(
+                f"{what}: the long-row path makes a lane's hurdle word from "
+                f"two plane words, so a lane's shift (up to k) stays within "
+                f"one word, which caps k at {LEAP_LONG_MAX_K}")
+        G = leap_group(k)
+        nt = fit_threads(lambda t: leap_long_smem(W, G, t), what)
+        return Plan(stem, defines + (("ASM_SHAPE_THREADS", nt),
+                                     ("ASM_SHAPE_GROUP", G)),
+                    nt, leap_long_smem(W, G, nt), G)
+    nt = fit_threads(lambda t: leap_smem(k, W, t), what)
+    return Plan(stem, defines + (("ASM_SHAPE_THREADS", nt),), nt,
+                leap_smem(k, W, nt))
 
 
 def nw_rows(L: int, G: int) -> int:

@@ -42,11 +42,12 @@ prints one JSON line per (kernel, L) under the JAX rows' field names where
 they mean the same (aligns_per_sec, ns_per_pair, steps_mean/max,
 chunk_bounds, energy_mean/max, pass_rate, checksum), plus the best rep's
 ms, bound_ms, bound_by and its share, the launches and, on a card, the
-instantiation's registers, spill bytes, warps per SM and the card's name
-and power limit. --check-plain N holds N pairs spread over the corpus
-against the plain version on the same device (greedy cost and steps, LEAP
-passed, penalty and lane_shift, the decoded CIGARs). --device cpu runs
-the plain versions on the CPU (no times).
+instantiation's registers, spill bytes, warps per SM, threads per block
+and per pair (group) and the card's name and power limit. --check-plain
+N holds N pairs spread over the corpus against the plain version on the
+same device (greedy cost and steps, LEAP passed, penalty and lane_shift,
+the decoded CIGARs). --device cpu runs the plain versions on the CPU (no
+times).
 """
 
 from __future__ import annotations
@@ -158,9 +159,11 @@ def _resources(kernel: str, L: int, device) -> dict:
 
     if kernel == "greedy":
         return dict(rl.greedy_resources(k=3, max_len=L),
-                    block_threads=greedy_cuda.block_threads(L))
+                    block_threads=greedy_cuda.block_threads(L),
+                    group=greedy_cuda.plan(3, L).group)
     got = rl.leap_resources(k=3, max_len=L, cigar=kernel == "cigar")
-    return dict(got, block_threads=leap_cuda.plan(3, L).threads)
+    p = leap_cuda.plan(3, L)
+    return dict(got, block_threads=p.threads, group=p.group)
 
 
 def _row(kernel, L, pairs, rep_s, bound, launches, device, **fields):

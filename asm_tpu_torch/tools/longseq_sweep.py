@@ -14,9 +14,23 @@ equal to the checked-in build's.
   piece   nw_cuda.TRACE_SCRATCH_BYTES: the trace kernel's launch pieces at
           L = 512 and 256 (the constant serves both), 256 MiB to 4 GiB
           of pointer scratch
+  cigar   the long-row LEAP kernel's fused CIGAR at L = 1024, k = 3, on
+          chip_smoke 18b's flow (--cigar-pairs, its 16 energy-sorted
+          slices): the plan's 128-thread blocks beside 64 and 32 (more
+          blocks for the same pairs), a copy whose groups skip the
+          backtrack walk (its records not written, so only its
+          penalties are compared), and with --parent DIR the per-thread
+          kernel of the checkout at DIR (its csrc/leap.cu, one pair a
+          thread); each also in penalty mode; then one launch of the
+          middle N pairs of the energy order at each N of CIGAR_SIZES,
+          the checked-in kernel and the parent's, CIGAR and penalty mode;
+          its launches queued behind a spin of the card, so each time is
+          the card's alone (and the host's time to issue them is beside
+          it)
 
-    python -m asm_tpu_torch.tools.longseq_sweep [greedy nw piece]
-        [--pairs N] [--nw-pairs N] [--reps N]
+    python -m asm_tpu_torch.tools.longseq_sweep [greedy nw piece cigar]
+        [--pairs N] [--nw-pairs N] [--cigar-pairs N] [--parent DIR]
+        [--reps N]
 
 The corpus is the long-sequence headline's at L = 512 (496-base reads,
 err 0.05, seed 7) cut to --pairs; the piece sweep at L = 256 takes the
@@ -32,6 +46,7 @@ import contextlib
 import json
 import os
 import re
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -44,7 +59,7 @@ from asm_tpu_torch.utils.build import BUILD_DIR, nvcc_library, ptxas_report_path
 from asm_tpu_torch.utils.timing import log, time_reps
 
 L = 512
-SWEEPS = ("greedy", "nw", "piece")
+SWEEPS = ("greedy", "nw", "piece", "cigar")
 # the variants, and the patterns of the source lines that set them
 GREEDY_THREADS = (128, 64, 32)
 GREEDY_LINE = r"return W == 16 \? \d+ : 128;"
@@ -52,13 +67,27 @@ NW_GROUPS = (16, 32)
 NW_LINE = (r"template <> struct Inst<16, {trace}> {{ static constexpr int "
            r"G = \d+,")
 PIECES_MIB = (256, 1024, 2048, 4096)
+# the cigar sweep: chip_smoke 18b's flow at L = 1024 (k = 3, unit
+# penalties), block sizes beside the plan's, and the launch sizes
+CIGAR_L = 1024
+CIGAR_THREADS = (64, 32)
+CIGAR_SIZES = (2048, 4096, 8192, 16384, 32768, 65536, 131072)
+SPIN_CYCLES = 40_000_000  # ~20 ms at 1.98 GHz
+# the long kernel's hand-over to its walker, and the copy that skips the
+# walk: each group's thread 0 writes the outputs and returns
+WALK_LINE = (r"    __syncwarp\(gm\);  // the group's parked cells, seen by "
+             r"its walker\n    if \(g != 0\) return;\n")
+NO_WALK = ("    __syncwarp(gm);\n    if (g != 0) return;\n"
+           "    passed_out[p] = passed ? 1 : 0;\n    pen_out[p] = pen;\n"
+           "    shift_out[p] = flane - MID;\n    return;\n")
 
 
-def variant(module, name: str, subs) -> tuple[str, str]:
-    """Build a copy of `module`'s source in which each (pattern, text) of
-    `subs` replaces the one line the pattern matches; returns (library
-    path, ptxas report path)."""
-    with open(module.SOURCE) as f:
+def variant(module, name: str, subs, defines=(),
+            source: str | None = None) -> tuple[str, str]:
+    """Build a copy of `module`'s source (or of `source`) in which each
+    (pattern, text) of `subs` replaces the one line the pattern matches,
+    with `defines`; returns (library path, ptxas report path)."""
+    with open(source or module.SOURCE) as f:
         src = f.read()
     for pattern, text in subs:
         src, n = re.subn(pattern, text, src)
@@ -69,7 +98,8 @@ def variant(module, name: str, subs) -> tuple[str, str]:
     path = os.path.join(BUILD_DIR, "variants", f"{name}.cu")
     with open(path, "w") as f:
         f.write(src)
-    return nvcc_library(name, path)[0], ptxas_report_path(name, path)
+    return (nvcc_library(name, path, defines)[0],
+            ptxas_report_path(name, path))
 
 
 @contextlib.contextmanager
@@ -222,11 +252,183 @@ def piece_sweep(corpus, L: int, n: int, reps: int) -> dict:
         checked_in_mib=saved >> 20)
 
 
+def queued(fns, reps: int) -> tuple[list, list]:
+    """Device ms of each of `fns` (called once each, in order) queued
+    behind a spin of the card (torch.cuda._sleep, ~20 ms), so that the
+    host's time to issue them shows nowhere: the best of `reps` (after a
+    warm-up) by their sum, then the host's ms to issue that rep, and the
+    outputs."""
+    outs = [f() for f in fns]
+    best = None
+    for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(len(fns) + 1)]
+        t0 = time.perf_counter()
+        marks[0].record()
+        outs = []
+        for f, mark in zip(fns, marks[1:]):
+            outs.append(f())
+            mark.record()
+        host = (time.perf_counter() - t0) * 1e3
+        marks[-1].synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        if best is None or sum(ms) < sum(best[0]):
+            best = (ms, host)
+    return [best[0], best[1]], outs
+
+
+def queued_turns(names, run, same) -> dict:
+    """run(name) -> ([per-call device ms, host ms], outputs) for the names
+    in turns (forward, then reversed), each turn's outputs held against
+    the first's (`same(a, b, the two names)`); returns name -> dict(ms:
+    the sum per turn, per_call: the first turn's, host_ms per turn)."""
+    out, first = {n: dict(ms=[], host_ms=[]) for n in names}, None
+    for name in list(names) + list(reversed(names)):
+        (per_call, host), outs = run(name)
+        got = out[name]
+        got["ms"].append(sum(per_call))
+        got["host_ms"].append(host)
+        got.setdefault("per_call", per_call)
+        log(f"{name}: {sum(per_call):.4f} ms on the card (host {host:.3f})")
+        if first is None:
+            first = (name, outs)
+        elif not same(outs, first[1], (name, first[0])):
+            raise AssertionError(f"{name}'s outputs differ")
+    return out
+
+
+@contextlib.contextmanager
+def using_leap(lib, stem: str):
+    """leap_cuda's wrappers launch from `lib` in place of the library
+    `stem` inside."""
+    from asm_tpu_torch.kernels import leap_cuda
+
+    saved = leap_cuda._libs.get(stem)
+    leap_cuda._libs[stem] = lib
+    try:
+        yield
+    finally:
+        if saved is None:
+            del leap_cuda._libs[stem]
+        else:
+            leap_cuda._libs[stem] = saved
+
+
+def cigar_sweep(pairs: int, parent: str | None, reps: int,
+                tile: int) -> dict:
+    """The cigar sweep (module docstring): per variant the 18b slices'
+    ms in each turn, CIGAR and penalty mode, with registers, spills,
+    threads a block and warps per SM; then ms per launch size. Every
+    time is the card's alone: the launches are queued behind a spin."""
+    import dataclasses
+
+    from asm_tpu_torch.kernels import leap_cuda, shapes
+    from asm_tpu_torch.kernels.leap_cuda import leap_align_cuda
+
+    L, k, W = CIGAR_L, 3, CIGAR_L // 32
+    p = leap_cuda.plan(k, L)
+    base = dict(p.defines)
+    jobs = {f"nt{nt}": (f"{p.stem}_nt{nt}", [], dict(
+        base, ASM_SHAPE_THREADS=nt), None) for nt in CIGAR_THREADS}
+    jobs["no_walk"] = (f"{p.stem}_nowalk", [(WALK_LINE, NO_WALK)], base,
+                       None)
+    threads = {"checked-in": p.threads, "no_walk": p.threads}
+    threads.update({f"nt{nt}": nt for nt in CIGAR_THREADS})
+    if parent:
+        # the per-thread plan: the largest block whose rows fit
+        nt = shapes.fit_threads(lambda t: shapes.leap_smem(k, W, t),
+                                "the parent's plan")
+        pdef = {n: v for n, v in base.items() if n != "ASM_SHAPE_GROUP"}
+        jobs["parent"] = (f"parent_{p.stem}", [], dict(
+            pdef, ASM_SHAPE_THREADS=nt), os.path.join(
+                parent, "asm_tpu_torch", "csrc", "leap.cu"))
+        threads["parent"] = nt
+    leap_cuda._load(k, L)
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        built = dict(zip(jobs, ex.map(lambda j: variant(
+            leap_cuda, j[0], j[1], tuple(j[2].items()), j[3]),
+            jobs.values())))
+    libs = {"checked-in": leap_cuda._load(k, L)}
+    libs.update({n: leap_cuda.bind(path) for n, (path, _) in built.items()})
+    info = {}
+    for name, lib in libs.items():
+        rep = (leap_cuda.ptxas_report(k, L) if name == "checked-in"
+               else built[name][1])
+        kernel = "leap_kernel" if name == "parent" else "leap_long_kernel"
+        for cigar in (False, True):
+            fn = (f"{kernel}ILi{k}ELi{W}ELi1ELi1ELi1ELi0ELb{int(cigar)}"
+                  f"ELb1E")
+            got = lib.asm_leap_occupancy(k, W, int(cigar))
+            info[f"{name}{'_cigar' if cigar else ''}"] = dict(
+                _usage(leap_cuda, fn, rep), block_threads=threads[name],
+                warps_per_sm=got * threads[name] // 32)
+
+    corpus = lh.long_corpus(L, pairs)
+    lcfg = lh.leap_config(L)
+    chunk = lh.chunk_pairs(pairs)
+    ident = np.arange(pairs, dtype=np.int64)
+    outs = [leap_align_cuda(*c, lcfg, pre_staged="planes_tiled", tile=tile)
+            for c in stage_chunks(corpus, ident, chunk, tile, "cuda")]
+    passed = np.concatenate([o["passed"].cpu().numpy() for o in outs])
+    pen = np.concatenate([o["penalty"].cpu().numpy() for o in outs])
+    energy = np.where(passed, pen, np.int32(1 << 20))
+    order = np.argsort(energy, kind="stable")
+    csize = max(tile, min(chunk, pairs // 16))
+    plan = lh.plan_cigar_chunks(energy[order], lcfg.leap_af_threshold, csize)
+    cfgs = [dataclasses.replace(lcfg, leap_max_energy=eb) for _, eb in plan]
+    chunks = stage_chunks(corpus, order, csize, tile, "cuda")
+
+    def run_on(chunks, cfgs, cigar):
+        def run(name):
+            fns = [lambda c=c, cfg=cfg: leap_align_cuda(
+                *c, cfg, pre_staged="planes_tiled", tile=tile,
+                want_cigar=cigar) for c, cfg in zip(chunks, cfgs)]
+            with using_leap(libs[name], p.stem):
+                return queued(fns, reps)
+        return run
+
+    def same(a, b, names):  # the no-walk copy writes no records
+        keys = ["passed", "penalty", "lane_shift"]
+        if "edit_rec" in b[0] and "no_walk" not in names:
+            keys.append("edit_rec")
+        return all(torch.equal(x[key], y[key]) for x, y in zip(a, b)
+                   for key in keys)
+
+    names = list(libs)
+    ms = {"cigar": queued_turns(names, run_on(chunks, cfgs, True), same),
+          "penalty": queued_turns([n for n in names if n != "no_walk"],
+                                  run_on(chunks, cfgs, False), same)}
+    sizes = {}
+    pair = [n for n in ("checked-in", "parent") if n in libs]
+    for n in CIGAR_SIZES:
+        if n > pairs:
+            break
+        lo = (pairs - n) // 2  # the energy order's middle n pairs
+        rows = order[lo:lo + n]
+        eb = lh.plan_cigar_chunks(energy[rows], lcfg.leap_af_threshold,
+                                  n)[0][1]
+        one = stage_chunks(corpus, rows, n, tile, "cuda")
+        ncfg = [dataclasses.replace(lcfg, leap_max_energy=eb)]
+        sizes[n] = dict(energy_bound=eb, cigar=queued_turns(
+            pair, run_on(one, ncfg, True), same), penalty=queued_turns(
+            pair, run_on(one, ncfg, False), same))
+    return dict(sweep="cigar", L=L, k=k, pairs=pairs, slice_pairs=csize,
+                slice_bounds=[eb for _, eb in plan], ms=ms, sizes=sizes,
+                instantiations=info, group=p.group,
+                blocks_for_a_slice={n: -(-csize // (t // (1 if n == "parent"
+                                                         else p.group)))
+                                    for n, t in threads.items()})
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sweeps", nargs="*", default=list(SWEEPS))
     ap.add_argument("--pairs", type=int, default=1 << 20)
     ap.add_argument("--nw-pairs", type=int, default=1 << 16)
+    ap.add_argument("--cigar-pairs", type=int, default=1 << 18)
+    ap.add_argument("--parent", help="a checkout whose csrc/leap.cu the "
+                    "cigar sweep builds beside this one's")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--tile", type=int, default=4096)
     args = ap.parse_args(argv)
@@ -238,10 +440,14 @@ def main(argv=None) -> None:
     from asm_tpu_torch.tools.roofline import card_line
 
     card = card_line()
-    corpus = lh.long_corpus(L, args.pairs)
+    corpus = (lh.long_corpus(L, args.pairs)
+              if set(args.sweeps) - {"cigar"} else None)
     lines = []
     for s in args.sweeps:
-        if s == "greedy":
+        if s == "cigar":
+            lines = [cigar_sweep(args.cigar_pairs, args.parent, args.reps,
+                                 args.tile)]
+        elif s == "greedy":
             lines = [greedy_sweep(corpus, args.reps, args.tile)]
         elif s == "nw":
             lines = [nw_sweep(corpus, args.nw_pairs, args.reps)]

@@ -464,9 +464,12 @@ def count_kernel(listing: str, trips, inner: float | None = None) -> dict:
 
 def greedy_fn(k: int = 3, max_len: int = 128) -> str:
     """Mangled-name stem of csrc/greedy.cu's instantiation at (k, max_len)
-    on planes (int16 records at max_len <= 255, else int32)."""
+    on planes (int16 records at max_len <= 255, else int32; the long-row
+    kernel above LONG_W words)."""
     rec = "s" if max_len <= 255 else "i"
-    return f"greedy_kernelILi{k}ELi{max_len // 32}ELb1E{rec}E"
+    long = max_len // 32 > LONG_W
+    return (f"greedy{'_long' if long else ''}_kernelILi{k}ELi{max_len // 32}"
+            f"ELb1E{rec}E")
 
 
 def leap_fn(k: int = 3, max_len: int = 128, cigar: bool = False,
@@ -474,10 +477,12 @@ def leap_fn(k: int = 3, max_len: int = 128, cigar: bool = False,
     """Mangled-name stem of csrc/leap.cu's instantiation at (k, max_len,
     (x, o, e)), semantics `sem` (its SEM: 0 lv_bag, 1 simd_ed_lev, 2
     simd_ed_affine, 3 simd_ed_lev behind the SHD gate; default lv_bag) on
-    planes or codes, in penalty or CIGAR mode."""
+    planes or codes, in penalty or CIGAR mode (the long-row kernel above
+    LONG_W words)."""
     x, o, e = pens
-    return (f"leap_kernelILi{k}ELi{max_len // 32}ELi{x}ELi{o}ELi{e}ELi{sem}"
-            f"ELb{int(cigar)}ELb{int(planes)}E")
+    long = max_len // 32 > LONG_W
+    return (f"leap{'_long' if long else ''}_kernelILi{k}ELi{max_len // 32}"
+            f"ELi{x}ELi{o}ELi{e}ELi{sem}ELb{int(cigar)}ELb{int(planes)}E")
 
 
 # the main-path instantiations: k = 3, L = 128 (W = 4); greedy on planes

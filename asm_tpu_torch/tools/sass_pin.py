@@ -1,0 +1,172 @@
+"""The SASS of the greedy and LEAP kernels' short-row instantiations,
+pinned.
+
+csrc/greedy.cu and csrc/leap.cu hold a long-row path (max_len above 512)
+beside the short one; every instantiation at max_len <= 512 must compile
+to the SASS it had before that path was redesigned. `digests` hashes each
+kernel of a built library (`cuobjdump -sass`, the function's own name
+line dropped and the anonymous namespace's per-source hash taken out of
+every symbol), keyed by the mangled name from the kernel's own name on.
+SHORT_SHAPES names the libraries held: the tuned tables and the W <= 16
+per-shape libraries chip_smoke's phase 17 builds. PIN_PATH holds their
+digests as the nvcc of the card's machine built them from the sources
+of the commit before the redesign; `check` builds (or finds built) this
+checkout's libraries and compares them with it, where this nvcc is the
+pin's: another nvcc compiles other SASS from the same source, so there
+`check` compares nothing and says so.
+
+The pin holds while no change is meant to reach the short-row kernels.
+A change that does (a new short-row design, a new tuned shape), or a new
+nvcc on the card's machine, takes it anew from the sources it should
+hold: `--source-dir <that checkout's csrc> --out
+asm_tpu_torch/tools/short_sass.json`.
+
+    python -m asm_tpu_torch.tools.sass_pin [--source-dir DIR] [--out F]
+        [--check]
+
+--source-dir builds another checkout's csrc/greedy.cu and csrc/leap.cu
+instead of this one's (that is how the pin was taken: the parent's
+sources); --out writes the digests as JSON; --check compares this
+checkout's with the pin and exits 1 if any kernel moved (0, with
+"compared": false, under another nvcc). Needs nvcc and cuobjdump (no
+card).
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+PIN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "short_sass.json")
+# (kernel, build_kernel arguments): the tuned tables, then phase 17's
+# per-shape libraries at max_len <= 512
+SHORT_SHAPES = ([("greedy", ()), ("leap", ())]
+                + [("leap", (k, 256, pens)) for k in (0, 1, 5, 8)
+                   for pens in ((1, 1, 1), (2, 3, 1))]
+                + [("greedy", (5, 160)), ("leap", (5, 160, (1, 1, 1))),
+                   ("leap", (5, 160, (1, 4, 2)))]
+                + [("greedy", (3, L)) for L in (160, 384)]
+                + [("leap", (3, L, (1, 1, 1))) for L in (160, 384)])
+_KERNEL_AT = re.compile(r"\d+((?:greedy|leap)(?:_long)?_kernelI.*)")
+_ANON = re.compile(r"\S*_GLOBAL__N_\S*")
+
+
+def _module(kernel: str):
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda
+
+    return greedy_cuda if kernel == "greedy" else leap_cuda
+
+
+def stem(kernel: str, args: tuple) -> str:
+    return _module(kernel).plan(*args).stem
+
+
+def build(kernel: str, args: tuple, source_dir: str | None = None) -> str:
+    """Path of the library of (kernel, args), built from this checkout's
+    source or from `source_dir`'s (under a stem of its own)."""
+    from asm_tpu_torch.utils.build import nvcc_library
+
+    mod = _module(kernel)
+    if source_dir is None:
+        return mod.build_kernel(*args)[0]
+    p = mod.plan(*args)
+    src = os.path.join(source_dir, os.path.basename(mod.SOURCE))
+    return nvcc_library(f"ref_{p.stem}", src, p.defines)[0]
+
+
+def digests(lib_path: str) -> dict:
+    """Mangled name (from the kernel's own name on) -> sha256 of its SASS
+    without the name line and the anonymous namespace's hash."""
+    from asm_tpu_torch.tools.roofline import _sections, sass_listing
+
+    out = {}
+    for name, text in _sections(sass_listing(lib_path)):
+        m = _KERNEL_AT.search(name)
+        body = _ANON.sub("ANON", "\n".join(text.splitlines()[1:]))
+        out[m[1] if m else _ANON.sub("ANON", name)] = hashlib.sha256(
+            body.encode()).hexdigest()
+    return out
+
+
+def nvcc_version() -> str:
+    from asm_tpu_torch.utils.build import _nvcc
+
+    res = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, check=True)
+    return res.stdout.strip().splitlines()[-1]
+
+
+def collect(source_dir: str | None = None, jobs: int | None = None) -> dict:
+    """{library stem: digests} of every SHORT_SHAPES library, built and
+    listed at once (one nvcc, then one cuobjdump, each)."""
+    with ThreadPoolExecutor(jobs or os.cpu_count() or 8) as ex:
+        paths = list(ex.map(lambda s: build(*s, source_dir), SHORT_SHAPES))
+        return dict(zip(map(lambda s: stem(*s), SHORT_SHAPES),
+                        ex.map(digests, paths)))
+
+
+def compare(got: dict, pin: dict) -> dict:
+    """Kernels held, and those moved, missing or new against the pin."""
+    moved, missing, new, held = [], [], [], 0
+    for lib, want in pin.items():
+        have = got.get(lib, {})
+        for key, dig in want.items():
+            held += 1
+            if key not in have:
+                missing.append(f"{lib}:{key}")
+            elif have[key] != dig:
+                moved.append(f"{lib}:{key}")
+        new += [f"{lib}:{key}" for key in have if key not in want]
+    return dict(held=held, moved=moved, missing=missing, new=new)
+
+
+def check(got: dict | None = None, version: str | None = None) -> dict:
+    """This checkout's short-row kernels against the pin; raises if one
+    moved or went missing. Under another nvcc than the pin's (`version`,
+    default this machine's) it compares nothing and returns compared
+    False with both versions."""
+    with open(PIN_PATH) as f:
+        pin = json.load(f)
+    version = nvcc_version() if version is None else version
+    if version != pin["nvcc"]:
+        return dict(compared=False, pin_nvcc=pin["nvcc"], nvcc=version)
+    res = compare(collect() if got is None else got, pin["libraries"])
+    if res["moved"] or res["missing"]:
+        raise AssertionError(f"short-row SASS differs from the pin: "
+                             f"{len(res['moved'])} moved, "
+                             f"{len(res['missing'])} missing of "
+                             f"{res['held']}: {res['moved'][:4]} "
+                             f"{res['missing'][:4]}")
+    return dict(res, compared=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--source-dir", help="a csrc directory to build from")
+    ap.add_argument("--out", help="write the digests here (JSON)")
+    ap.add_argument("--check", action="store_true",
+                    help="compare this checkout's with the pin")
+    args = ap.parse_args(argv)
+    if args.check:
+        print(json.dumps(check()))
+        return 0
+    got = collect(args.source_dir)
+    doc = dict(nvcc=nvcc_version(), sources=args.source_dir or "this "
+               "checkout", libraries=got)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+    print(json.dumps(dict(libraries=len(got),
+                          kernels=sum(map(len, got.values())))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

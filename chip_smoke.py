@@ -152,7 +152,12 @@ line:
      asm_tpu; (d) the harness at 2048 on 512 pairs; the
      band, full and trace kernels timed at 1024 and 2048 against their
      plain versions and bounds, with their SASS per step; each of the
-     five kernels must have launched at max_len >= 1024 in (b)-(d).
+     five kernels must have launched at max_len >= 1024 in (b)-(d); (e)
+     the greedy and LEAP long-row kernels' registers, spill bytes, threads
+     per pair and warps per SM at each max_len, and the SASS of their
+     W <= 16 instantiations (the tuned tables, phase 17's libraries)
+     against the pin taken from the sources before the long-row redesign
+     (tools/sass_pin.py): no kernel may have moved.
 Prints a JSON line of per-kernel results (time, plain version's time,
 bound, launches; the W = 16 instantiations and phases 17's and 18's
 shapes as entries of their own), the card line, and last {"ok": true, "device":
@@ -381,9 +386,10 @@ LEAP_SEMANTICS = ("lv_bag", "simd_ed_lev", "simd_ed_affine",
 
 def _instance_name(name: str) -> str | None:
     """Short name of the kernel instantiation a mangled name stands for."""
-    m = re.search(r"greedy_kernelILi(\d+)ELi(\d+)ELb(\d)", name)
+    m = re.search(r"greedy(_long)?_kernelILi(\d+)ELi(\d+)ELb(\d)", name)
     if m:
-        return f"greedy k{m[1]}/W{m[2]}/{'planes' if m[3] == '1' else 'codes'}"
+        return (f"greedy{' long' if m[1] else ''} k{m[2]}/W{m[3]}/"
+                f"{'planes' if m[4] == '1' else 'codes'}")
     m = re.search(r"band_kernelILi(\d+)ELi(\d+)E", name)
     if m:
         return f"nw_band BW{m[1]}/W{m[2]}"
@@ -397,13 +403,13 @@ def _instance_name(name: str) -> str | None:
     if m:
         route = ("", "/global", "/shared")[int(m[3])]
         return f"{'nw_trace' if route else 'nw'} W{m[1]}/G{m[2]}{route}"
-    m = re.search(r"leap_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi"
-                  r"(\d)ELb(\d)ELb(\d)", name)
+    m = re.search(r"leap(_long)?_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi"
+                  r"(\d+)ELi(\d)ELb(\d)ELb(\d)", name)
     if m:
-        return (f"leap k{m[1]}/W{m[2]}/x{m[3]}o{m[4]}e{m[5]}/"
-                f"{LEAP_SEMANTICS[int(m[6])]}"
-                f"{'/cigar' if m[7] == '1' else ''}/"
-                f"{'planes' if m[8] == '1' else 'codes'}")
+        return (f"leap{' long' if m[1] else ''} k{m[2]}/W{m[3]}/"
+                f"x{m[4]}o{m[5]}e{m[6]}/{LEAP_SEMANTICS[int(m[7])]}"
+                f"{'/cigar' if m[8] == '1' else ''}/"
+                f"{'planes' if m[9] == '1' else 'codes'}")
     m = re.search(r"(issue_chain|stream_fold|probe_kernel|noop_kernel)", name)
     if m:
         return m[1]
@@ -2275,6 +2281,42 @@ def row_harness(dev, card, err, L, corpus, pins=None) -> list[dict]:
     return out
 
 
+def long_row_resources(name) -> None:
+    """Phase 18e: the greedy and LEAP long-row kernels' registers, spill
+    bytes, threads per pair and warps per SM (k = 3 and 4; LEAP at k = 3,
+    penalty pass and fused CIGAR, unit penalties) at each of ROW_LENGTHS;
+    then their W <= 16 instantiations' SASS against the pin."""
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda
+    from asm_tpu_torch.tools import roofline as rl
+    from asm_tpu_torch.tools import sass_pin
+
+    parts = []
+    for L in ROW_LENGTHS:
+        for k in (3, 4):
+            got = rl.greedy_resources(k=k, max_len=L)
+            parts.append(f"greedy k{k} L{L}: {got['registers']} regs, "
+                         f"{got['spill_stores']} B spill, "
+                         f"{greedy_cuda.plan(k, L).group} threads a pair, "
+                         f"{got['warps_per_sm']} warps/SM")
+        for cigar in (False, True):
+            got = rl.leap_resources(k=3, max_len=L, cigar=cigar)
+            parts.append(f"leap{'_cigar' if cigar else ''} k3 L{L}: "
+                         f"{got['registers']} regs, {got['spill_stores']} B "
+                         f"spill, {leap_cuda.plan(3, L).group} threads a "
+                         f"pair, {got['warps_per_sm']} warps/SM")
+    phase("[18e long-row kernels] " + "; ".join(parts) + f" on {name}")
+    res = sass_pin.check()
+    if not res["compared"]:
+        phase(f"[18e short-row SASS] not compared: the pin was taken with "
+              f"{res['pin_nvcc']!r}, this nvcc is {res['nvcc']!r} (take it "
+              f"anew: python -m asm_tpu_torch.tools.sass_pin --help)")
+        return
+    phase(f"[18e short-row SASS] {res['held']} kernels of "
+          f"{len(sass_pin.SHORT_SHAPES)} libraries held against the pin "
+          f"(tools/short_sass.json): {len(res['moved'])} moved, "
+          f"{len(res['missing'])} missing, {len(res['new'])} new")
+
+
 def rows_path(dev, name, card) -> list[dict]:
     """Phase 18: rows longer than 512; returns the long-row entries."""
     from asm_tpu_torch.data.generator import generate_dataset_native
@@ -2293,6 +2335,8 @@ def rows_path(dev, name, card) -> list[dict]:
     entries += row_harness(dev, card, err, 2048, generate_dataset_native(
         ROW_HARNESS_2048_PAIRS, 2002, 0.05, 0.96, seed=42, max_len=2048))
     walls.append(time.perf_counter())
+    long_row_resources(name)
+    walls.append(time.perf_counter())
     for kernel in ("greedy", "leap", "nw_band", "nw", "nw_trace"):
         hit = [e for e in entries
                if e["name"].startswith(f"{kernel}_L") and e["launches"] > 0
@@ -2300,7 +2344,7 @@ def rows_path(dev, name, card) -> list[dict]:
         if not hit:
             raise AssertionError(f"phase 18: {kernel} launched at no "
                                  f"max_len >= 1024")
-    phase(f"[18 rows] {walls[-1] - walls[0]:.1f} s (a, b, c, d: "
+    phase(f"[18 rows] {walls[-1] - walls[0]:.1f} s (a, b, c, d, e: "
           f"{[round(b - a, 1) for a, b in zip(walls, walls[1:])]} s) on "
           f"{name}")
     return entries

@@ -293,7 +293,8 @@ def test_kernel_refuses_unbuilt_shapes(dev, shape_libs, L, k):
             dev, num_reads=8, length=50, error_rate=0.1, seed=1,
             max_len=512),
             AlignConfig(k=25, max_len=512))
-    # max_len 544 is the long-row path's; past its shared memory it raises
+    # max_len 544 is the long-row path's; past the shared memory of a
+    # block's rows (a group's one copy of its pair's) it raises
     got = greedy_cuda.greedy_align_cuda(*_corpus(
         dev, num_reads=8, length=50, error_rate=0.1, seed=1, max_len=544),
         AlignConfig(max_len=544))
@@ -304,8 +305,8 @@ def test_kernel_refuses_unbuilt_shapes(dev, shape_libs, L, k):
     with pytest.raises(NotImplementedError, match="shared memory"):
         greedy_cuda.greedy_align_cuda(*_corpus(
             dev, num_reads=8, length=50, error_rate=0.1, seed=1,
-            max_len=8192),
-            AlignConfig(max_len=8192))
+            max_len=32768),
+            AlignConfig(k=31, max_len=32768))
     with pytest.raises(ValueError):
         greedy_cuda.greedy_align_cuda(rc, rl.cpu(), fc, fl, cfg)
 
@@ -773,7 +774,8 @@ def test_leap_kernel_refuses_unbuilt_shapes(dev, shape_libs, L, k, pens):
             dev, num_reads=8, length=50, error_rate=0.1, seed=1,
             max_len=512),
             AlignConfig(k=28, max_len=512))
-    # max_len 544 is the long-row path's; past its shared memory it raises
+    # max_len 544 is the long-row path's; past a lane shift of one word it
+    # raises
     from asm_tpu_torch.kernels.leap import leap_align
 
     small = _corpus(dev, num_reads=8, length=50, error_rate=0.1, seed=1,
@@ -782,11 +784,8 @@ def test_leap_kernel_refuses_unbuilt_shapes(dev, shape_libs, L, k, pens):
     want = leap_align(*small, AlignConfig(max_len=544))
     for key in ("passed", "penalty", "lane_shift"):
         assert torch.equal(got[key], want[key]), key
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        leap_cuda.leap_align_cuda(*_corpus(
-            dev, num_reads=8, length=50, error_rate=0.1, seed=1,
-            max_len=4096),
-            AlignConfig(k=4, max_len=4096))
+    with pytest.raises(NotImplementedError, match="one word"):
+        leap_cuda.leap_align_cuda(*small, AlignConfig(k=32, max_len=544))
     with pytest.raises(ValueError):
         leap_cuda.leap_align_cuda(rc, rl.cpu(), fc, fl, AlignConfig(
             max_len=L))
@@ -1040,6 +1039,98 @@ def test_long_rows_match_plain(dev, row_libs, L):
         assert nw_cuda.occupancy(trace, L) >= 1
     assert greedy_cuda.occupancy(3, L) >= 1
     assert leap_cuda.occupancy(3, L, True) >= 1
+
+
+# the long-row plans' top k: greedy's 7-bit record field, LEAP's lane
+# shift within one word (two lanes a thread)
+LONG_TOP_K = 31
+
+
+@pytest.fixture(scope="module")
+def group_libs():
+    """The long-row greedy and LEAP libraries at k = 0 and LONG_TOP_K
+    (max_len 544-2048), built at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from asm_tpu_torch.kernels import leap_cuda
+
+    jobs = [(greedy_cuda.build_kernel, (k, L)) for L in ROW_LENGTHS
+            for k in (0, LONG_TOP_K)]
+    jobs += [(leap_cuda.build_kernel, (k, L, pens)) for L in ROW_LENGTHS
+             for k in (0, LONG_TOP_K) for pens in ((1, 1, 1), (2, 3, 1))]
+    with ThreadPoolExecutor(8) as ex:
+        for f in [ex.submit(fn, *a) for fn, a in jobs]:
+            f.result()
+
+
+@pytest.mark.parametrize("L", ROW_LENGTHS)
+@pytest.mark.parametrize("k", [0, LONG_TOP_K])
+def test_long_row_groups_match_plain(dev, group_libs, L, k):
+    """The long-row kernels (a group of threads a pair) at k = 0 (greedy
+    one thread a pair, LEAP one real lane in a group of 4) and the plans'
+    top k (greedy 63 rows of 1-2 words a
+    thread, LEAP two lanes a thread; k = 3 and 4 are
+    test_long_rows_match_plain's) against the plain versions in both input
+    forms, on edge lengths (0, 1, 31-33, L/2, L - 1, L, m != n) and
+    generated pairs, a batch no multiple of a block's pairs: greedy's
+    records and CIGARs, LEAP lv_bag at both penalty sets with the fused
+    CIGAR, simd_ed_lev gated and not, simd_ed_affine."""
+    from asm_tpu_torch.config import LeapMode
+    from asm_tpu_torch.kernels import leap_cuda
+
+    corpus = [torch.from_numpy(a).to(dev)
+              for a in shape_corpus(L, 13 * L + k)]
+    rc, rl, fc, fl = corpus
+    p = greedy_cuda.plan(k, L)
+    assert rl.shape[0] % p.pairs_per_block
+    cfg = AlignConfig(k=k, max_len=L, max_steps=L // 2)
+    want = greedy_align(rc, rl, fc, fl, cfg, records=True)
+    planes = [torch.from_numpy(greedy_cuda.stage_planes_tiled_t(
+        a.cpu().numpy(), tile=256).view(np.int32)).to(dev) for a in (rc, fc)]
+    for pre, (a, b) in ((False, (rc, fc)), ("planes_tiled", planes)):
+        before = greedy_cuda.LIB_LAUNCHES[p.stem]
+        got = greedy_cuda.greedy_align_cuda(a, rl, b, fl, cfg, pre_staged=pre,
+                                            tile=256)
+        assert greedy_cuda.LIB_LAUNCHES[p.stem] == before + 1
+        _check(got, want)
+    assert greedy_cuda.occupancy(k, L) >= 1
+    for sem, gate, pens in LEAP_VARIANTS:
+        x, o, e = pens
+        lcfg = (AlignConfig(k=k, leap_af_threshold=k, max_len=L,
+                            leap_mode=LeapMode(1)) if sem == "simd_ed_lev"
+                else AlignConfig(x=x, o=o, e=e, k=k, leap_af_threshold=200,
+                                 leap_max_energy=200, max_len=L,
+                                 leap_mode=LeapMode(1)))
+        _leap_check(dev, corpus, lcfg, sem, gate)
+        assert leap_cuda.LIB_LAUNCHES[leap_cuda.plan(k, L, pens).stem] > 0
+    assert rl.shape[0] % leap_cuda.plan(k, L).pairs_per_block
+    assert leap_cuda.occupancy(k, L, True) >= 1
+
+
+@pytest.mark.parametrize("L", [29056, 58080])
+def test_leap_k0_longest_rows(dev, L):
+    """LEAP at k = 0 on the longest rows its plan takes: 29,056 (the top
+    of the one-thread-a-pair layout before the groups) and 58,080 (the
+    top now: groups of 4, 8 pairs a 32-thread block) against the plain
+    version, lv_bag with the fused CIGAR at both penalty sets and
+    simd_ed_lev gated, on edge lengths in both input forms."""
+    from asm_tpu_torch.config import LeapMode
+    from asm_tpu_torch.kernels import leap_cuda
+
+    p = leap_cuda.plan(0, L)
+    assert (p.group, p.threads) == (4, 32)
+    corpus = [torch.from_numpy(a).to(dev) for a in long_edges(
+        L, 17, 0.002, [0, 1, 33, L // 2, L - 1, L])]
+    for sem, gate, (x, o, e) in (LEAP_VARIANTS[0], LEAP_VARIANTS[1],
+                                 LEAP_VARIANTS[3]):
+        cfg = (AlignConfig(k=0, leap_af_threshold=0, max_len=L,
+                           leap_mode=LeapMode(1)) if sem == "simd_ed_lev"
+               else AlignConfig(x=x, o=o, e=e, k=0, leap_af_threshold=200,
+                                leap_max_energy=200, max_len=L,
+                                leap_mode=LeapMode(1)))
+        _leap_check(dev, corpus, cfg, sem, gate)
 
 
 @pytest.mark.parametrize("L", [128, 256, 512])

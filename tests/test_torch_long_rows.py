@@ -145,6 +145,38 @@ def test_leap_long_rows(L, sem, gate, pens):
                 int(got["lane_shift"][i])) == (bool(passed), pen, shift), i
 
 
+@pytest.mark.parametrize("kernel,k", [("greedy", 28), ("leap", 20)])
+def test_newly_admitted_k_at_1024(kernel, k):
+    """The long-row plans admit k up to 31 at max_len 1024 (one copy of a
+    pair's rows or planes for its group, not one a thread), where shared
+    memory held greedy to 24 and LEAP to 13: the port at greedy k = 28 in both
+    input forms (cost, steps, CIGARs) and LEAP k = 20 (lv_bag, and
+    simd_ed_affine at 2/3/1) equals asm_tpu's XLA kernels."""
+    L = 1024
+    c, _ = corpus(L)
+    if kernel == "greedy":
+        assert shapes.greedy_plan(k, L).group == 32
+        jcfg = JaxConfig(k=k, max_len=L, max_steps=L // 2)
+        ref = jax_greedy(*map(jnp.asarray, c), jcfg)
+        for form in ("codes", "planes_tiled"):
+            got = _port_greedy(c, config_from_jax(jcfg), form)
+            for key in ("cost", "steps"):
+                np.testing.assert_array_equal(got[key].numpy(),
+                                              np.asarray(ref[key]))
+            assert _cigars(got) == _cigars(ref)
+        return
+    for sem, (x, o, e) in (("lv_bag", (1, 1, 1)),
+                           ("simd_ed_affine", (2, 3, 1))):
+        assert shapes.leap_plan(k, L, x, o, e).group == 32
+        jcfg = JaxConfig(x=x, o=o, e=e, k=k, max_len=L, leap_af_threshold=200)
+        ref = jax_leap(*map(jnp.asarray, c), jcfg, semantics=sem)
+        got = leap_align_cuda(*map(torch.from_numpy, c),
+                              config_from_jax(jcfg), semantics=sem)
+        for key in ("passed", "penalty", "lane_shift"):
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          np.asarray(ref[key]), err_msg=key)
+
+
 @pytest.mark.parametrize("L", LENGTHS)
 @pytest.mark.parametrize("pens", [(1, 1, 1), (2, 3, 1)])
 def test_fused_leap_cigar_long_rows(L, pens):
@@ -306,19 +338,30 @@ def test_longseq_tool_at_1024_matches_jax():
 @pytest.mark.parametrize("L", range(544, 2049, 32))
 def test_long_row_plans(L):
     """Every max_len 544-2048 has a plan: greedy and LEAP at k 0-4 (LEAP
-    at both tuned penalty sets) on the long path's 32-thread blocks, NW
-    full and trace, the band at BW 4-128; each library is one of its own,
-    named by the shape."""
+    at both tuned penalty sets) on the long path's groups, one lane a
+    thread (the least power of two >= 2k + 1 threads a pair, LEAP's at
+    least 4), in blocks of 128 threads; greedy's shared memory the block's
+    pairs' hurdle rows
+    (2k + 1 rows of W | 1 words), LEAP's the pairs' staged planes (W + 1
+    words of 16 bytes); NW full and trace, the band at BW 4-128; each
+    library is one of its own, named by the shape."""
     W = L // 32
     for k in range(5):
+        G = {0: 1, 1: 4, 2: 8, 3: 8, 4: 16}[k]
+        GL = max(4, G)
         p = shapes.greedy_plan(k, L)
-        assert (p.stem, p.threads) == (f"greedy_k{k}_w{W}", 32)
-        assert p.smem_bytes == shapes.greedy_smem(k, W, 32)
+        assert (p.stem, p.threads, p.group) == (f"greedy_k{k}_w{W}", 128, G)
+        assert dict(p.defines) == dict(ASM_SHAPE_K=k, ASM_SHAPE_W=W,
+                                       ASM_SHAPE_THREADS=128,
+                                       ASM_SHAPE_GROUP=G)
+        assert p.smem_bytes == 4 * (2 * k + 1) * (W | 1) * (128 // G)
         assert p.smem_bytes <= shapes.SMEM_BLOCK_LIMIT
         for pens in shapes.LEAP_PENALTIES:
             p = shapes.leap_plan(k, L, *pens)
-            assert p.threads == 32 and not p.tuned
-            assert p.smem_bytes == shapes.leap_smem(k, W, 32)
+            assert (p.threads, p.group) == (128, GL) and not p.tuned
+            assert dict(p.defines)["ASM_SHAPE_GROUP"] == GL
+            assert p.smem_bytes == 16 * (W + 1) * (128 // GL)
+            assert p.pairs_per_block == 128 // GL
     p = shapes.nw_plan(L)
     assert p.stem == f"nw_w{W}" and dict(p.defines) == dict(
         ASM_SHAPE_W=W, ASM_NW_G=32, ASM_NW_TRACE_G=32,
@@ -342,15 +385,44 @@ def test_long_row_plans(L):
 
 
 def test_long_row_limits_are_computed():
-    """Past the long path's shared memory each plan raises
-    NotImplementedError naming that limit; LEAP past its 16-bit history
-    cells names them; off the 32 grid is a ValueError. The long path's
-    greedy bound and NW warp steps."""
+    """Past the shared memory of a block's rows (greedy: at 32 threads,
+    32 / G pairs of 2k + 1 rows) the greedy plan raises
+    NotImplementedError naming it, far past the per-thread rows' limit
+    (k = 3 reaches max_len 8,160 there, 16,384 at 128 threads now); LEAP
+    past a lane shift of one word (k 31) names it, past its 16-bit history
+    cells names them, and its block shrinks to fit the staged planes (k =
+    0 on groups of 4 reaches 58,080); every max_len that the per-thread
+    layouts before the groups admitted (greedy 4 (2W + 4)(2k + 1) bytes a
+    thread, LEAP 8 W (2k + 1), at 32 threads) still has a plan; the NW long
+    path and the band past shared memory name it; off the 32 grid is a
+    ValueError. The long path's greedy bound and NW warp steps."""
+    assert shapes.greedy_plan(3, 16384).threads == 128
+    assert shapes.greedy_plan(3, 65536).threads == 32
     with pytest.raises(NotImplementedError, match="shared memory"):
-        shapes.greedy_plan(3, 8192)
-    assert shapes.greedy_plan(0, 8192).threads == 32
+        shapes.greedy_plan(3, 66560)
+    assert shapes.greedy_plan(31, 2048).group == 32
     with pytest.raises(NotImplementedError, match="shared memory"):
-        shapes.leap_plan(4, 4096, 1, 1, 1)
+        shapes.greedy_plan(31, 32768)
+    assert shapes.leap_plan(31, 2048, 1, 1, 1).group == 32
+    with pytest.raises(NotImplementedError, match="one word"):
+        shapes.leap_plan(32, 544, 1, 1, 1)
+    assert shapes.leap_plan(4, 4096, 1, 1, 1).threads == 128
+    assert shapes.leap_plan(0, 8192, 1, 1, 1).threads == 128
+    assert shapes.leap_plan(0, 16384, 1, 1, 1).threads == 64
+    for pens in shapes.LEAP_PENALTIES:
+        p = shapes.leap_plan(0, 29056, *pens)
+        assert (p.group, p.threads) == (4, 32)
+        assert shapes.leap_plan(0, 58080, *pens).threads == 32
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            shapes.leap_plan(0, 58112, *pens)
+    for k in range(shapes.GREEDY_MAX_K + 1):
+        top = shapes.SMEM_BLOCK_LIMIT // (4 * (2 * k + 1) * 32) // 2 - 2
+        for W in range(shapes.LONG_W + 1, top + 1):
+            shapes.greedy_plan(k, 32 * W)
+        top = shapes.SMEM_BLOCK_LIMIT // (8 * (2 * k + 1) * 32)
+        for W in range(shapes.LONG_W + 1, top + 1):
+            for pens in shapes.LEAP_PENALTIES:
+                shapes.leap_plan(k, 32 * W, *pens)
     with pytest.raises(NotImplementedError, match="16 bits"):
         shapes.leap_plan(0, 1 << 16, 1, 1, 1)
     with pytest.raises(NotImplementedError, match="shared memory"):
@@ -371,3 +443,59 @@ def test_long_row_limits_are_computed():
                                32)
     assert steps.tolist() == [1990 + 31 + 1990 + 975 // 32, 5 + 1023 // 32,
                               5 + 31 + 5, 0]
+
+
+def _listing(ns, body):
+    """Two kernels in cuobjdump -sass's format under anonymous namespace
+    `ns`; the leap kernel's body is `body`."""
+    g = f"_ZN{len(ns)}{ns}13greedy_kernelILi3ELi4ELb1EsEEvPKjS2_"
+    lp = f"_ZN{len(ns)}{ns}11leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1EEEv"
+    return (f"\tcode for sm_90a\n\t\tFunction : {g}\n"
+            f"        /*0000*/   IADD3 R2, R2, 0x1, RZ ;\n"
+            f"        /*0010*/   CALL.REL.NOINC `({ns}x) ;\n"
+            f"\t\tFunction : {lp}\n        /*0000*/   {body} ;\n")
+
+
+def test_sass_pin_keys_and_compares(monkeypatch):
+    """tools/sass_pin: each kernel's digest is keyed by its mangled name
+    from the kernel's own name on and ignores the anonymous namespace's
+    per-source hash, so two builds of one text compare equal and a changed
+    body shows as moved; the pin names every short-row library of
+    SHORT_SHAPES with the nvcc that built them; `check` compares under
+    that nvcc alone (and raises on a moved kernel), under another it says
+    it compared nothing."""
+    import json
+
+    from asm_tpu_torch.tools import roofline, sass_pin
+
+    listings = {"a": _listing("_GLOBAL__N__1a2b3c4d_9_greedy_cu_5e6f7a8b",
+                              "LOP3.LUT R2, R2, 0x3, RZ, 0x3c, !PT"),
+                "b": _listing("_GLOBAL__N__99aa88bb_9_greedy_cu_77cc66dd",
+                              "LOP3.LUT R2, R2, 0x3, RZ, 0x3c, !PT"),
+                "c": _listing("_GLOBAL__N__99aa88bb_9_greedy_cu_77cc66dd",
+                              "LOP3.LUT R2, R2, 0x5, RZ, 0x3c, !PT")}
+    monkeypatch.setattr(roofline, "sass_listing", lambda path: listings[path])
+    a, b, c = (sass_pin.digests(x) for x in "abc")
+    assert sorted(a) == ["greedy_kernelILi3ELi4ELb1EsEEvPKjS2_",
+                         "leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1EEEv"]
+    assert a == b
+    got = sass_pin.compare(dict(lib=c), dict(lib=a))
+    assert got["held"] == 2 and got["moved"] == [
+        "lib:leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1EEEv"]
+    assert sass_pin.compare(dict(lib={}), dict(lib=a))["missing"] != []
+    with open(sass_pin.PIN_PATH) as f:
+        pin = json.load(f)
+    assert sorted(pin["libraries"]) == sorted(
+        sass_pin.stem(*s) for s in sass_pin.SHORT_SHAPES)
+    assert pin["nvcc"].startswith("Build cuda_")
+    # the tuned tables: greedy 3 k x 3 W x 2 forms, LEAP 144
+    assert len(pin["libraries"]["greedy"]) == 18
+    assert len(pin["libraries"]["leap"]) == 144
+    res = sass_pin.check(got=pin["libraries"], version=pin["nvcc"])
+    assert res["compared"] and res["moved"] == res["missing"] == []
+    bad = dict(pin["libraries"], greedy=dict(pin["libraries"]["greedy"]))
+    bad["greedy"][next(iter(bad["greedy"]))] = "0" * 64
+    with pytest.raises(AssertionError, match="1 moved"):
+        sass_pin.check(got=bad, version=pin["nvcc"])
+    assert sass_pin.check(got=bad, version="Build cuda_0.0") == dict(
+        compared=False, pin_nvcc=pin["nvcc"], nvcc="Build cuda_0.0")

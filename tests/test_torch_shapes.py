@@ -354,7 +354,10 @@ def test_nw_and_band_plans():
     (lambda: shapes.leap_plan(3, 128, 9, 1, 1), "x, o, e"),
     (lambda: _long_plan_then(shapes.leap_plan(3, 544, 1, 1, 1),
                              "leap_k3_w17_x1o1e1",
-                             lambda: shapes.leap_plan(4, 4096, 1, 1, 1)),
+                             lambda: shapes.leap_plan(32, 544, 1, 1, 1)),
+     "one word"),
+    (lambda: _long_plan_then(shapes.greedy_plan(3, 544), "greedy_k3_w17",
+                             lambda: shapes.greedy_plan(3, 66560)),
      "shared memory"),
     (lambda: _long_plan_then(shapes.nw_plan(544), "nw_w17",
                              lambda: shapes.nw_plan(32 * 1024)),
@@ -363,12 +366,13 @@ def test_nw_and_band_plans():
                              lambda: shapes.band_plan(8192, 4)),
      "shared memory"),
 ], ids=["greedy-record", "greedy-smem", "leap-smem", "leap-penalty",
-        "leap-544", "nw-544", "band-128"])
+        "leap-544", "greedy-544", "nw-544", "band-128"])
 def test_plan_limits_raise_naming_them(call, match):
     """Each limit raises NotImplementedError naming it. max_len 544 and
     BW 128 have plans now (the long-row path, the band's four offsets a
     thread): their cases check the plan, then the computed limit past
-    it."""
+    it (the LEAP long path's one-word lane shift, greedy's rows in shared
+    memory)."""
     with pytest.raises(NotImplementedError, match=match):
         call()
 
