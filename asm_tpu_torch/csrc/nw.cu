@@ -46,11 +46,34 @@
 // block's bottom row of H and E (8 L bytes a pair) parked in shared memory
 // for the next, rather than a pair on more than one warp, which would
 // trade its edge rows through shared memory and a barrier every step. One
-// pair a warp, 32-thread blocks; 122 registers (128 with the trace, 8 B of
-// spill), 16 warps per SM at L = 1024 and 12 at 2048. The trace scratch
-// is L x RP / 2 bytes a pair (512 KiB at 1024, 2 MiB at 2048), so the
-// wrapper's launches hold 4,096 and 1,024 pairs; the walk, the ops layout
-// and the mask are the short path's, the mask written byte by byte.
+// pair a warp, 32-thread blocks; 122 registers for the penalty, 16 warps
+// per SM at L = 1024 and 12 at 2048.
+//
+// The long trace kernel (nw_long_kernel<W, true>) is built for what a
+// pair's L x L / 2 pointer bytes cost on Hopper: they live in device
+// memory (512 KiB a pair at 1024, 2 MiB at 2048, far past the 50 MB L2
+// for a card's worth of pairs), so a walk that reads one cell per step
+// waits one device-memory round trip a step, ~2L of them a pair.
+// - Pointer bits as planes: each 4-row group of a column is one 16-bit
+//   word, bits 0-3 "H is the substitution", 4-7 "E is at most F", 8-11 "E
+//   opened", 12-15 "F opened", bit r of each nibble row r of the group.
+//   Each flag is one compare of values the cell computes anyway and one
+//   add of a constant bit into the strip's words under it, in place of the
+//   select chain and shifts of a nibble. A column keeps its L / 2 bytes (4
+//   bits a cell) and a strip stores its R / 2 bytes a step as before.
+// - The walk reads shared-memory tiles: 64 rows x 64 columns (32 bytes of
+//   each column, 2 KiB), the tile the walk is in and the three it can step
+//   into next (up, left, up-left), copied with cp.async by the warp's 32
+//   lanes while the walk runs; a tile's neighbour that the next tile shares
+//   is kept. A step costs a shared-memory load; a pair pays about (m + n)
+//   / 64 round trips to device memory rather than m + n. The walk is one
+//   sequence: its state is the same on every lane (one instruction stream
+//   for the warp), and the lanes share only the copies and the mask's runs.
+// - The ops (2L bytes) and the mask (L) are built in shared memory, zeroed
+//   with 16-byte stores and written out with 16-byte stores. The walk's
+//   tiles, ops and mask (8 KiB + 3L) take the parked row's place where a
+//   pair has more than one block, so at L = 2048 a pair's shared bytes do
+//   not grow.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,8 +129,8 @@ __device__ __forceinline__ uint32_t span_bits(int lo, int hi, int w) {
     return ma & ~mb;
 }
 
-// R nibbles (R / 8 words; R == 4: the low half-word) to R / 2 bytes at dst
-// (4-byte aligned when R % 8 == 0, else 2-byte aligned)
+// R 4-bit cells (R / 8 words; R == 4: the low half-word) to R / 2 bytes at
+// dst (4-byte aligned when R % 8 == 0, else 2-byte aligned)
 template <int R>
 __device__ __forceinline__ void store_nibbles(uint8_t* dst, const uint32_t* w) {
     if constexpr (R == 4) {
@@ -330,6 +353,22 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
     }
 }
 
+// cp.async of 16 bytes from device to shared memory (cached in L2 only),
+// the commit of the copies started so far as one group, and the wait until
+// at most N groups are in flight
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- the long-row path (W > kShortW): 32 threads, one warp, a pair ----
 // A pair's rows are swept in NB horizontal blocks of RB = 32 * R rows
 // (NB = ceil(L / 1024), so R <= 32 rows a thread stay in registers):
@@ -339,12 +378,17 @@ nw_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
 // at the same column. Thread 31 writes column j at step j + 31 and thread
 // 0 read it at step j, so one row buffer serves every block; a block ends
 // with __syncwarp. A pair runs only the blocks down to its row m. The
-// trace kernel's pointers go to the global scratch, each column RP / 2
-// bytes (RP = NB * RB rows, >= L), and the walker writes the mask's bytes
-// itself (zeroed first), so no W-sized array lives in registers.
+// trace kernel's pointer planes go to the global scratch, each column RP
+// / 2 bytes (RP = NB * RB rows, >= L); the walk (long_walk) follows.
 constexpr int kShortW = 16;
 constexpr int kLongG = 32;  // threads a pair on the long path
 constexpr int kBlockRows = 1024;  // rows of a block at most: 32 x 32
+// the long walk's tiles: 64 rows (32 bytes of a column) x 64 columns, four
+// of them (the walk's and its neighbours up, left and up-left)
+constexpr int kTileRows = 64;
+constexpr int kTileCols = 64;
+constexpr int kTileBytes = kTileRows / 2 * kTileCols;
+constexpr int kTileSlots = 4;
 
 __host__ __device__ constexpr int long_blocks(int L) {
     return (L + kBlockRows - 1) / kBlockRows;
@@ -356,9 +400,136 @@ __host__ __device__ constexpr int long_rows(int L) {
 }
 
 // shared bytes of a pair on the long path: its ref codes, with the trace
-// its read codes, and with more than one block the parked row (H, E)
+// its read codes; then with more than one block the parked row (H, E),
+// which the trace's walk buffers (tiles, ops, mask) reuse after the sweep
 __host__ __device__ constexpr int long_slot_bytes(int L, bool trace) {
-    return (trace ? 2 * L : L) + (long_blocks(L) > 1 ? 8 * L : 0);
+    const int park = long_blocks(L) > 1 ? 8 * L : 0;
+    const int walk = trace ? kTileSlots * kTileBytes + 3 * L : 0;
+    return (trace ? 2 * L : L) + (park > walk ? park : walk);
+}
+
+// the copy of tile (I, J) into `slot`: rows [64 I, 64 I + 64) of the
+// pair's columns [64 J, 64 J + 64) below n, 32 bytes a column, two
+// 16-byte copies a column spread over the warp's lanes
+__device__ __forceinline__ void fetch_tile(uint8_t* slot, const uint8_t* ptr,
+                                           int col_bytes, int I, int J, int n) {
+    const int c0 = kTileCols * J;
+    const int items = 2 * min(kTileCols, n - c0);
+    const uint8_t* src = ptr + (int64_t)c0 * col_bytes + kTileRows / 2 * I;
+    for (int k = threadIdx.x; k < items; k += kLongG)
+        cp_async16(slot + 16 * k, src + (int64_t)(k >> 1) * col_bytes + 16 * (k & 1));
+}
+
+// the mask's bytes [lo, hi) set, the warp's lanes in turn
+__device__ __forceinline__ void mark_run(int8_t* s_mask, int lo, int hi) {
+    for (int q = lo + (int)threadIdx.x; q < hi; q += kLongG) s_mask[q] = 1;
+}
+
+// The long trace kernel's traceback (see the head of the file): the walk
+// from (m, n) to (0, 0), exactly asm_tpu/kernels/nw.py's reverse replay as
+// the short path walks it, reading the pointer planes of `ptr` (COL bytes
+// a column) from shared-memory tiles in `walk`, then the ops and mask rows
+// out. Every lane runs it, with the same state.
+template <int L, int COL>
+__device__ __forceinline__ void long_walk(const uint8_t* __restrict__ ptr,
+                                          const int8_t* s_read,
+                                          const int8_t* s_ref, uint8_t* walk,
+                                          int m, int n, int thr_in,
+                                          int8_t* __restrict__ ops,
+                                          int8_t* __restrict__ mk) {
+    const int lane = threadIdx.x;
+    int8_t* const s_ops = (int8_t*)walk + kTileSlots * kTileBytes;
+    int8_t* const s_mask = s_ops + 2 * L;
+    for (int w = lane; w < 3 * L / 16; w += kLongG)
+        ((uint4*)s_ops)[w] = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();
+    const int thr = thr_in < 0 ? 4 * L : thr_in;  // no mask: no run is long enough
+    int i = m, j = n, st = 0, run = 0;
+    if (i > 0 && j > 0) {
+        int I = (i - 1) / kTileRows, J = (j - 1) / kTileCols;
+        // slots of the walk's tile and of its neighbours up, left, up-left
+        int cur = 0, su = 1, sl = 2, sd = 3;
+        fetch_tile(walk + cur * kTileBytes, ptr, COL, I, J, n);
+        cp_async_commit();
+        if (I > 0) fetch_tile(walk + su * kTileBytes, ptr, COL, I - 1, J, n);
+        if (J > 0) fetch_tile(walk + sl * kTileBytes, ptr, COL, I, J - 1, n);
+        if (I > 0 && J > 0) fetch_tile(walk + sd * kTileBytes, ptr, COL, I - 1, J - 1, n);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncwarp();
+        int qi = i - 1 - kTileRows * I, qj = j - 1 - kTileCols * J;  // in the tile
+        const uint8_t* tb = walk + cur * kTileBytes;
+        while (true) {
+            // the cell's 4-row group word, shifted so that its row's flags
+            // are bits 0 (sub), 4 (E before F), 8 (E opened), 12 (F opened)
+            const uint32_t nb =
+                (uint32_t)*(const uint16_t*)(tb + qj * (kTileRows / 2) + (qi >> 2) * 2) >>
+                (qi & 3);
+            const bool mis = s_read[i - 1] != s_ref[j - 1];
+            const bool go_diag = st == 0 && (nb & 1u);
+            const bool go_e = st == 1 || (st == 0 && !(nb & 1u) && (nb & 16u));
+            s_ops[2 * L - (i + j)] = go_diag ? (mis ? OP_X : OP_EQ) : (go_e ? OP_I : OP_D);
+            // a '=' run ending at read cursor i covered [i, i + run)
+            const bool is_eq = go_diag && !mis;
+            if (!is_eq && run > 0 && run >= thr) mark_run(s_mask, i, i + run);
+            run = is_eq ? run + 1 : 0;
+            st = go_diag ? 0 : (go_e ? ((nb & 256u) ? 0 : 1) : ((nb & 4096u) ? 0 : 2));
+            const int di = go_diag || go_e, dj = go_diag || !go_e;
+            i -= di;
+            j -= dj;
+            qi -= di;
+            qj -= dj;
+            if (i == 0 || j == 0) break;
+            if ((qi | qj) < 0) {  // into the tile up, left or up-left
+                cp_async_wait<0>();
+                __syncwarp();
+                const int was = cur;
+                if (qi < 0 && qj < 0) {
+                    cur = sd;
+                    sd = was;  // su and sl keep their slots, all three new
+                    I--;
+                    J--;
+                } else if (qi < 0) {
+                    cur = su;
+                    su = was;
+                    const int t = sl;
+                    sl = sd;  // the old up-left is the new left
+                    sd = t;
+                    I--;
+                } else {
+                    cur = sl;
+                    sl = was;
+                    const int t = su;
+                    su = sd;  // the old up-left is the new up
+                    sd = t;
+                    J--;
+                }
+                const bool was_diag = qi < 0 && qj < 0;
+                if (I > 0 && (was_diag || qi < 0))
+                    fetch_tile(walk + su * kTileBytes, ptr, COL, I - 1, J, n);
+                if (J > 0 && (was_diag || qj < 0))
+                    fetch_tile(walk + sl * kTileBytes, ptr, COL, I, J - 1, n);
+                if (I > 0 && J > 0)
+                    fetch_tile(walk + sd * kTileBytes, ptr, COL, I - 1, J - 1, n);
+                cp_async_commit();
+                if (qi < 0) qi += kTileRows;
+                if (qj < 0) qj += kTileCols;
+                tb = walk + cur * kTileBytes;
+            }
+        }
+        cp_async_wait<0>();  // no copy outlives the walk
+    }
+    // the borders: at j == 0 the rest is i steps of I (E down the left
+    // border), at i == 0 j steps of D; the first of them ends a '=' run
+    if (run > 0 && run >= thr) mark_run(s_mask, i, i + run);
+    if (i > 0 || j > 0) {
+        const int8_t op = i > 0 ? OP_I : OP_D;
+        for (int c = 2 * L - (i + j) + lane; c < 2 * L; c += kLongG) s_ops[c] = op;
+    }
+    __syncwarp();
+    for (int w = lane; w < 2 * L / 16; w += kLongG) ((uint4*)ops)[w] = ((const uint4*)s_ops)[w];
+    if (mk != nullptr)
+        for (int w = lane; w < L / 16; w += kLongG) ((uint4*)mk)[w] = ((const uint4*)s_mask)[w];
 }
 
 template <int W, bool TRACE>
@@ -442,6 +613,8 @@ nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
             if (j >= 1 && j <= n) {
                 const int bc = s_ref[j - 1];
                 int hd = dg;
+                // the trace's pointer planes: word r / 8 holds rows 8(r / 8)
+                // .. +7, two 4-row groups of 16 bits (layout: head of file)
                 uint32_t nib[(R + 7) / 8];
 #pragma unroll
                 for (int w = 0; w < (R + 7) / 8; w++) nib[w] = 0u;
@@ -452,12 +625,18 @@ nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
                     const int f_open = h[r] + o, f_ext = f[r] + e;
                     const int ev = min(e_open, e_ext);
                     const int fv = min(f_open, f_ext);
-                    const int hv = min(sub, min(ev, fv));
+                    // the trace's three-way min (one DPX instruction): the
+                    // flags below need the sum sub apart, so the full
+                    // kernel's fused add-min does not apply
+                    const int hv = TRACE ? __vimin3_s32(sub, ev, fv) : min(sub, min(ev, fv));
                     if (TRACE) {
-                        const uint32_t ph = hv == sub ? 0u : (hv == ev ? 1u : 2u);
-                        nib[r / 8] |= (ph | ((uint32_t)(e_open <= e_ext) << 2) |
-                                       ((uint32_t)(f_open <= f_ext) << 3))
-                                      << (4 * (r % 8));
+                        // ties: sub, then E, then F (the E flag is read
+                        // only where H is not sub); a gap opens on a tie
+                        const uint32_t bit = 1u << (16 * ((r >> 2) & 1) + (r & 3));
+                        if (hv == sub) nib[r / 8] |= bit;
+                        if (hv == ev) nib[r / 8] |= bit << 4;
+                        if (e_open <= e_ext) nib[r / 8] |= bit << 8;
+                        if (f_open <= f_ext) nib[r / 8] |= bit << 12;
                     }
                     hd = h[r];
                     h[r] = hv;
@@ -487,54 +666,8 @@ nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
     if (nb == 0 && t == 0)  // an empty side: the border's closed form
         pen_out[p] = m + n == 0 ? 0 : o + (m + n - 1) * e;
     if (!TRACE) return;
-
-    // ---- traceback: zero the ops and mask rows, then one thread walks ----
-    int8_t* const ops = ops_out + p * 2 * L;
-    for (int w = t; w < L / 2; w += G) ((uint32_t*)ops)[w] = 0u;
-    if (mask_out != nullptr)
-        for (int w = t; w < L / 4; w += G) ((uint32_t*)(mask_out + p * L))[w] = 0u;
-    __syncwarp();  // pointer nibbles and zeroed rows visible to the walker
-    if (t != 0) return;
-    int8_t* const mk = mask_out == nullptr ? nullptr : mask_out + p * L;
-    const int thr = P.thr < 0 ? 4 * L : P.thr;  // no mask: no run is long enough
-    int i = m, j = n, st = 0, run = 0;
-    for (int step = 0; (i > 0 || j > 0) && i >= 0 && j >= 0 && step < 2 * L;
-         step++) {
-        const int d = i + j;
-        int ptr_h, e_open, f_open, mis = 0;
-        if (i == 0) {  // the virtual top cell: F, opened iff j == 1
-            ptr_h = 2;
-            e_open = 0;
-            f_open = d == 1;
-        } else if (j == 0) {  // the left border: E, opened iff i == 1
-            ptr_h = 1;
-            e_open = i == 1;
-            f_open = 0;
-        } else {
-            const int byte = ptr[(int64_t)(j - 1) * COL + ((i - 1) >> 1)];
-            const int nbl = (i - 1) & 1 ? byte >> 4 : byte;
-            ptr_h = nbl & 3;
-            e_open = (nbl >> 2) & 1;
-            f_open = (nbl >> 3) & 1;
-            mis = s_read[i - 1] != s_ref[j - 1];
-        }
-        const bool go_diag = st == 0 && ptr_h == 0;
-        const bool go_e = (st == 0 && ptr_h == 1) || st == 1;
-        const bool go_f = (st == 0 && ptr_h == 2) || st == 2;
-        ops[2 * L - d] = go_diag ? (mis ? OP_X : OP_EQ) : (go_e ? OP_I : OP_D);
-        // a '=' run ending at read cursor i covered [i, i + run)
-        const bool is_eq = go_diag && !mis;
-        if (!is_eq && run > 0 && run >= thr && mk != nullptr)
-            for (int q = i; q < i + run; q++) mk[q] = 1;
-        run = is_eq ? run + 1 : 0;
-        const int new_st = go_diag ? 0 : (go_e ? (e_open ? 0 : 1) : (f_open ? 0 : 2));
-        i -= (go_diag || go_e);
-        j -= (go_diag || go_f);
-        st = new_st;
-    }
-    // flush a run still open at the start of the alignment
-    if (run > 0 && run >= thr && mk != nullptr)
-        for (int q = i; q < i + run; q++) mk[q] = 1;
+    long_walk<L, COL>(ptr, s_read, s_ref, smem + 2 * L, m, n, P.thr, ops_out + p * 2 * L,
+                      mask_out == nullptr ? nullptr : mask_out + p * L);
 }
 
 // The instantiations the wrappers launch, by W = L / 32 and kernel: G

@@ -484,6 +484,42 @@ cudaError_t dispatch(int bw, const void* rp, const void* fp, const void* rl,
     }
 }
 
+// resident warps per SM of the wide path's instantiation (BW, W), with
+// the shared memory its launch uses
+template <int BW, int W>
+cudaError_t wide_occupancy(int* warps) {
+    constexpr int threads = wide_threads(BW, 32 * W);
+    constexpr int smem = wide_smem(BW, 32 * W, threads);
+    cudaError_t err = cudaFuncSetAttribute(
+        band_wide_kernel<BW, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, band_wide_kernel<BW, W>, threads, smem);
+    *warps = blocks * threads / 32;
+    return err;
+}
+
+// the wide path's occupancy at (bw, W): every BW above kShortW, BW 128 at
+// and below it
+template <int W>
+cudaError_t occupancy_of(int bw, int* warps) {
+    if constexpr (W > kShortW) {
+        switch (bw) {
+            case 4: return wide_occupancy<4, W>(warps);
+            case 8: return wide_occupancy<8, W>(warps);
+            case 16: return wide_occupancy<16, W>(warps);
+            case 32: return wide_occupancy<32, W>(warps);
+            case 64: return wide_occupancy<64, W>(warps);
+            case 128: return wide_occupancy<128, W>(warps);
+            default: return cudaErrorInvalidValue;
+        }
+    } else {
+        return bw == 128 ? wide_occupancy<128, W>(warps) : cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 // rp/fp: position-major 2-bit planes uint32[2W, B] of reads and refs;
@@ -508,4 +544,20 @@ extern "C" int asm_nw_band_launch(const void* rp, const void* fp,
     if (W == 16) return (int)dispatch<16>(bw, rp, fp, rl, fl, P, pen, s);
 #endif
     return (int)cudaErrorInvalidValue;
+}
+
+// resident warps per SM of the wide path (band_wide_kernel) at (bw, W) on
+// the current device; -cudaError on failure (cudaErrorInvalidValue for a
+// (bw, W) the short path serves or a W that is not built)
+extern "C" int asm_nw_band_occupancy(int bw, int W) {
+    int warps = 0;
+    cudaError_t err = cudaErrorInvalidValue;
+#ifdef ASM_SHAPE_W
+    if (W == ASM_SHAPE_W) err = occupancy_of<ASM_SHAPE_W>(bw, &warps);
+#else
+    if (W == 4) err = occupancy_of<4>(bw, &warps);
+    if (W == 8) err = occupancy_of<8>(bw, &warps);
+    if (W == 16) err = occupancy_of<16>(bw, &warps);
+#endif
+    return err == cudaSuccess ? warps : -(int)err;
 }

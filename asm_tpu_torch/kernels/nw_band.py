@@ -180,8 +180,21 @@ def _load(max_len: int = 128):
         lib.asm_nw_band_launch.argtypes = (
             [c.c_void_p] * 4 + [c.c_int] * 6 + [c.c_void_p, c.c_int,
                                                  c.c_void_p])
+        lib.asm_nw_band_occupancy.restype = c.c_int
+        lib.asm_nw_band_occupancy.argtypes = [c.c_int] * 2
         _libs[p.stem] = lib
     return _libs[p.stem]
+
+
+def occupancy(bw: int, max_len: int) -> int:
+    """Resident warps per SM of the wide path (band_wide_kernel: every BW
+    above max_len 512, BW 128 at and below it) on the current CUDA device,
+    with the shared memory its launch uses."""
+    got = _load(max_len).asm_nw_band_occupancy(bw, max_len // 32)
+    if got < 0:
+        raise RuntimeError(f"band occupancy query failed at BW {bw}, "
+                           f"max_len {max_len}: cudaError {-got}")
+    return got
 
 
 def nw_penalty_banded(read, read_len, ref, ref_len, bw=32, x=1, o=1, e=1,

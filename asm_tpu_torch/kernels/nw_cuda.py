@@ -20,13 +20,15 @@ Each (kernel, max_len) has one instantiation, its G threads per pair and
 the trace kernel's pointer route fixed in csrc/nw.cu (`instance`): at
 L = 128 the trace kernel keeps its pointers in shared memory and runs in
 one launch; at L = 256 and 512 it keeps them in a global scratch of
-L * L / 2 bytes per pair, its launches cut at TRACE_SCRATCH_BYTES. At
+L * L / 2 bytes per pair, its launches cut at TRACE_SCRATCH_BYTES
+(`shapes.trace_piece`). At
 another L, G and the route follow the table's rule
 (`shapes.nw_instance`), and the G strips may cover a few rows past L
 (`shapes.nw_rows`), which the scratch holds too. Above max_len 512 both
 kernels take csrc/nw.cu's long path (`nw_long_kernel`): one pair a warp,
 swept in blocks of up to 1,024 rows (`shapes.nw_long_rows`,
-`shapes.nw_blocks`), the trace's pointers in the global scratch.
+`shapes.nw_blocks`), the trace's pointer planes in the global scratch,
+its walk on shared-memory tiles of them.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from asm_tpu_torch.kernels.shapes import (
     nw_long_rows,
     nw_plan,
     nw_rows,
+    trace_piece,
 )
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 
@@ -63,8 +66,9 @@ LIB_LAUNCHES = collections.Counter()
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "nw.cu")
 # ROUTE_*, imported above: csrc/nw.cu's ROUTE, where the trace kernel
-# keeps its pointer nibbles; TRACE_SCRATCH_BYTES, imported above: the
-# global route's per-launch scratch, to which its launches are cut
+# keeps its pointer bits; TRACE_SCRATCH_BYTES, imported above: the global
+# route's per-launch scratch, to which its launches are cut (read here at
+# each call, so that a caller may set it)
 _libs = {}  # library stem -> bound library
 
 
@@ -221,7 +225,8 @@ def nw_align_cuda(read, read_len, ref, ref_len, x=1, o=1, e=1,
     2L - d; with match_mask_threshold also bool[B, L], the read positions
     inside '=' runs of at least that length. Bit-equal to `nw.nw_align`.
     One launch on the shared route; on the global route launches are cut
-    into pieces of at most TRACE_SCRATCH_BYTES of pointer scratch."""
+    into pieces of at most TRACE_SCRATCH_BYTES of pointer scratch
+    (`shapes.trace_piece`)."""
     device, B, L = _checked(read, read_len, ref, ref_len)
     want_mask = match_mask_threshold is not None
     if want_mask and match_mask_threshold < 0:
@@ -236,7 +241,7 @@ def nw_align_cuda(read, read_len, ref, ref_len, x=1, o=1, e=1,
     piece, scratch = max(B, 1), None
     if B and instance(True, L)[1] == ROUTE_GLOBAL:
         per_pair = nw_launch(True, L)["scratch_per_pair"]
-        piece = max(1, TRACE_SCRATCH_BYTES // per_pair)
+        piece = trace_piece(per_pair, TRACE_SCRATCH_BYTES)
         scratch = torch.empty((min(piece, B), per_pair), dtype=torch.uint8,
                               device=device)
     for lo in range(0, B, piece):

@@ -43,11 +43,14 @@ LONG_W = 16
 # 32 x 32 rows
 NW_LONG_G = 32
 NW_BLOCK_ROWS = 1024
-# the NW trace kernel's global pointer scratch per launch (its launches
-# are cut to it, nw_cuda.nw_align_cuda): 16,384 pairs at L = 512 (65,536
-# at 256), within 3% of 4 GiB's time, where 256 MiB (2,048 pairs a
-# launch) took 1.37x as long (PERF.md); one pair's must fit it
-TRACE_SCRATCH_BYTES = 2 << 30
+# the NW trace kernel's global pointer scratch a launch may hold (its
+# launches are cut to it, trace_piece; one pair's must fit it): on an H100
+# 7.8 waves of the card's resident pairs at L = 1024 and 3.1 at 2048 (2
+# GiB held 0.78 of one there), 65,536 pairs at 512 (4 GiB ran within 3%
+# of 2 GiB, 256 MiB 1.37x slower; PERF.md)
+TRACE_SCRATCH_BYTES = 8 << 30
+# the long trace kernel's walk tiles (csrc/nw.cu kTileSlots x kTileBytes)
+NW_WALK_TILE_BYTES = 4 * 64 * 64 // 2
 # LEAP's history cells hold a position + 2 in 16 bits above L = 253
 LEAP_MAX_LEN = (1 << 16) - 3
 THREAD_CHOICES = (128, 64, 32)  # the block sizes a new shape may take
@@ -271,8 +274,24 @@ def nw_slot_bytes(L: int, rows: int, route: int) -> int:
 
 def nw_long_slot_bytes(L: int, trace: bool) -> int:
     """csrc/nw.cu's long_slot_bytes: a pair's codes (two rows with the
-    trace) and, with more than one block, the parked row's H and E."""
-    return (2 * L if trace else L) + (8 * L if nw_blocks(L) > 1 else 0)
+    trace), then the larger of the parked row's H and E (with more than
+    one block) and the trace walk's tiles, ops and mask rows (8 KiB +
+    3L), which reuse its bytes."""
+    park = 8 * L if nw_blocks(L) > 1 else 0
+    walk = NW_WALK_TILE_BYTES + 3 * L if trace else 0
+    return (2 * L if trace else L) + max(park, walk)
+
+
+def trace_piece(per_pair: int, cap: int) -> int:
+    """Pairs a launch of the NW trace kernel's global route holds, of
+    `per_pair` bytes of pointer scratch each: as many as `cap` bytes (the
+    wrapper's TRACE_SCRATCH_BYTES) hold; raises when one pair's scratch
+    does not fit."""
+    if per_pair > cap:
+        raise NotImplementedError(
+            f"the NW trace parks {per_pair} pointer bytes a pair, above the "
+            f"{cap} trace scratch a launch may take")
+    return cap // per_pair
 
 
 def nw_launch(trace: bool, max_len: int) -> dict:

@@ -27,10 +27,22 @@ equal to the checked-in build's.
           its launches queued behind a spin of the card, so each time is
           the card's alone (and the host's time to issue them is beside
           it)
+  nwlong  the three long-row NW kernels at L = 1024 and 2048 on several
+          waves of the long-sequence headline's corpus (NWLONG_PAIRS):
+          the full kernel (nw_penalty_cuda), the trace kernel
+          (nw_align_cuda with the match mask at 3, as the harness's
+          coverage step calls it) and the band's wide path at BW 64 and
+          128 (pre-staged planes; timed, no certificate asked), each
+          queued behind a spin as in cigar, each output held against its
+          plain version on --sample pairs; per kernel and L: ms, pairs,
+          launches, bound (utils/bounds) and share, registers, spills,
+          warps per SM. With --parent DIR the full and trace kernels of
+          DIR's csrc/nw.cu (its launch pieces: PARENT_SCRATCH_BYTES of
+          scratch) run in turns beside this checkout's
 
-    python -m asm_tpu_torch.tools.longseq_sweep [greedy nw piece cigar]
-        [--pairs N] [--nw-pairs N] [--cigar-pairs N] [--parent DIR]
-        [--reps N]
+    python -m asm_tpu_torch.tools.longseq_sweep [greedy nw piece cigar
+        nwlong] [--pairs N] [--nw-pairs N] [--cigar-pairs N]
+        [--parent DIR] [--reps N] [--sample N]
 
 The corpus is the long-sequence headline's at L = 512 (496-base reads,
 err 0.05, seed 7) cut to --pairs; the piece sweep at L = 256 takes the
@@ -59,7 +71,7 @@ from asm_tpu_torch.utils.build import BUILD_DIR, nvcc_library, ptxas_report_path
 from asm_tpu_torch.utils.timing import log, time_reps
 
 L = 512
-SWEEPS = ("greedy", "nw", "piece", "cigar")
+SWEEPS = ("greedy", "nw", "piece", "cigar", "nwlong")
 # the variants, and the patterns of the source lines that set them
 GREEDY_THREADS = (128, 64, 32)
 GREEDY_LINE = r"return W == 16 \? \d+ : 128;"
@@ -73,6 +85,11 @@ CIGAR_L = 1024
 CIGAR_THREADS = (64, 32)
 CIGAR_SIZES = (2048, 4096, 8192, 16384, 32768, 65536, 131072)
 SPIN_CYCLES = 40_000_000  # ~20 ms at 1.98 GHz
+# the nwlong sweep: pairs per max_len (several waves of each kernel), the
+# band widths, and the parent's trace launch pieces (a fixed scratch cap)
+NWLONG_PAIRS = {1024: 16384, 2048: 8192}
+NWLONG_BWS = (64, 128)
+PARENT_SCRATCH_BYTES = 2 << 30
 # the long kernel's hand-over to its walker, and the copy that skips the
 # walk: each group's thread 0 writes the outputs and returns
 WALK_LINE = (r"    __syncwarp\(gm\);  // the group's parked cells, seen by "
@@ -103,11 +120,11 @@ def variant(module, name: str, subs, defines=(),
 
 
 @contextlib.contextmanager
-def using(module, lib):
+def using(module, lib, max_len: int = L):
     """`module`'s wrappers launch from `lib` (a bound variant) inside, in
-    place of the library that holds max_len L; NW's cached `instance`
-    answers for the library in use."""
-    stem = module.plan(max_len=L).stem
+    place of the library that holds `max_len` (default L); NW's cached
+    `instance` answers for the library in use."""
+    stem = module.plan(max_len=max_len).stem
     saved = module._libs.get(stem)
     module._libs[stem] = lib
     if module is nw_cuda:
@@ -245,11 +262,13 @@ def piece_sweep(corpus, L: int, n: int, reps: int) -> dict:
         finally:
             nw_cuda.TRACE_SCRATCH_BYTES = saved
 
+    from asm_tpu_torch.kernels import shapes
+
     ms = turns([str(m) for m in PIECES_MIB], run, reps, _equal)
-    per_pair = L * L // 2
+    per_pair = shapes.nw_launch(True, L)["scratch_per_pair"]
     return dict(sweep="piece", L=L, pairs=n, ms=ms, pieces={
-        str(m): min(n, (m << 20) // per_pair) for m in PIECES_MIB},
-        checked_in_mib=saved >> 20)
+        str(m): min(n, shapes.trace_piece(per_pair, m << 20))
+        for m in PIECES_MIB}, checked_in_mib=saved >> 20)
 
 
 def queued(fns, reps: int) -> tuple[list, list]:
@@ -421,14 +440,132 @@ def cigar_sweep(pairs: int, parent: str | None, reps: int,
                                     for n, t in threads.items()})
 
 
+@contextlib.contextmanager
+def parent_pieces():
+    """nw_cuda's trace launches cut as the parent cut them inside: at most
+    PARENT_SCRATCH_BYTES of pointer scratch a launch."""
+    saved = nw_cuda.TRACE_SCRATCH_BYTES
+    nw_cuda.TRACE_SCRATCH_BYTES = PARENT_SCRATCH_BYTES
+    try:
+        yield
+    finally:
+        nw_cuda.TRACE_SCRATCH_BYTES = saved
+
+
+def nwlong_sweep(parent: str | None, reps: int, sample: int) -> list[dict]:
+    """The nwlong sweep (module docstring): one line per max_len."""
+    from asm_tpu_torch.kernels import nw, nw_band
+    from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
+    from asm_tpu_torch.tools.roofline import nw_resources, ptxas_entry
+    from asm_tpu_torch.utils.bounds import (
+        bound_entry,
+        nw_band_work,
+        nw_full_work,
+    )
+
+    lines = []
+    for Lr, pairs in NWLONG_PAIRS.items():
+        corpus = lh.long_corpus(Lr, pairs)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+             for a in corpus]
+        planes = [torch.from_numpy(stage_planes_t(a).view(np.int32)).to(
+            "cuda") for a in (corpus[0], corpus[2])]
+        m, n = corpus[1], corpus[3]
+        ts = [a[:sample] for a in t]
+        libs = {"checked-in": nw_cuda._load(Lr)}
+        built = None
+        if parent:  # in turns: parent, checked-in, checked-in, parent
+            p = nw_cuda.plan(Lr)
+            built = variant(nw_cuda, f"parent_{p.stem}", [], p.defines,
+                            os.path.join(parent, "asm_tpu_torch", "csrc",
+                                         "nw.cu"))
+            libs = {"parent": nw_cuda.bind(built[0]), **libs}
+        line = dict(sweep="nwlong", L=Lr, pairs=pairs, sample=sample,
+                    kernels={})
+        for kernel in ("nw", "nw_trace"):
+            trace = kernel == "nw_trace"
+
+            def call(trace=trace):
+                return (nw_cuda.nw_align_cuda(*t, match_mask_threshold=3)
+                        if trace else (nw_cuda.nw_penalty_cuda(*t),))
+
+            def run(name, call=call):
+                with using(nw_cuda, libs[name], Lr), (
+                        parent_pieces() if name == "parent"
+                        else contextlib.nullcontext()):
+                    return queued([call], reps)
+
+            want = (nw.nw_align(*ts, match_mask_threshold=3) if trace
+                    else (nw.nw_penalty(*ts),))
+
+            def same(a, b, names, want=want):
+                for got in (a, b):
+                    for g, w in zip(got[0], want):
+                        if not torch.equal(g[:sample], w):
+                            raise AssertionError(
+                                f"L = {Lr} {kernel}: differs from the plain "
+                                f"version on the first {sample} pairs")
+                return _equal(a[0], b[0])
+
+            ms = queued_turns(list(libs), run, same)
+            info = {}
+            for name, lib in libs.items():
+                with using(nw_cuda, lib, Lr):
+                    before = nw_cuda.LAUNCHES[kernel]
+                    with (parent_pieces() if name == "parent"
+                          else contextlib.nullcontext()):
+                        call()
+                    launches = nw_cuda.LAUNCHES[kernel] - before
+                    res = (nw_resources(trace, Lr) if name == "checked-in"
+                           else dict(ptxas_entry(
+                               nw_cuda, nw_cuda.function_name(trace, Lr),
+                               open(built[1]).read()),
+                               warps_per_sm=nw_cuda.occupancy(trace, Lr)))
+                info[name] = dict(res, launches=launches)
+            b = bound_entry(*nw_full_work(m, n, Lr, trace=trace))
+            line["kernels"][kernel] = dict(
+                ms=ms, instantiations=info, **b,
+                bound_share={k: b["bound_ms"] / min(v["ms"])
+                             for k, v in ms.items()})
+        nw_band.build_kernel(Lr)
+        report = open(nw_band.ptxas_report(Lr)).read()
+        for bw in NWLONG_BWS:
+            fn = lambda bw=bw: nw_band.nw_penalty_banded(  # noqa: E731
+                planes[0], t[1], planes[1], t[3], bw=bw, pre_staged=True)
+            (per_call, host), outs = queued([fn], reps)
+            want = nw_band.banded_plain(*ts, bw)
+            if not torch.equal(outs[0][:sample], want):
+                raise AssertionError(f"L = {Lr} band BW {bw}: differs from "
+                                     f"the plain version")
+            before = nw_band.LAUNCHES
+            fn()
+            b = bound_entry(*nw_band_work(m, n, np.full(m.size, bw), Lr))
+            line["kernels"][f"nw_band_bw{bw}"] = dict(
+                ms={"checked-in": dict(ms=[sum(per_call)], host_ms=[host])},
+                launches=nw_band.LAUNCHES - before,
+                **ptxas_entry(nw_band,
+                              f"band_wide_kernelILi{bw}ELi{Lr // 32}E",
+                              report),
+                warps_per_sm=nw_band.occupancy(bw, Lr), **b,
+                bound_share=b["bound_ms"] / sum(per_call))
+        lines.append(line)
+        del t, planes, ts
+        torch.cuda.empty_cache()
+    return lines
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sweeps", nargs="*", default=list(SWEEPS))
     ap.add_argument("--pairs", type=int, default=1 << 20)
     ap.add_argument("--nw-pairs", type=int, default=1 << 16)
     ap.add_argument("--cigar-pairs", type=int, default=1 << 18)
-    ap.add_argument("--parent", help="a checkout whose csrc/leap.cu the "
-                    "cigar sweep builds beside this one's")
+    ap.add_argument("--parent", help="a checkout whose csrc/leap.cu (the "
+                    "cigar sweep) or csrc/nw.cu (nwlong) is built beside "
+                    "this one's")
+    ap.add_argument("--sample", type=int, default=256,
+                    help="pairs of each nwlong kernel held against its "
+                    "plain version")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--tile", type=int, default=4096)
     args = ap.parse_args(argv)
@@ -441,10 +578,12 @@ def main(argv=None) -> None:
 
     card = card_line()
     corpus = (lh.long_corpus(L, args.pairs)
-              if set(args.sweeps) - {"cigar"} else None)
+              if set(args.sweeps) - {"cigar", "nwlong"} else None)
     lines = []
     for s in args.sweeps:
-        if s == "cigar":
+        if s == "nwlong":
+            lines = nwlong_sweep(args.parent, args.reps, args.sample)
+        elif s == "cigar":
             lines = [cigar_sweep(args.cigar_pairs, args.parent, args.reps,
                                  args.tile)]
         elif s == "greedy":

@@ -636,8 +636,10 @@ def nw_loop_counts(listing: str, warp_steps, cells: float,
                    walk_steps=None) -> dict:
     """The main loop of one NW full or trace instantiation (the one loop of
     its SASS that holds shuffles) and, with `walk_steps` (the traceback's
-    steps per pair, launch order), the walk loop (the one other outermost
-    loop that stores to global memory). `warp_steps`: the main loop's steps
+    steps per pair, launch order), the walk loop (the largest other
+    outermost loop that stores: to global memory on the short path, to
+    the shared ops row on the long one, whose body also holds its tile
+    switch, run once every ~64 steps). `warp_steps`: the main loop's steps
     each warp ran (csrc/nw.cu: `nw_cuda.warp_steps`; the one-warp-per-pair layout,
     one pair per warp: m + n); `cells`: the run's existing cells, sum of
     m * n; each step a thread computes `rows_per_thread` cell slots.
@@ -680,9 +682,10 @@ def nw_loop_counts(listing: str, warp_steps, cells: float,
     if walk_steps is None:
         return out
     walks = [w for w in loops if w is not lp and w["depth"] == 0
-             and any(op.startswith(("STG", "ST.")) for op in w["opcodes"])
+             and any(op.startswith(("STG", "ST.", "STS"))
+                     for op in w["opcodes"])
              and not any(op.startswith("SHFL") for op in w["opcodes"])]
-    if len(walks) > 1:  # the long path also zeroes its rows in loops
+    if len(walks) > 1:  # the long path also zeroes and copies its rows
         walks = [max(walks, key=lambda w: sum(w["body"].values()))]
     if len(walks) != 1:
         raise ValueError(f"expected one walk loop, got {walks}")

@@ -1,14 +1,19 @@
-"""The SASS of the greedy and LEAP kernels' short-row instantiations,
-pinned.
+"""The SASS of the kernels a long-row redesign leaves alone, pinned: the
+greedy and LEAP kernels' short-row instantiations, the NW full and trace
+kernels' (nw_kernel), and the long-row NW full kernel
+(nw_long_kernel<W, false>).
 
-csrc/greedy.cu and csrc/leap.cu hold a long-row path (max_len above 512)
-beside the short one; every instantiation at max_len <= 512 must compile
-to the SASS it had before that path was redesigned. `digests` hashes each
+csrc/greedy.cu, csrc/leap.cu and csrc/nw.cu hold a long-row path (max_len
+above 512) beside the short one; every instantiation at max_len <= 512,
+and the long NW full kernel, must compile to the SASS it had before the
+long-row kernels beside them were redesigned (UNPINNED: the long NW trace
+kernel, which was). `digests` hashes each
 kernel of a built library (`cuobjdump -sass`, the function's own name
 line dropped and the anonymous namespace's per-source hash taken out of
 every symbol), keyed by the mangled name from the kernel's own name on.
-SHORT_SHAPES names the libraries held: the tuned tables and the W <= 16
-per-shape libraries chip_smoke's phase 17 builds. PIN_PATH holds their
+SHORT_SHAPES names the libraries held: the tuned tables, the W <= 16
+per-shape libraries chip_smoke's phase 17 builds, and NW at max_len 1024
+and 2048 (W 32 and 64). PIN_PATH holds their
 digests as the nvcc of the card's machine built them from the sources
 of the commit before the redesign; `check` builds (or finds built) this
 checkout's libraries and compares them with it, where this nvcc is the
@@ -24,8 +29,8 @@ asm_tpu_torch/tools/short_sass.json`.
     python -m asm_tpu_torch.tools.sass_pin [--source-dir DIR] [--out F]
         [--check]
 
---source-dir builds another checkout's csrc/greedy.cu and csrc/leap.cu
-instead of this one's (that is how the pin was taken: the parent's
+--source-dir builds another checkout's csrc/greedy.cu, csrc/leap.cu and
+csrc/nw.cu instead of this one's (that is how the pin was taken: the parent's
 sources); --out writes the digests as JSON; --check compares this
 checkout's with the pin and exits 1 if any kernel moved (0, with
 "compared": false, under another nvcc). Needs nvcc and cuobjdump (no
@@ -46,22 +51,26 @@ from concurrent.futures import ThreadPoolExecutor
 PIN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "short_sass.json")
 # (kernel, build_kernel arguments): the tuned tables, then phase 17's
-# per-shape libraries at max_len <= 512
-SHORT_SHAPES = ([("greedy", ()), ("leap", ())]
+# per-shape libraries at max_len <= 512, then NW's long-row libraries
+SHORT_SHAPES = ([("greedy", ()), ("leap", ()), ("nw", ())]
                 + [("leap", (k, 256, pens)) for k in (0, 1, 5, 8)
                    for pens in ((1, 1, 1), (2, 3, 1))]
                 + [("greedy", (5, 160)), ("leap", (5, 160, (1, 1, 1))),
                    ("leap", (5, 160, (1, 4, 2)))]
                 + [("greedy", (3, L)) for L in (160, 384)]
-                + [("leap", (3, L, (1, 1, 1))) for L in (160, 384)])
-_KERNEL_AT = re.compile(r"\d+((?:greedy|leap)(?:_long)?_kernelI.*)")
+                + [("leap", (3, L, (1, 1, 1))) for L in (160, 384)]
+                + [("nw", (L,)) for L in (160, 384, 1024, 2048)])
+_KERNEL_AT = re.compile(r"\d+((?:greedy|leap|nw)(?:_long)?_kernelI.*)")
+# kernels of those libraries that are not held: the long-row NW trace
+# kernel, redesigned after the pin's sources
+UNPINNED = re.compile(r"^nw_long_kernelILi\d+ELb1E")
 _ANON = re.compile(r"\S*_GLOBAL__N_\S*")
 
 
 def _module(kernel: str):
-    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_cuda
 
-    return greedy_cuda if kernel == "greedy" else leap_cuda
+    return dict(greedy=greedy_cuda, leap=leap_cuda, nw=nw_cuda)[kernel]
 
 
 def stem(kernel: str, args: tuple) -> str:
@@ -83,15 +92,21 @@ def build(kernel: str, args: tuple, source_dir: str | None = None) -> str:
 
 def digests(lib_path: str) -> dict:
     """Mangled name (from the kernel's own name on) -> sha256 of its SASS
-    without the name line and the anonymous namespace's hash."""
+    without the name line and the anonymous namespace's hash, each run of
+    blanks one space (cuobjdump pads the instruction column to the longest
+    instruction of the whole library, so a kernel added beside another
+    would otherwise move its digest)."""
     from asm_tpu_torch.tools.roofline import _sections, sass_listing
 
     out = {}
     for name, text in _sections(sass_listing(lib_path)):
         m = _KERNEL_AT.search(name)
-        body = _ANON.sub("ANON", "\n".join(text.splitlines()[1:]))
-        out[m[1] if m else _ANON.sub("ANON", name)] = hashlib.sha256(
-            body.encode()).hexdigest()
+        key = m[1] if m else _ANON.sub("ANON", name)
+        if UNPINNED.match(key):
+            continue
+        body = _ANON.sub("ANON", "\n".join(
+            " ".join(ln.split()) for ln in text.splitlines()[1:]))
+        out[key] = hashlib.sha256(body.encode()).hexdigest()
     return out
 
 

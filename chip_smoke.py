@@ -144,20 +144,25 @@ line:
      version at max_len 544, 800, 1024 and 2048 on edge lengths (0, 1,
      31, L/2, L - 1, L) and generated pairs at err 0.05 and 0.15: greedy
      at k = 3 and 4 in both forms, LEAP's fused CIGAR, gated filter and
-     penalty pass with both penalty sets, NW full and trace, the band at
-     BW 8-128 (BW 128 also at max_len 128 and 256); (b) the long-sequence
+     penalty pass with both penalty sets, NW full and trace (also on the
+     walk-edge pairs of data/walk_edges.py, whose tracebacks cross the
+     long trace kernel's walk tiles at their edges and corners), the band
+     at BW 8-128 (BW 128 also at max_len 128 and 256); (b) the long-sequence
      flow at max_len 1024 on 262,144 pairs and 2048 on 65,536, pinned from
      asm_tpu, the plain versions equal on 16,384 pairs of each; (c) the
      harness at max_len 1024 on 8,192 pairs, its counts pinned from
-     asm_tpu; (d) the harness at 2048 on 512 pairs; the
+     asm_tpu; (d) the harness at 2048 on 512 pairs, its counts pinned
+     from asm_tpu's public calls; the
      band, full and trace kernels timed at 1024 and 2048 against their
      plain versions and bounds, with their SASS per step; each of the
      five kernels must have launched at max_len >= 1024 in (b)-(d); (e)
-     the greedy and LEAP long-row kernels' registers, spill bytes, threads
-     per pair and warps per SM at each max_len, and the SASS of their
-     W <= 16 instantiations (the tuned tables, phase 17's libraries)
-     against the pin taken from the sources before the long-row redesign
-     (tools/sass_pin.py): no kernel may have moved.
+     the greedy, LEAP and NW long-row kernels' registers, spill bytes
+     (threads per pair) and warps per SM at each max_len, and the SASS of
+     the kernels the long-row redesigns left alone (greedy's, LEAP's and
+     NW's W <= 16 instantiations in the tuned tables and phase 17's
+     libraries, the long NW full kernel) against the pin taken from the
+     sources before the redesigns (tools/sass_pin.py): no kernel may have
+     moved.
 Prints a JSON line of per-kernel results (time, plain version's time,
 bound, launches; the W = 16 instantiations and phases 17's and 18's
 shapes as entries of their own), the card line, and last {"ok": true, "device":
@@ -337,9 +342,17 @@ ROW_PLAIN_SAMPLE = 16_384  # pairs of each flow held against the plain versions
 # "xla", chunk=1024) on the CPU, coverage on every pair.
 ROW_HARNESS_PAIRS = 8192
 ROW_HARNESS = (2778, 7667, 5861)
-# (d) the harness at max_len 2048 on 512 pairs of 2,002 bases (seed 42),
-# no pin (its kernels are held against their plain versions)
+# (d) the harness at max_len 2048 on 512 native pairs of 2,002 bases, err
+# 0.05, seed 42, x = o = e = 1, k = 3; (greedy == NW, LEAP == NW, covered)
+# from asm_tpu's public calls on the CPU, without the fused coverage step
+# (which takes minutes to compile at these lengths): greedy == NW and
+# LEAP == NW from asm_tpu.bench.harness.run_benchmark(impl="xla", chunk=64,
+# want_coverage=False); covered = the pairs for which
+# asm_tpu.metrics.coverage.check_coverage(read, ref, greedy CIGAR, NW
+# CIGAR, 1, 3) holds, the CIGARs from asm_tpu's XLA greedy_align and
+# nw_align (batch_greedy_cigars, batch_nw_cigars) in chunks of 32 pairs
 ROW_HARNESS_2048_PAIRS = 512
+ROW_HARNESS_2048 = (50, 434, 249)
 ROW_LENGTHS = (544, 800, 1024, 2048)
 ROW_CASE_PAIRS = 200  # (a)'s generated err 0.05 pairs per max_len below 2048
 # (a)'s LEAP cases: the fused CIGAR (lv_bag, both penalty sets), the gated
@@ -2074,6 +2087,7 @@ def row_corpora(L):
 def row_kernels_vs_plain(dev, name) -> dict:
     """Phase 18a; returns the max abs error per kernel (all 0)."""
     from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.data.walk_edges import walk_edge_pairs
     from asm_tpu_torch.kernels import nw
     from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
     from asm_tpu_torch.kernels.nw_band import banded_plain, nw_penalty_banded
@@ -2138,6 +2152,22 @@ def row_kernels_vs_plain(dev, name) -> dict:
                 n["nw"] += 1
                 n["nw_trace"] += 1
                 del sub, pen, ops, mask, got
+        # the long trace kernel's walk tiles: paths across their edges
+        # and corners, and along one (data/walk_edges.py)
+        edges = [torch.from_numpy(a).to(dev) for a in walk_edge_pairs(L)]
+        for x, o, e in ((1, 1, 1), (2, 3, 1)):
+            pen, ops, mask = nw.nw_align(*edges, x, o, e,
+                                         match_mask_threshold=3)
+            err["nw"] = max(err["nw"], max_diff(
+                nw_penalty_cuda(*edges, x, o, e), pen,
+                f"L{L}/walk_edges/x{x}o{o}e{e}/nw: pen"))
+            got = nw_align_cuda(*edges, x, o, e, match_mask_threshold=3)
+            for g, w, key in zip(got, (pen, ops, mask),
+                                 ("pen", "ops", "mask")):
+                err["nw_trace"] = max(err["nw_trace"], max_diff(
+                    g, w, f"L{L}/walk_edges/x{x}o{o}e{e}/nw_trace: {key}"))
+            n["nw"] += 1
+            n["nw_trace"] += 1
     # BW 128 at max_len 128 and 256, on the corpora of 544 cut to them
     for L in (128, 256):
         for label, corpus in row_corpora(544)[:2]:
@@ -2153,15 +2183,15 @@ def row_kernels_vs_plain(dev, name) -> dict:
           f"fused CIGAR (lv_bag, both penalty sets) in both forms; NW band "
           f"BW {bws} in both forms, BW 128 also at max_len 128 and 256; "
           f"full; trace with ops and mask; x/o/e 1/1/1 and 2/3/1; lengths "
-          f"0, 1, 31, L/2, L - 1 and L) exactly equal (max abs err "
+          f"0, 1, 31, L/2, L - 1 and L; NW also the walk-edge pairs) "
+          f"exactly equal (max abs err "
           f"{max(err.values())}); {time.perf_counter() - t0:.1f} s")
     return err
 
 
 def row_harness(dev, card, err, L, corpus, pins=None) -> list[dict]:
-    """Phase 18c (max_len 1024, counts pinned from asm_tpu) and 18d
-    (2048; its kernels held against the plain versions in 18a and below):
-    the harness on `corpus`, the band, full and trace kernels' launches
+    """Phase 18c (max_len 1024) and 18d (2048), counts pinned from
+    asm_tpu: the harness on `corpus`, the band, full and trace kernels' launches
     in it; then those kernels timed on
     the corpus's first 2,048 pairs (all 512 at 2048) against their plain
     versions and bounds (and BW 128 beside the partition's widths).
@@ -2175,7 +2205,7 @@ def row_harness(dev, card, err, L, corpus, pins=None) -> list[dict]:
     from asm_tpu_torch.utils.bounds import bound_entry, nw_band_work, \
         nw_full_work
 
-    tag = "18c" if pins else "18d"
+    tag = "18c" if L == 1024 else "18d"
     cfg = AlignConfig(x=1, o=1, e=1, k=3, max_len=L)
     greedy_cuda.LAUNCHES = nw_band.LAUNCHES = leap_cuda.LAUNCHES = 0
     nw_cuda.LAUNCHES.update(nw=0, nw_trace=0)
@@ -2284,8 +2314,10 @@ def row_harness(dev, card, err, L, corpus, pins=None) -> list[dict]:
 def long_row_resources(name) -> None:
     """Phase 18e: the greedy and LEAP long-row kernels' registers, spill
     bytes, threads per pair and warps per SM (k = 3 and 4; LEAP at k = 3,
-    penalty pass and fused CIGAR, unit penalties) at each of ROW_LENGTHS;
-    then their W <= 16 instantiations' SASS against the pin."""
+    penalty pass and fused CIGAR, unit penalties) and the NW full and
+    trace long kernels' at each of ROW_LENGTHS; then the SASS of the
+    kernels the long-row redesigns leave alone against the pin (greedy's,
+    LEAP's and NW's W <= 16 instantiations, the long NW full kernel)."""
     from asm_tpu_torch.kernels import greedy_cuda, leap_cuda
     from asm_tpu_torch.tools import roofline as rl
     from asm_tpu_torch.tools import sass_pin
@@ -2304,6 +2336,11 @@ def long_row_resources(name) -> None:
                          f"{got['registers']} regs, {got['spill_stores']} B "
                          f"spill, {leap_cuda.plan(3, L).group} threads a "
                          f"pair, {got['warps_per_sm']} warps/SM")
+        for trace in (False, True):
+            got = rl.nw_resources(trace, L)
+            parts.append(f"nw{'_trace' if trace else ''} L{L}: "
+                         f"{got['registers']} regs, {got['spill_stores']} B "
+                         f"spill, {got['warps_per_sm']} warps/SM")
     phase("[18e long-row kernels] " + "; ".join(parts) + f" on {name}")
     res = sass_pin.check()
     if not res["compared"]:
@@ -2333,7 +2370,8 @@ def rows_path(dev, name, card) -> list[dict]:
         pins=ROW_HARNESS)
     walls.append(time.perf_counter())
     entries += row_harness(dev, card, err, 2048, generate_dataset_native(
-        ROW_HARNESS_2048_PAIRS, 2002, 0.05, 0.96, seed=42, max_len=2048))
+        ROW_HARNESS_2048_PAIRS, 2002, 0.05, 0.96, seed=42, max_len=2048),
+        pins=ROW_HARNESS_2048)
     walls.append(time.perf_counter())
     long_row_resources(name)
     walls.append(time.perf_counter())

@@ -988,8 +988,9 @@ def test_long_rows_match_plain(dev, row_libs, L):
     and 4, LEAP in its three modes with both penalty sets (af 200), the NW
     full and trace kernels and the band at BW 4-128, each in both input
     forms where it has two, against the plain versions on edge lengths
-    (0, 1, 31-33, L/2, L - 1, L) and generated pairs; each launch goes to
-    the shape's own library."""
+    (0, 1, 31-33, L/2, L - 1, L) and generated pairs, NW also on the
+    walk-edge pairs (`data.walk_edges`); each launch goes to the shape's
+    own library."""
     from asm_tpu_torch.config import LeapMode
     from asm_tpu_torch.kernels import leap_cuda
     from asm_tpu_torch.kernels.shapes import BAND_WIDTHS
@@ -1017,7 +1018,16 @@ def test_long_rows_match_plain(dev, row_libs, L):
                            leap_mode=LeapMode(1)))
         _leap_check(dev, corpus, cfg, sem, gate)
         assert leap_cuda.LIB_LAUNCHES[leap_cuda.plan(3, L, pens).stem] > 0
+    from asm_tpu_torch.data.walk_edges import walk_edge_pairs
+
     sub = [a[:200] for a in corpus]
+    edges = [torch.from_numpy(a).to(dev) for a in walk_edge_pairs(L)]
+    for x, o, e in [(1, 1, 1), (2, 3, 1)]:  # the walk's tile edges
+        pen, ops, mask = nw.nw_align(*edges, x, o, e, match_mask_threshold=3)
+        assert torch.equal(nw_cuda.nw_penalty_cuda(*edges, x, o, e), pen)
+        got = nw_cuda.nw_align_cuda(*edges, x, o, e, match_mask_threshold=3)
+        for g, w, key in zip(got, (pen, ops, mask), ("pen", "ops", "mask")):
+            assert torch.equal(g, w), ("walk edges", x, o, e, key)
     bplanes = [torch.from_numpy(greedy_cuda.stage_planes_t(
         a.cpu().numpy()).view(np.int32)).to(dev) for a in (rc, fc)]
     for x, o, e in [(1, 1, 1), (2, 3, 1)]:

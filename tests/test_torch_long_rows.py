@@ -227,6 +227,58 @@ def test_nw_long_rows(L):
                 reads[12 + i], refs[12 + i], traceback=False)[0], i
 
 
+@pytest.mark.parametrize("L", [1024, 2048])
+def test_nw_walk_tile_edges(L):
+    """The walk-edge pairs (asm_tpu_torch.data.walk_edges: 300-base
+    deletion and insertion at a multiple of 64, a read of length 1 against
+    a ref of length L and the reverse, pairs that differ at every
+    position, lengths at multiples of 64 and one either side, equal
+    sequences), whose tracebacks cross the long trace kernel's 64 x 64
+    walk tiles at their edges and corners and run along one: the CPU path
+    of nw_align_cuda (penalty, ops, mask at 3) and nw_penalty_cuda equal
+    the XLA nw_align / nw_penalty, x/o/e 1/1/1 and 2/3/1. chip_smoke 18a
+    and tests/test_torch_cuda.py hold the kernel on the same pairs."""
+    from asm_tpu_torch.data.walk_edges import walk_edge_pairs
+
+    c = walk_edge_pairs(L)
+    a = list(map(jnp.asarray, c))
+    t = list(map(torch.from_numpy, c))
+    for x, o, e in ((1, 1, 1), (2, 3, 1)):
+        want = jax_nw_align(*a, x, o, e, match_mask_threshold=3)
+        got = nw_align_cuda(*t, x, o, e, match_mask_threshold=3)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(nw_penalty_cuda(*t, x, o, e).numpy(),
+                                      np.asarray(jax_nw_penalty(*a, x, o,
+                                                                e)))
+    # the pairs' paths: the gaps run along a tile edge, the rest cross
+    m, n = c[1].astype(int), c[3].astype(int)
+    assert (n[0] - m[0], m[1] - n[1]) == (300, 300)
+    assert (m[2], n[2]) == (1, L) and (m[3], n[3]) == (L, 1)
+    assert {v % 64 for v in m[6:]} >= {63, 0, 1}
+
+
+def test_trace_pieces_fill_the_card():
+    """shapes.trace_piece: a launch of the trace kernel's global route
+    holds the pairs whose pointer scratch the cap holds, which at L =
+    1024 and 2048 is several waves of the pairs an H100 holds at once (16
+    and 10 warps per SM, one pair a warp, 132 SMs), where the 2 GiB it
+    was held 0.78 of one at 2048; a cap below one pair's scratch
+    raises."""
+    per = {L: shapes.nw_launch(True, L)["scratch_per_pair"]
+           for L in (1024, 2048)}
+    assert per == {1024: 1024 * 1024 // 2, 2048: 2048 * 2048 // 2}
+    waves = {L: shapes.trace_piece(per[L], shapes.TRACE_SCRATCH_BYTES)
+             / (w * 132)
+             for L, w in ((1024, 16), (2048, 10))}
+    assert waves[1024] > 7 and waves[2048] > 3
+    assert shapes.trace_piece(per[2048], 2 << 30) / (10 * 132) < 1
+    assert shapes.trace_piece(per[2048], per[2048] * 64) == 64
+    assert shapes.trace_piece(per[2048], per[2048]) == 1
+    with pytest.raises(NotImplementedError, match="trace scratch"):
+        shapes.trace_piece(per[2048], per[2048] - 1)
+
+
 def _band_corpus(L):
     """Four pairs for the interpret-mode band: an err 0.15 pair, the
     lengths (L, 1), (31, L) and (L, L); at L <= 512 max_len 544's, cut."""
@@ -371,8 +423,10 @@ def test_long_row_plans(L):
         R, nb = got["rows"], got["blocks"]
         assert nb == -(-L // 1024) and R % 4 == 0 and R <= 32
         assert L <= nb * 32 * R and got["threads"] == 32
-        assert got["smem_bytes"] == (2 * L if trace else L) + (
-            8 * L if nb > 1 else 0)
+        # the trace's walk buffers (4 tiles of 2 KiB, ops, mask) reuse the
+        # parked row's bytes
+        assert got["smem_bytes"] == (2 * L if trace else L) + max(
+            8 * L if nb > 1 else 0, 8192 + 3 * L if trace else 0)
         assert got["scratch_per_pair"] == (L * nb * 32 * R // 2 if trace
                                            else 0)
         assert nw_cuda.function_name(trace, L) == (
@@ -475,7 +529,11 @@ def test_sass_pin_keys_and_compares(monkeypatch):
                 "c": _listing("_GLOBAL__N__99aa88bb_9_greedy_cu_77cc66dd",
                               "LOP3.LUT R2, R2, 0x5, RZ, 0x3c, !PT")}
     monkeypatch.setattr(roofline, "sass_listing", lambda path: listings[path])
-    a, b, c = (sass_pin.digests(x) for x in "abc")
+    # a wider instruction column (a longer instruction elsewhere in the
+    # library) is layout, not SASS
+    listings["d"] = listings["a"].replace(" ;", "      ;")
+    a, b, c, d = (sass_pin.digests(x) for x in "abcd")
+    assert a == d
     assert sorted(a) == ["greedy_kernelILi3ELi4ELb1EsEEvPKjS2_",
                          "leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1EEEv"]
     assert a == b
@@ -488,9 +546,24 @@ def test_sass_pin_keys_and_compares(monkeypatch):
     assert sorted(pin["libraries"]) == sorted(
         sass_pin.stem(*s) for s in sass_pin.SHORT_SHAPES)
     assert pin["nvcc"].startswith("Build cuda_")
-    # the tuned tables: greedy 3 k x 3 W x 2 forms, LEAP 144
+    # the tuned tables: greedy 3 k x 3 W x 2 forms, LEAP 144, NW 3 W x 2;
+    # at W 32 and 64 the long NW full kernel alone (the trace not held)
     assert len(pin["libraries"]["greedy"]) == 18
     assert len(pin["libraries"]["leap"]) == 144
+    assert len(pin["libraries"]["nw"]) == 6
+    for W in (32, 64):
+        assert list(pin["libraries"][f"nw_w{W}"]) == [
+            next(k for k in pin["libraries"][f"nw_w{W}"])]
+        assert next(iter(pin["libraries"][f"nw_w{W}"])).startswith(
+            f"nw_long_kernelILi{W}ELb0E")
+    nw_listing = (_listing("_GLOBAL__N__1a2b3c4d_5_nw_cu_5e6f7a8b", "NOP")
+                  .replace("greedy_kernelILi3ELi4ELb1EsE",
+                           "nw_long_kernelILi32ELb0EE")
+                  .replace("leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1EE",
+                           "nw_long_kernelILi32ELb1EE"))
+    monkeypatch.setattr(roofline, "sass_listing", lambda path: nw_listing)
+    assert [k[:25] for k in sass_pin.digests("nw")] == [
+        "nw_long_kernelILi32ELb0EE"]
     res = sass_pin.check(got=pin["libraries"], version=pin["nvcc"])
     assert res["compared"] and res["moved"] == res["missing"] == []
     bad = dict(pin["libraries"], greedy=dict(pin["libraries"]["greedy"]))
