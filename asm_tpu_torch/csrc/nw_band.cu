@@ -34,8 +34,8 @@
 // any other W at its first use into a library of its own. BW 4 packs 16
 // pairs a warp, and at L >= 384 a block of 64 threads keeps its rows in
 // the 48 KB of static shared memory (block_threads). BW 128 at every L,
-// and every BW above L = 512, take band_wide_kernel (below): four offsets
-// a thread at BW 128, the code rows in dynamic shared memory.
+// and every BW above L = 512, take band_wide_kernel (below): wide_np(BW, L)
+// offset pairs a thread, the code rows in dynamic shared memory.
 //
 // What bounds it: integer issue. A pair reads 64 B of planes and writes
 // 4 B, so memory is far below. By the SASS count (tools/roofline.py
@@ -257,29 +257,126 @@ band_kernel(const uint32_t* __restrict__ rp, const uint32_t* __restrict__ fp,
 
 // ---- the wide path: BW 128 at every L, and every BW at L > 512 ----
 // Each thread owns NP pairs of adjacent offsets, A_q at u = 2(NP t + q)
-// and B_q at u + 1, q < NP: NP = 2 at BW 128, so a pair's 64 offsets stay
-// in one warp (SEG = 32 threads) and keep the shuffle scheme above, the
-// two offset pairs exchanging E and F inside the thread; a pair spanning
-// two warps would trade both edges through shared memory and a barrier
-// every diagonal. NP = 1 below BW 128 is band_kernel's layout. The code
-// rows live in dynamic shared memory: at L > 512 the two rows of 64/BW
-// pairs a warp pass the 48 KB of static shared memory at 32 threads a
-// block from BW 4 on (L = 2048: 65,920 B a warp), and the borders' trips
-// stay rolled.
+// and B_q at u + 1, q < NP: a pair takes SEG = BW / (2 NP) threads, a warp
+// 32 / SEG pairs. NP per BW is wide_np_table's, chosen by timing
+// (tools/longseq_sweep bandnp; PERF.md section 6), halved where one warp's
+// rows would not fit a block (wide_np). At BW 4 a pair is one thread (no
+// shuffle at all). A pair never spans two warps: that would trade both
+// band edges through shared memory and a barrier every diagonal. The code
+// rows live in dynamic shared memory: at L > 512 the two rows of a warp's
+// pairs pass the 48 KB of static shared memory at 32 threads a block (L =
+// 2048: 131,840 B a warp at BW 4, 16,672 at BW 64).
+//
+// What bounds it: integer issue, as band_kernel. The loop takes out what
+// band_kernel's layout kept in every cell and that the recurrence does
+// not need:
+// - the borders (k == +-d) lie in the first BW/4 trips only: those run in
+//   a loop of their own (wide_trip<.., true>), the rest test nothing;
+// - the destination: a pair's last trip ends on its diagonal m+n, so its
+//   owner reads H there once. The trips before the warp's first such trip
+//   run with no capture; the last ones (a warp holding pairs of other
+//   lengths) test the trip, not each cell;
+// - one shuffle a diagonal, not two: a thread sends its neighbour the E
+//   (or F) that the neighbour's cell takes, min(h + o, e + e), computed
+//   from its own cell, whose h + o also serves the F (or E) of the cell
+//   beside it in the thread; NP offset pairs share each shuffle and each
+//   edge select;
+// - the main loop runs kWideUnroll trips a pass, so the code window (a
+//   read code and a ref code a trip) rotates by register renaming.
+// An edge thread takes INF for its absent neighbour's E or F, where the
+// plain version takes INF + min(o, e): values grown from INF never win a
+// min at a cell that a path from (0, 0) reaches, so the outputs are the
+// plain version's bit for bit.
 constexpr int kShortW = 16;
 constexpr int kWideSmem = 64 * 1024;  // a wide block's shared memory, at most,
                                       // while more than one warp fits
+constexpr int kSmemBlock = 232448;    // the most a block may take (sm_90)
+constexpr int kWideUnroll = 2;        // trips a pass of the main loop
+constexpr int kNever = 0x7fffffff;
 
-__host__ __device__ constexpr int wide_np(int BW) { return BW > 64 ? BW / 64 : 1; }
-__host__ __device__ constexpr int wide_seg(int BW) { return BW / (2 * wide_np(BW)); }
-// dynamic shared bytes of a wide block of `threads`: two code rows a pair
+// offset pairs a thread holds at BW, as timed (tools/longseq_sweep bandnp)
+__host__ __device__ constexpr int wide_np_table(int BW) { return BW == 128 ? 4 : BW == 64 ? 4 : BW == 32 ? 4 : BW == 16 ? 2 : BW == 4 ? 2 : 1; }
+// dynamic shared bytes of a wide block of `threads` at NP offset pairs a
+// thread: two code rows a pair, 32 / SEG pairs a warp
+__host__ __device__ constexpr int wide_rows_smem(int BW, int L, int threads,
+                                                 int np) {
+    return threads / 32 * (32 / (BW / (2 * np))) * 2 * row_words(BW, L) * 4;
+}
+// the table's NP, halved while one warp's rows pass a block's shared
+// memory (down to the least NP whose pair fits a warp), so every L the
+// layout of one offset pair a thread took still builds
+__host__ __device__ constexpr int wide_np(int BW, int L) {
+    int np = wide_np_table(BW);
+    while (np > (BW > 64 ? BW / 64 : 1) &&
+           wide_rows_smem(BW, L, 32, np) > kSmemBlock)
+        np /= 2;
+    return np;
+}
+__host__ __device__ constexpr int wide_seg(int BW, int L) {
+    return BW / (2 * wide_np(BW, L));
+}
 __host__ __device__ constexpr int wide_smem(int BW, int L, int threads) {
-    return threads / 32 * (32 / wide_seg(BW)) * 2 * row_words(BW, L) * 4;
+    return wide_rows_smem(BW, L, threads, wide_np(BW, L));
 }
 __host__ __device__ constexpr int wide_threads(int BW, int L) {
     return wide_smem(BW, L, 128) <= kWideSmem  ? 128
            : wide_smem(BW, L, 64) <= kWideSmem ? 64
                                                : 32;
+}
+
+template <int NP>
+struct WideCells {
+    int ha[NP], ea[NP], fa[NP], hb[NP], eb[NP], fb[NP];
+};
+
+// One trip of the wide layout: every A_q on odd diagonal d, then every B_q
+// on d + 1. rw[q]: A_q's read code (B_q's is rw[q + 1]); cw[q]: the ref
+// code of both; ka: offset k of A_0 (the borders' test).
+template <int NP, int SEG, bool BORDERS>
+__device__ __forceinline__ void wide_trip(WideCells<NP>& s, int d,
+                                          const int (&rw)[NP + 1],
+                                          const int (&cw)[NP], int t, int ka,
+                                          int x, int o, int e) {
+    {  // A_q: E from B_{q-1} (q = 0: B_{NP-1} of thread t-1), F from B_q
+        int ho[NP], eo[NP];  // B_q's h + o, and the E that A_{q+1} takes
+#pragma unroll
+        for (int q = 0; q < NP; q++) {
+            ho[q] = s.hb[q] + o;
+            eo[q] = min(s.eb[q] + e, ho[q]);
+        }
+        int ein = __shfl_up_sync(kFull, eo[NP - 1], 1, SEG);
+        if (t == 0) ein = kInf;
+#pragma unroll
+        for (int q = 0; q < NP; q++) {
+            int en = q == 0 ? ein : eo[q - 1];
+            int fn = min(s.fb[q] + e, ho[q]);
+            int hn = min(s.ha[q] + (rw[q] != cw[q] ? x : 0), min(en, fn));
+            if (BORDERS) border(ka + 2 * q, d, o, e, hn, en, fn);
+            s.ha[q] = hn;
+            s.ea[q] = en;
+            s.fa[q] = fn;
+        }
+    }
+    {  // B_q: E from A_q, F from A_{q+1} (q = NP-1: A_0 of thread t+1)
+        int ho[NP], fo[NP];  // A_q's h + o, and the F that B_{q-1} takes
+#pragma unroll
+        for (int q = 0; q < NP; q++) {
+            ho[q] = s.ha[q] + o;
+            fo[q] = min(s.fa[q] + e, ho[q]);
+        }
+        int fin = __shfl_down_sync(kFull, fo[0], 1, SEG);
+        if (t == SEG - 1) fin = kInf;
+#pragma unroll
+        for (int q = 0; q < NP; q++) {
+            int en = min(s.ea[q] + e, ho[q]);
+            int fn = q == NP - 1 ? fin : fo[q + 1];
+            int hn = min(s.hb[q] + (rw[q + 1] != cw[q] ? x : 0), min(en, fn));
+            if (BORDERS) border(ka + 2 * q + 1, d + 1, o, e, hn, en, fn);
+            s.hb[q] = hn;
+            s.eb[q] = en;
+            s.fb[q] = fn;
+        }
+    }
 }
 
 template <int BW, int W>
@@ -289,13 +386,16 @@ band_wide_kernel(const uint32_t* __restrict__ rp,
                  const int* __restrict__ fl, Params P,
                  int* __restrict__ pen_out) {
     constexpr int L = 32 * W;
-    constexpr int NP = wide_np(BW);
-    constexpr int SEG = wide_seg(BW);  // threads per pair
+    constexpr int NP = wide_np(BW, L);
+    constexpr int SEG = wide_seg(BW, L);  // threads per pair
     constexpr int PPW = 32 / SEG;      // pairs per warp
     constexpr int PPB = (wide_threads(BW, L) / 32) * PPW;
     constexpr int KB = BW / 2 - 1;
     constexpr int PAD = pad_codes(BW);
     constexpr int ROWW = row_words(BW, L);
+    constexpr int NB = BW / 4;  // the trips that hold border cells
+    static_assert(SEG >= 1 && 32 % SEG == 0 && 2 * NP * SEG == BW,
+                  "wide_np must split a band into whole warp segments");
     extern __shared__ __align__(16) uint32_t s_rows[];  // [PPB][2][ROWW]
 
     const int lane = threadIdx.x & 31;
@@ -337,24 +437,33 @@ band_wide_kernel(const uint32_t* __restrict__ rp,
     __syncwarp();
 
     const int mn = m + n, dk = m - n;
-    const int trips = (__reduce_max_sync(kFull, mn) + 1) >> 1;
-    // the destination's owner captures H on diagonal m+n: offset ud lies
-    // in thread ud / (2 NP), pair q = ud / 2 % NP, slot A where ud is even
+    // the destination (d = m+n, offset ud) lies in thread ud / (2 NP), pair
+    // qd = ud / 2 % NP, slot A where ud is even (m+n odd)
     const int ud = dk + KB;
     const bool in_band = ud >= 0 && ud < BW;
     const bool owner = in_band && ud / (2 * NP) == t;
-    int ha[NP], ea[NP], fa[NP], hb[NP], eb[NP], fb[NP], ka[NP], hit_a[NP],
-        hit_b[NP];
+    const int qd = ud / 2 % NP;
+    const bool dest_b = ud & 1;
+    // a pair's trips end on its destination's diagonal; the owner reads H
+    // on the last one (m+n = 0 takes the closed form)
+    const int need = (mn + 1) >> 1;
+    const int cap = owner && mn > 0 ? need - 1 : -1;
+    const int hi = __reduce_max_sync(kFull, need);
+    const int lo = __reduce_min_sync(kFull, cap >= NB ? cap : kNever);
+
+    const int ka = 2 * NP * t - KB;  // offset A_0; A_q is ka + 2q, B_q + 1
+    WideCells<NP> s;
 #pragma unroll
     for (int q = 0; q < NP; q++) {
-        ka[q] = 2 * (NP * t + q) - KB;
-        ha[q] = ea[q] = fa[q] = eb[q] = fb[q] = kInf;
-        hb[q] = ka[q] + 1 == 0 ? 0 : kInf;  // diagonal 0: only cell (0, 0)
-        const bool mine = owner && ud / 2 % NP == q;
-        hit_a[q] = mine && !(ud & 1) ? mn : -1;
-        hit_b[q] = mine && (ud & 1) ? mn : -1;
+        s.ha[q] = s.ea[q] = s.fa[q] = s.eb[q] = s.fb[q] = kInf;
+        s.hb[q] = ka + 2 * q + 1 == 0 ? 0 : kInf;  // diagonal 0: only (0, 0)
     }
     int hit = kInf;
+    auto take = [&]() {  // the owner's H at its destination
+#pragma unroll
+        for (int q = 0; q < NP; q++)
+            if (q == qd) hit = dest_b ? s.hb[q] : s.ha[q];
+    };
     // trip tau: A_q's cell is (i, j) = (tau + v + 1 - BW/4, tau - v + BW/4),
     // v = NP t + q, B_q's (i + 1, j); the read codes of A_q and B_q are
     // pr[tau + q] and pr[tau + q + 1], their ref code pc[tau - q]
@@ -367,58 +476,38 @@ band_wide_kernel(const uint32_t* __restrict__ rp,
     for (int q = 0; q <= NP; q++) rw[q] = pr[q];
 #pragma unroll
     for (int q = 0; q < NP; q++) cw[q] = pc[-q];
-#pragma unroll 1
-    for (int tau = 0; tau < trips; tau++) {
-        const int d = 2 * tau + 1;
-        const bool borders = tau < BW / 4;
-        {  // A on odd d: E from B_{q-1} (q = 0: B_{NP-1} of thread t-1)
-            int uh = __shfl_up_sync(kFull, hb[NP - 1], 1, SEG);
-            int ue = __shfl_up_sync(kFull, eb[NP - 1], 1, SEG);
-            if (t == 0) {
-                uh = kInf;
-                ue = kInf;
-            }
-#pragma unroll
-            for (int q = 0; q < NP; q++) {
-                const int ph = q == 0 ? uh : hb[q - 1];
-                const int pe = q == 0 ? ue : eb[q - 1];
-                int en = min(ph + o, pe + e);
-                int fn = min(hb[q] + o, fb[q] + e);
-                int hn = min(ha[q] + (rw[q] != cw[q] ? x : 0), min(en, fn));
-                if (borders) border(ka[q], d, o, e, hn, en, fn);
-                if (d == hit_a[q]) hit = hn;
-                ha[q] = hn;
-                ea[q] = en;
-                fa[q] = fn;
-            }
-        }
-        {  // B on d + 1: F from A_{q+1} (q = NP-1: A_0 of thread t+1)
-            int dh = __shfl_down_sync(kFull, ha[0], 1, SEG);
-            int df = __shfl_down_sync(kFull, fa[0], 1, SEG);
-            if (t == SEG - 1) {
-                dh = kInf;
-                df = kInf;
-            }
-#pragma unroll
-            for (int q = 0; q < NP; q++) {
-                const int nh = q == NP - 1 ? dh : ha[q + 1];
-                const int nf = q == NP - 1 ? df : fa[q + 1];
-                int en = min(ha[q] + o, ea[q] + e);
-                int fn = min(nh + o, nf + e);
-                int hn = min(hb[q] + (rw[q + 1] != cw[q] ? x : 0), min(en, fn));
-                if (borders) border(ka[q] + 1, d + 1, o, e, hn, en, fn);
-                if (d + 1 == hit_b[q]) hit = hn;
-                hb[q] = hn;
-                eb[q] = en;
-                fb[q] = fn;
-            }
-        }
+    auto advance = [&](int tau) {  // the codes of trip tau + 1
 #pragma unroll
         for (int q = 0; q < NP; q++) rw[q] = rw[q + 1];
         rw[NP] = pr[tau + NP + 1];
 #pragma unroll
         for (int q = NP - 1; q > 0; q--) cw[q] = cw[q - 1];
         cw[0] = pc[tau + 1];
+    };
+
+    const int nb = min(NB, hi);
+    int tau = 0;
+#pragma unroll 1
+    for (; tau < nb; tau++) {  // the borders' trips
+        wide_trip<NP, SEG, true>(s, 2 * tau + 1, rw, cw, t, ka, x, o, e);
+        if (tau == cap) take();
+        advance(tau);
+    }
+    // up to the warp's first destination past the borders: no capture
+    const int end = max(nb, min(lo, hi));
+#pragma unroll 1
+    for (; tau + kWideUnroll <= end; tau += kWideUnroll) {
+#pragma unroll
+        for (int u = 0; u < kWideUnroll; u++) {
+            wide_trip<NP, SEG, false>(s, 0, rw, cw, t, ka, x, o, e);
+            advance(tau + u);
+        }
+    }
+#pragma unroll 1
+    for (; tau < hi; tau++) {  // the destinations' trips
+        wide_trip<NP, SEG, false>(s, 0, rw, cw, t, ka, x, o, e);
+        if (tau == cap) take();
+        advance(tau);
     }
 
     if (!live) return;
@@ -432,7 +521,7 @@ cudaError_t launch_wide(const void* rp, const void* fp, const void* rl,
                         cudaStream_t s) {
     constexpr int threads = wide_threads(BW, 32 * W);
     constexpr int smem = wide_smem(BW, 32 * W, threads);
-    constexpr int PPB = (threads / 32) * (32 / wide_seg(BW));
+    constexpr int PPB = (threads / 32) * (32 / wide_seg(BW, 32 * W));
     static const cudaError_t prepared = cudaFuncSetAttribute(
         band_wide_kernel<BW, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
@@ -561,3 +650,7 @@ extern "C" int asm_nw_band_occupancy(int bw, int W) {
 #endif
     return err == cudaSuccess ? warps : -(int)err;
 }
+
+// offset pairs a thread of the wide path (band_wide_kernel) holds at bw
+// and W: the layout tools/longseq_sweep counts the loop by
+extern "C" int asm_nw_band_wide_np(int bw, int W) { return wide_np(bw, 32 * W); }

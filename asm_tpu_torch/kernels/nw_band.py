@@ -169,28 +169,35 @@ def build_kernel(max_len: int = 128) -> tuple[str, bool]:
     return nvcc_library(p.stem, SOURCE, p.defines)
 
 
+def bind(path: str):
+    """ctypes handle of a band library at `path`, its entry points typed."""
+    lib = ctypes.CDLL(path)
+    c = ctypes
+    lib.asm_nw_band_launch.restype = c.c_int
+    lib.asm_nw_band_launch.argtypes = (
+        [c.c_void_p] * 4 + [c.c_int] * 6 + [c.c_void_p, c.c_int, c.c_void_p])
+    lib.asm_nw_band_occupancy.restype = c.c_int
+    lib.asm_nw_band_occupancy.argtypes = [c.c_int] * 2
+    lib.asm_nw_band_wide_np.restype = c.c_int
+    lib.asm_nw_band_wide_np.argtypes = [c.c_int] * 2
+    return lib
+
+
 def _load(max_len: int = 128):
     """The bound library holding max_len, built at its first use."""
     p = plan(max_len)
     if p.stem not in _libs:
-        path, _ = build_kernel(max_len)
-        lib = ctypes.CDLL(path)
-        c = ctypes
-        lib.asm_nw_band_launch.restype = c.c_int
-        lib.asm_nw_band_launch.argtypes = (
-            [c.c_void_p] * 4 + [c.c_int] * 6 + [c.c_void_p, c.c_int,
-                                                 c.c_void_p])
-        lib.asm_nw_band_occupancy.restype = c.c_int
-        lib.asm_nw_band_occupancy.argtypes = [c.c_int] * 2
-        _libs[p.stem] = lib
+        _libs[p.stem] = bind(build_kernel(max_len)[0])
     return _libs[p.stem]
 
 
-def occupancy(bw: int, max_len: int) -> int:
+def occupancy(bw: int, max_len: int, lib=None) -> int:
     """Resident warps per SM of the wide path (band_wide_kernel: every BW
     above max_len 512, BW 128 at and below it) on the current CUDA device,
-    with the shared memory its launch uses."""
-    got = _load(max_len).asm_nw_band_occupancy(bw, max_len // 32)
+    with the shared memory its launch uses; of `lib` (a bound library,
+    `bind`) where given."""
+    lib = lib or _load(max_len)
+    got = lib.asm_nw_band_occupancy(bw, max_len // 32)
     if got < 0:
         raise RuntimeError(f"band occupancy query failed at BW {bw}, "
                            f"max_len {max_len}: cudaError {-got}")

@@ -73,9 +73,12 @@ ROUTE_NONE, ROUTE_GLOBAL, ROUTE_SHARED = 0, 1, 2
 NW_TUNED = {(4, False): (8, ROUTE_NONE), (8, False): (8, ROUTE_NONE),
             (16, False): (16, ROUTE_NONE), (4, True): (16, ROUTE_SHARED),
             (8, True): (8, ROUTE_GLOBAL), (16, True): (16, ROUTE_GLOBAL)}
-# the band widths csrc/nw_band.cu is built for: BW/2 threads per pair up
-# to BW 64; at BW 128 each thread owns four offsets, 32 threads a pair
+# the band widths csrc/nw_band.cu is built for: BW/2 threads per pair on
+# the short path (BW 4-64, max_len <= 512); the wide path's threads own
+# band_wide_np(BW, L) offset pairs each, BAND_WIDE_NP's (its wide_np_table,
+# as timed) where a warp's rows fit a block
 BAND_WIDTHS = (4, 8, 16, 32, 64, 128)
+BAND_WIDE_NP = {4: 2, 8: 1, 16: 2, 32: 4, 64: 4, 128: 4}
 # the band kernel's wide path (BW 128, and every BW above max_len 512)
 # takes the largest of 128, 64 and 32 threads whose code rows fit this
 # much shared memory, else 32
@@ -345,27 +348,42 @@ def band_row_words(bw: int, L: int) -> int:
     return w if w % 2 else w + 1
 
 
+def band_wide_np(bw: int, L: int) -> int:
+    """csrc/nw_band.cu's wide_np: the offset pairs a thread of the wide
+    path holds at (bw, L), BAND_WIDE_NP's, halved while one warp's code
+    rows (32 / (bw / (2 NP)) pairs) pass a block's shared memory, down to
+    the least NP whose pair fits a warp."""
+    np_ = BAND_WIDE_NP[bw]
+    while (np_ > max(1, bw // 64)
+           and _band_rows_smem(bw, L, 32, np_) > SMEM_BLOCK_LIMIT):
+        np_ //= 2
+    return np_
+
+
+def _band_rows_smem(bw: int, L: int, threads: int, np_: int) -> int:
+    """Dynamic shared bytes of a wide block: two code rows a pair."""
+    return threads // 32 * (32 // (bw // (2 * np_))) * 2 * band_row_words(
+        bw, L) * 4
+
+
 def band_wide_launch(bw: int, L: int) -> dict:
     """Threads and dynamic shared bytes per block of the band kernel's wide
-    path (csrc/nw_band.cu wide_threads / wide_smem): one pair per 32
-    threads at BW 128, 64/BW pairs a warp below."""
-    seg = bw // 2 if bw <= 64 else 32
-
-    def smem(threads):
-        return threads // 32 * (32 // seg) * 2 * band_row_words(bw, L) * 4
-
-    for nt in THREAD_CHOICES:
-        if smem(nt) <= BAND_WIDE_SMEM:
-            return dict(threads=nt, smem_bytes=smem(nt))
-    return dict(threads=32, smem_bytes=smem(32))
+    path (csrc/nw_band.cu wide_threads / wide_smem), with its offset pairs
+    a thread (np), threads per pair (seg: bw / (2 np)) and pairs per warp
+    (32 / seg)."""
+    np_ = band_wide_np(bw, L)
+    seg = bw // (2 * np_)
+    nt = next((nt for nt in THREAD_CHOICES
+               if _band_rows_smem(bw, L, nt, np_) <= BAND_WIDE_SMEM), 32)
+    return dict(threads=nt, smem_bytes=_band_rows_smem(bw, L, nt, np_),
+                np=np_, seg=seg, pairs_per_warp=32 // seg)
 
 
 def band_plan(max_len: int, bw: int) -> Plan:
     """The library of the band kernel at max_len (all BAND_WIDTHS)."""
     if bw not in BAND_WIDTHS:
         raise NotImplementedError(
-            f"the band kernel is built for BW in {BAND_WIDTHS} (BW/2 "
-            f"threads a pair, four offsets a thread at 128); got {bw}")
+            f"the band kernel is built for BW in {BAND_WIDTHS}; got {bw}")
     W = words(max_len, "NW band")
     if W > LONG_W or bw == 128:
         got = band_wide_launch(bw, max_len)["smem_bytes"]

@@ -31,17 +31,32 @@ equal to the checked-in build's.
           waves of the long-sequence headline's corpus (NWLONG_PAIRS):
           the full kernel (nw_penalty_cuda), the trace kernel
           (nw_align_cuda with the match mask at 3, as the harness's
-          coverage step calls it) and the band's wide path at BW 64 and
-          128 (pre-staged planes; timed, no certificate asked), each
-          queued behind a spin as in cigar, each output held against its
-          plain version on --sample pairs; per kernel and L: ms, pairs,
-          launches, bound (utils/bounds) and share, registers, spills,
-          warps per SM. With --parent DIR the full and trace kernels of
-          DIR's csrc/nw.cu (its launch pieces: PARENT_SCRATCH_BYTES of
-          scratch) run in turns beside this checkout's
+          coverage step calls it) and the band's wide path at every BW
+          (NWLONG_BWS; pre-staged planes; timed, no certificate asked),
+          each queued behind a spin as in cigar, each output held against
+          its plain version on --sample pairs; per kernel and L: ms,
+          pairs, launches, bound (utils/bounds) and share, registers,
+          spills, warps per SM, and for the band its diagonal loop's SASS
+          (roofline.nw_band_loop: per existing cell, by opcode); then the
+          harness's measuring pass (nw_penalty_partitioned over
+          nw_band.BWS, the residue to the full kernel) on the same
+          corpus: its wall, its band launches and their summed ms, the
+          full kernel's ms; then the band at NWLONG_SMALL's widths on
+          the corpus's first NWLONG_SMALL pairs, a launch under one wave
+          of warps (chip_smoke 18d's size at 2048). With --parent DIR the
+          kernels of DIR's csrc/nw.cu (its launch pieces:
+          PARENT_SCRATCH_BYTES of scratch) and csrc/nw_band.cu run in
+          turns beside this checkout's (parent, checked-in, checked-in,
+          parent), outputs equal
+  bandnp  the band's wide path at L = 1024 and 2048 (the nwlong corpus)
+          with csrc/nw_band.cu's layout table replaced: the offset pairs
+          a thread holds (wide_np_table) at some BW, or the main loop's
+          trips a pass (kWideUnroll), BAND_VARIANTS; each timed in turns
+          beside the checked-in build at every BW, outputs equal, with
+          its loop's SASS per existing cell, registers and warps per SM
 
     python -m asm_tpu_torch.tools.longseq_sweep [greedy nw piece cigar
-        nwlong] [--pairs N] [--nw-pairs N] [--cigar-pairs N]
+        nwlong bandnp] [--pairs N] [--nw-pairs N] [--cigar-pairs N]
         [--parent DIR] [--reps N] [--sample N]
 
 The corpus is the long-sequence headline's at L = 512 (496-base reads,
@@ -71,7 +86,7 @@ from asm_tpu_torch.utils.build import BUILD_DIR, nvcc_library, ptxas_report_path
 from asm_tpu_torch.utils.timing import log, time_reps
 
 L = 512
-SWEEPS = ("greedy", "nw", "piece", "cigar", "nwlong")
+SWEEPS = ("greedy", "nw", "piece", "cigar", "nwlong", "bandnp")
 # the variants, and the patterns of the source lines that set them
 GREEDY_THREADS = (128, 64, 32)
 GREEDY_LINE = r"return W == 16 \? \d+ : 128;"
@@ -88,8 +103,23 @@ SPIN_CYCLES = 40_000_000  # ~20 ms at 1.98 GHz
 # the nwlong sweep: pairs per max_len (several waves of each kernel), the
 # band widths, and the parent's trace launch pieces (a fixed scratch cap)
 NWLONG_PAIRS = {1024: 16384, 2048: 8192}
-NWLONG_BWS = (64, 128)
+NWLONG_BWS = (4, 8, 16, 32, 64, 128)
+# a small band launch: its pairs and widths
+NWLONG_SMALL = (512, (64, 128))
 PARENT_SCRATCH_BYTES = 2 << 30
+# the bandnp sweep: csrc/nw_band.cu's layout lines, and per variant the
+# offset pairs a thread at each BW it changes (the others the checked-in
+# table's) and the main loop's trips a pass
+WIDE_NP_LINE = (r"__host__ __device__ constexpr int wide_np_table\(int BW\) "
+                r"\{ return [^}]*\}")
+UNROLL_LINE = r"constexpr int kWideUnroll = \d+;"
+BAND_VARIANTS = {
+    "np_down": ({4: 1, 16: 1, 32: 2, 64: 2, 128: 2}, 2),
+    "np_up": ({8: 2, 16: 4, 32: 8, 64: 8, 128: 8}, 2),
+    "unroll1": ({}, 1),
+    "unroll4": ({}, 4),
+}
+BANDNP_BWS = (4, 8, 16, 32, 64, 128)
 # the long kernel's hand-over to its walker, and the copy that skips the
 # walk: each group's thread 0 writes the outputs and returns
 WALK_LINE = (r"    __syncwarp\(gm\);  // the group's parked cells, seen by "
@@ -452,16 +482,178 @@ def parent_pieces():
         nw_cuda.TRACE_SCRATCH_BYTES = saved
 
 
+def band_libs(Lr: int, parent: str | None) -> dict:
+    """name -> (bound library, its path, its ptxas report) of the band at
+    max_len Lr: with `parent`, DIR's csrc/nw_band.cu built first, then the
+    checked-in build."""
+    from asm_tpu_torch.kernels import nw_band
+
+    p = nw_band.plan(Lr)
+    out = {}
+    if parent:
+        path, rep = variant(nw_band, f"parent_{p.stem}", [], p.defines,
+                            os.path.join(parent, "asm_tpu_torch", "csrc",
+                                         "nw_band.cu"))
+        out["parent"] = (nw_band.bind(path), path, rep)
+    path, _ = nw_band.build_kernel(Lr)
+    out["checked-in"] = (nw_band._load(Lr), path, nw_band.ptxas_report(Lr))
+    return out
+
+
+def band_info(lib, path: str, report: str, bw: int, Lr: int, mn) -> dict:
+    """Registers and spills (ptxas), warps per SM and the diagonal loop's
+    SASS count (roofline.nw_band_loop over the corpus's m+n) of
+    band_wide_kernel<bw, Lr/32> in one library."""
+    from asm_tpu_torch.kernels import nw_band
+    from asm_tpu_torch.tools.roofline import (
+        WIDE_SHFL_PER_DIAGONAL,
+        nw_band_loop,
+        ptxas_entry,
+        sass_listing,
+        wide_function,
+    )
+
+    fn = wide_function(bw, Lr)
+    loop = nw_band_loop(sass_listing(path, fn), bw, mn,
+                        lib.asm_nw_band_wide_np(bw, Lr // 32),
+                        WIDE_SHFL_PER_DIAGONAL)
+    return dict(ptxas_entry(nw_band, fn, open(report).read()),
+                warps_per_sm=nw_band.occupancy(bw, Lr, lib),
+                **{k: loop[k] for k in (
+                    "pairs_per_warp", "offset_pairs_per_thread",
+                    "diagonal_loops", "loop_insts", "existing_cells_per_trip",
+                    "loop_insts_per_existing_cell", "loop_body",
+                    "loop_opcodes", "mn_divergence_x")})
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, marks: list):
+    """Inside, each call of module.<name> records a pair of CUDA events
+    around it into `marks` as (name, start, stop)."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        out = fn(*args, **kw)
+        stop.record()
+        marks.append((name, start, stop))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def measuring_pass(Lr: int, planes, t, libs: dict, reps: int) -> dict:
+    """The harness's NW measuring pass (nw_penalty_partitioned over
+    nw_band.BWS on pre-staged planes, its residue to the full kernel) on
+    the corpus, with each band library of `libs` in turns (forward, then
+    reversed), outputs equal: per library the best rep's wall (host clock
+    to the pass's numpy result) and, in that rep, the band launches, their
+    summed device ms and the full kernel's."""
+    from asm_tpu_torch.kernels import nw_band
+
+    out, first = {}, None
+    for name in list(libs) + list(reversed(libs)):
+        best = None
+        for _ in range(reps + 1):  # a warm-up, then the reps
+            marks = []
+            before = nw_band.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with using(nw_band, libs[name][0], Lr), \
+                    timed_calls(nw_band, "nw_penalty_banded", marks), \
+                    timed_calls(nw_cuda, "nw_penalty_cuda", marks):
+                pen = nw_band.nw_penalty_partitioned(
+                    planes[0], t[1], planes[1], t[3], bws=nw_band.BWS,
+                    pre_staged=True)
+            wall = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            ms = [(k, a.elapsed_time(b)) for k, a, b in marks]
+            got = dict(wall_ms=wall, band_launches=nw_band.LAUNCHES - before,
+                       band_ms=sum(v for k, v in ms
+                                   if k == "nw_penalty_banded"),
+                       full_ms=sum(v for k, v in ms
+                                   if k == "nw_penalty_cuda"),
+                       full_launches=sum(k == "nw_penalty_cuda"
+                                         for k, _ in ms))
+            if best is None or wall < best["wall_ms"]:
+                best = got
+        first = pen if first is None else first
+        if not np.array_equal(pen, first):
+            raise AssertionError(f"L = {Lr} measuring pass: {name}'s "
+                                 f"penalties differ")
+        turn = out.setdefault(name, dict(wall_ms=[], band_ms=[],
+                                         full_ms=[]))
+        for k in ("wall_ms", "band_ms", "full_ms"):
+            turn[k].append(best[k])
+        turn.update(band_launches=best["band_launches"],
+                    full_launches=best["full_launches"])
+        log(f"L = {Lr} pass {name}: {best}")
+    certified = {bw: int(np.sum(nw_band.band_certified(first, bw)))
+                 for bw in nw_band.BWS}
+    return dict(sweep="nwlong_pass", L=Lr, pairs=int(t[1].shape[0]),
+                bws=list(nw_band.BWS), ms=out, certified_below=certified)
+
+
+def band_turns(Lr, planes, t, ts, m, n, libs, bws, reps, sample) -> dict:
+    """The band's wide path at each of `bws` with each library of `libs`
+    (name -> (lib, path, report)) in turns, queued behind a spin, outputs
+    equal to each other and to the plain version on the first `sample`
+    pairs; per BW: ms per library and turn, launches, bound and share
+    (of each library's best), and band_info per library."""
+    from asm_tpu_torch.kernels import nw_band
+    from asm_tpu_torch.utils.bounds import bound_entry, nw_band_work
+
+    out = {}
+    mn = np.minimum(m, Lr) + np.minimum(n, Lr)
+    for bw in bws:
+        want = nw_band.banded_plain(*ts, bw)
+
+        def call(bw=bw):
+            return (nw_band.nw_penalty_banded(planes[0], t[1], planes[1],
+                                              t[3], bw=bw, pre_staged=True),)
+
+        def run(name, call=call):
+            with using(nw_band, libs[name][0], Lr):
+                return queued([call], reps)
+
+        def same(a, b, names, bw=bw, want=want):
+            for got in (a, b):
+                if not torch.equal(got[0][0][:sample], want):
+                    raise AssertionError(
+                        f"L = {Lr} band BW {bw}: differs from the plain "
+                        f"version on the first {sample} pairs")
+            return _equal(a[0], b[0])
+
+        ms = queued_turns(list(libs), run, same)
+        info = {}
+        for name, (lib, path, report) in libs.items():
+            with using(nw_band, lib, Lr):
+                before = nw_band.LAUNCHES
+                call()
+                launches = nw_band.LAUNCHES - before
+            info[name] = dict(band_info(lib, path, report, bw, Lr, mn),
+                              launches=launches)
+        b = bound_entry(*nw_band_work(m, n, np.full(m.size, bw), Lr))
+        out[f"nw_band_bw{bw}"] = dict(
+            ms=ms, instantiations=info, **b,
+            bound_share={k: b["bound_ms"] / min(v["ms"])
+                         for k, v in ms.items()})
+    return out
+
+
 def nwlong_sweep(parent: str | None, reps: int, sample: int) -> list[dict]:
-    """The nwlong sweep (module docstring): one line per max_len."""
-    from asm_tpu_torch.kernels import nw, nw_band
+    """The nwlong sweep (module docstring): per max_len one line of the
+    kernels, one of the measuring pass and one of the small band launch."""
+    from asm_tpu_torch.kernels import nw
     from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
     from asm_tpu_torch.tools.roofline import nw_resources, ptxas_entry
-    from asm_tpu_torch.utils.bounds import (
-        bound_entry,
-        nw_band_work,
-        nw_full_work,
-    )
+    from asm_tpu_torch.utils.bounds import bound_entry, nw_full_work
 
     lines = []
     for Lr, pairs in NWLONG_PAIRS.items():
@@ -472,6 +664,8 @@ def nwlong_sweep(parent: str | None, reps: int, sample: int) -> list[dict]:
             "cuda") for a in (corpus[0], corpus[2])]
         m, n = corpus[1], corpus[3]
         ts = [a[:sample] for a in t]
+        line = dict(sweep="nwlong", L=Lr, pairs=pairs, sample=sample,
+                    kernels={})
         libs = {"checked-in": nw_cuda._load(Lr)}
         built = None
         if parent:  # in turns: parent, checked-in, checked-in, parent
@@ -480,8 +674,6 @@ def nwlong_sweep(parent: str | None, reps: int, sample: int) -> list[dict]:
                             os.path.join(parent, "asm_tpu_torch", "csrc",
                                          "nw.cu"))
             libs = {"parent": nw_cuda.bind(built[0]), **libs}
-        line = dict(sweep="nwlong", L=Lr, pairs=pairs, sample=sample,
-                    kernels={})
         for kernel in ("nw", "nw_trace"):
             trace = kernel == "nw_trace"
 
@@ -527,28 +719,67 @@ def nwlong_sweep(parent: str | None, reps: int, sample: int) -> list[dict]:
                 ms=ms, instantiations=info, **b,
                 bound_share={k: b["bound_ms"] / min(v["ms"])
                              for k, v in ms.items()})
-        nw_band.build_kernel(Lr)
-        report = open(nw_band.ptxas_report(Lr)).read()
-        for bw in NWLONG_BWS:
-            fn = lambda bw=bw: nw_band.nw_penalty_banded(  # noqa: E731
-                planes[0], t[1], planes[1], t[3], bw=bw, pre_staged=True)
-            (per_call, host), outs = queued([fn], reps)
-            want = nw_band.banded_plain(*ts, bw)
-            if not torch.equal(outs[0][:sample], want):
-                raise AssertionError(f"L = {Lr} band BW {bw}: differs from "
-                                     f"the plain version")
-            before = nw_band.LAUNCHES
-            fn()
-            b = bound_entry(*nw_band_work(m, n, np.full(m.size, bw), Lr))
-            line["kernels"][f"nw_band_bw{bw}"] = dict(
-                ms={"checked-in": dict(ms=[sum(per_call)], host_ms=[host])},
-                launches=nw_band.LAUNCHES - before,
-                **ptxas_entry(nw_band,
-                              f"band_wide_kernelILi{bw}ELi{Lr // 32}E",
-                              report),
-                warps_per_sm=nw_band.occupancy(bw, Lr), **b,
-                bound_share=b["bound_ms"] / sum(per_call))
+        blibs = band_libs(Lr, parent)
+        line["kernels"].update(band_turns(Lr, planes, t, ts, m, n, blibs,
+                                          NWLONG_BWS, reps, sample))
         lines.append(line)
+        lines.append(measuring_pass(Lr, planes, t, blibs, reps))
+        k, bws = NWLONG_SMALL
+        small = [a[:k] for a in t]
+        lines.append(dict(sweep="nwlong_small", L=Lr, pairs=k, sample=sample,
+                          kernels=band_turns(
+                              Lr, [a[:, :k].contiguous() for a in planes],
+                              small,
+                              [a[:sample] for a in small], m[:k], n[:k],
+                              blibs, bws, reps, sample)))
+        del t, planes, ts, small
+        torch.cuda.empty_cache()
+    return lines
+
+
+def band_variant_subs(nps: dict, unroll: int) -> list[tuple[str, str]]:
+    """`variant`'s (pattern, line) pairs of a BAND_VARIANTS entry: the
+    wide_np_table line with `nps` over shapes.BAND_WIDE_NP, and the main
+    loop's trips a pass."""
+    from asm_tpu_torch.kernels import shapes
+
+    arms = "".join(f"BW == {bw} ? {v} : "
+                   for bw, v in {**shapes.BAND_WIDE_NP, **nps}.items())
+    return [(UNROLL_LINE, f"constexpr int kWideUnroll = {unroll};"),
+            (WIDE_NP_LINE, "__host__ __device__ constexpr int "
+             f"wide_np_table(int BW) {{ return {arms}1; }}")]
+
+
+def bandnp_sweep(reps: int, sample: int) -> list[dict]:
+    """The bandnp sweep (module docstring): one line per max_len."""
+    from asm_tpu_torch.kernels import nw_band
+    from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
+
+    lines = []
+    for Lr, pairs in NWLONG_PAIRS.items():
+        p = nw_band.plan(Lr)
+        nw_band.build_kernel(Lr)
+        with ThreadPoolExecutor(len(BAND_VARIANTS)) as ex:
+            built = dict(zip(BAND_VARIANTS, ex.map(
+                lambda kv: variant(nw_band, f"{p.stem}_{kv[0]}",
+                                   band_variant_subs(*kv[1]), p.defines),
+                BAND_VARIANTS.items())))
+        libs = {"checked-in": (nw_band._load(Lr), nw_band.build_kernel(
+            Lr)[0], nw_band.ptxas_report(Lr))}
+        libs.update({name: (nw_band.bind(path), path, rep)
+                     for name, (path, rep) in built.items()})
+        corpus = lh.long_corpus(Lr, pairs)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+             for a in corpus]
+        planes = [torch.from_numpy(stage_planes_t(a).view(np.int32)).to(
+            "cuda") for a in (corpus[0], corpus[2])]
+        ts = [a[:sample] for a in t]
+        lines.append(dict(sweep="bandnp", L=Lr, pairs=pairs, sample=sample,
+                          variants={k: dict(np=v[0], unroll=v[1])
+                                    for k, v in BAND_VARIANTS.items()},
+                          kernels=band_turns(Lr, planes, t, ts, corpus[1],
+                                             corpus[3], libs, BANDNP_BWS,
+                                             reps, sample)))
         del t, planes, ts
         torch.cuda.empty_cache()
     return lines
@@ -561,8 +792,8 @@ def main(argv=None) -> None:
     ap.add_argument("--nw-pairs", type=int, default=1 << 16)
     ap.add_argument("--cigar-pairs", type=int, default=1 << 18)
     ap.add_argument("--parent", help="a checkout whose csrc/leap.cu (the "
-                    "cigar sweep) or csrc/nw.cu (nwlong) is built beside "
-                    "this one's")
+                    "cigar sweep) or csrc/nw.cu and csrc/nw_band.cu (nwlong) "
+                    "are built beside this one's")
     ap.add_argument("--sample", type=int, default=256,
                     help="pairs of each nwlong kernel held against its "
                     "plain version")
@@ -578,11 +809,13 @@ def main(argv=None) -> None:
 
     card = card_line()
     corpus = (lh.long_corpus(L, args.pairs)
-              if set(args.sweeps) - {"cigar", "nwlong"} else None)
+              if set(args.sweeps) - {"cigar", "nwlong", "bandnp"} else None)
     lines = []
     for s in args.sweeps:
         if s == "nwlong":
             lines = nwlong_sweep(args.parent, args.reps, args.sample)
+        elif s == "bandnp":
+            lines = bandnp_sweep(args.reps, args.sample)
         elif s == "cigar":
             lines = [cigar_sweep(args.cigar_pairs, args.parent, args.reps,
                                  args.tile)]

@@ -584,9 +584,14 @@ def leap_counts(levels, lib_path: str | None = None) -> dict:
     return kc
 
 
-# csrc/nw_band.cu's layout: BW/2 threads per pair (64/BW pairs per warp),
-# each computing one existing cell per diagonal with two shuffles
+# csrc/nw_band.cu's band_kernel: BW/2 threads per pair (64/BW pairs per
+# warp), each computing one existing cell per diagonal with two shuffles;
+# its wide path (band_wide_kernel): NP cells a thread and diagonal
+# (shapes.band_wide_np), one shuffle a diagonal, none where a pair is one
+# thread. Either loads two code bytes a trip (LDS.U8).
 BAND_SHFL_PER_DIAGONAL = 2
+WIDE_SHFL_PER_DIAGONAL = 1
+BAND_LOADS_PER_TRIP = 2
 
 
 def band_function(bw: int, L: int = 128) -> str:
@@ -594,34 +599,59 @@ def band_function(bw: int, L: int = 128) -> str:
     return f"band_kernelILi{bw}ELi{L // 32}E"
 
 
-def nw_band_loop(listing: str, bw: int, lens_sum) -> dict:
-    """The diagonal loop of one band-kernel instantiation (the one loop of
-    its SASS that holds shuffles): its body's instructions (all of them,
-    by category and by opcode), the diagonals a trip covers (its shuffles
-    over BAND_SHFL_PER_DIAGONAL, so an unrolled loop counts right), which
-    are the existing cells a thread's trip computes, and the instructions
+def wide_function(bw: int, L: int) -> str:
+    """The mangled name of band_wide_kernel<BW, W> at max_len L."""
+    return f"band_wide_kernelILi{bw}ELi{L // 32}E"
+
+
+def nw_band_loop(listing: str, bw: int, lens_sum, np_: int = 1,
+                 shfl_per_diagonal: int = BAND_SHFL_PER_DIAGONAL) -> dict:
+    """The diagonal loop of one band-kernel instantiation (of the loops of
+    its SASS that hold shuffles, the one with the fewest instructions per
+    existing cell: the wide kernel's main loop, beside its border and
+    destination loops): its body's instructions (all of them, by category
+    and by opcode), the existing cells a thread's trip computes (`np_`
+    offset pairs a thread, shapes.band_wide_np on the wide path: np_ x its
+    shuffles over `shfl_per_diagonal`, so an unrolled loop counts right;
+    where a pair is one thread, bw = 2 np_, there are no shuffles, and
+    2 np_ x its code loads over BAND_LOADS_PER_TRIP), and the instructions
     per existing cell; and the m+n of the pairs it ran, in launch order
     (`lens_sum`): the mean, the mean of each warp's largest
-    (`warp_max_mean` over 64/BW pairs per warp), which bounds the warp's
-    trips, and their ratio."""
-    ppw = 64 // bw
-    loops = [lp for lp in count_sass(listing)["loops"]
-             if any(op.startswith("SHFL") for op in lp["opcodes"])]
-    if len(loops) != 1:
-        raise ValueError(f"expected one loop with shuffles, got {loops}")
-    lp = loops[0]
-    shfl = sum(v for op, v in lp["opcodes"].items() if op.startswith("SHFL"))
-    cells = shfl / BAND_SHFL_PER_DIAGONAL
+    (`warp_max_mean` over 32 / SEG pairs per warp, SEG = bw / (2 np_)
+    threads a pair), which bounds the warp's trips, and their ratio."""
+    seg = bw // (2 * np_)
+    if seg < 1 or 32 % seg:
+        raise ValueError(f"BW {bw} at {np_} offset pairs a thread takes "
+                         f"{bw / (2 * np_)} threads a pair, not a divisor "
+                         f"of 32")
+    ppw = 32 // seg
+
+    def count(lp, prefix):
+        return sum(v for op, v in lp["opcodes"].items()
+                   if op.startswith(prefix))
+
+    if seg > 1:
+        def cells(lp):
+            return np_ * count(lp, "SHFL") / shfl_per_diagonal
+    else:
+        def cells(lp):
+            return 2 * np_ * count(lp, "LDS.U8") / BAND_LOADS_PER_TRIP
+    loops = [lp for lp in count_sass(listing)["loops"] if cells(lp)]
+    if not loops:
+        raise ValueError("expected a loop with shuffles (or, a pair on one "
+                         "thread, code loads), got none")
+    lp = min(loops, key=lambda lp: sum(lp["body"].values()) / cells(lp))
     insts = sum(lp["body"].values())
     mn = np.asarray(lens_sum, dtype=np.float64)
     mean = float(mn.mean()) if mn.size else 0.0
     warp = warp_max_mean(mn, ppw)
     return dict(function=find_kernels(listing)[0], pairs_per_warp=ppw,
-                loop_shuffles=shfl, existing_cells_per_trip=cells,
-                loop_insts=insts,
+                offset_pairs_per_thread=np_, diagonal_loops=len(loops),
+                loop_shuffles=count(lp, "SHFL"),
+                existing_cells_per_trip=cells(lp), loop_insts=insts,
                 loop_body={k: v for k, v in lp["body"].items() if v},
                 loop_opcodes=lp["opcodes"],
-                loop_insts_per_existing_cell=insts / cells,
+                loop_insts_per_existing_cell=insts / cells(lp),
                 mn_mean=mean, mn_warp_max_mean=warp,
                 mn_divergence_x=warp / mean if mean else 1.0)
 

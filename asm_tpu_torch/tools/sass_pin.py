@@ -1,13 +1,15 @@
 """The SASS of the kernels a long-row redesign leaves alone, pinned: the
 greedy and LEAP kernels' short-row instantiations, the NW full and trace
-kernels' (nw_kernel), and the long-row NW full kernel
-(nw_long_kernel<W, false>).
+kernels' (nw_kernel), the long-row NW full kernel
+(nw_long_kernel<W, false>) and the NW band's short path (band_kernel<BW,
+W>, W 4/8/16, BW 4-64: the 67.1M NW headline's kernel).
 
-csrc/greedy.cu, csrc/leap.cu and csrc/nw.cu hold a long-row path (max_len
-above 512) beside the short one; every instantiation at max_len <= 512,
-and the long NW full kernel, must compile to the SASS it had before the
-long-row kernels beside them were redesigned (UNPINNED: the long NW trace
-kernel, which was). `digests` hashes each
+csrc/greedy.cu, csrc/leap.cu, csrc/nw.cu and csrc/nw_band.cu hold a
+long-row path (max_len above 512; the band's also serves BW 128) beside
+the short one; every instantiation at max_len <= 512, and the long NW
+full kernel, must compile to the SASS it had before the long-row kernels
+beside them were redesigned (UNPINNED: the long NW trace kernel and the
+band's wide path, band_wide_kernel, which were). `digests` hashes each
 kernel of a built library (`cuobjdump -sass`, the function's own name
 line dropped and the anonymous namespace's per-source hash taken out of
 every symbol), keyed by the mangled name from the kernel's own name on.
@@ -18,7 +20,8 @@ digests as the nvcc of the card's machine built them from the sources
 of the commit before the redesign; `check` builds (or finds built) this
 checkout's libraries and compares them with it, where this nvcc is the
 pin's: another nvcc compiles other SASS from the same source, so there
-`check` compares nothing and says so.
+`check` compares nothing and says so. The pin was taken from the csrc of
+commit c551e60, before band_wide_kernel's redesign.
 
 The pin holds while no change is meant to reach the short-row kernels.
 A change that does (a new short-row design, a new tuned shape), or a new
@@ -29,12 +32,12 @@ asm_tpu_torch/tools/short_sass.json`.
     python -m asm_tpu_torch.tools.sass_pin [--source-dir DIR] [--out F]
         [--check]
 
---source-dir builds another checkout's csrc/greedy.cu, csrc/leap.cu and
-csrc/nw.cu instead of this one's (that is how the pin was taken: the parent's
-sources); --out writes the digests as JSON; --check compares this
-checkout's with the pin and exits 1 if any kernel moved (0, with
-"compared": false, under another nvcc). Needs nvcc and cuobjdump (no
-card).
+--source-dir builds another checkout's csrc/greedy.cu, csrc/leap.cu,
+csrc/nw.cu and csrc/nw_band.cu instead of this one's (that is how the pin
+was taken: the parent's sources); --out writes the digests as JSON;
+--check compares this checkout's with the pin and exits 1 if any kernel
+moved (0, with "compared": false, under another nvcc). Needs nvcc and
+cuobjdump (no card).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ PIN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "short_sass.json")
 # (kernel, build_kernel arguments): the tuned tables, then phase 17's
 # per-shape libraries at max_len <= 512, then NW's long-row libraries
-SHORT_SHAPES = ([("greedy", ()), ("leap", ()), ("nw", ())]
+SHORT_SHAPES = ([("greedy", ()), ("leap", ()), ("nw", ()), ("nw_band", ())]
                 + [("leap", (k, 256, pens)) for k in (0, 1, 5, 8)
                    for pens in ((1, 1, 1), (2, 3, 1))]
                 + [("greedy", (5, 160)), ("leap", (5, 160, (1, 1, 1))),
@@ -60,17 +63,19 @@ SHORT_SHAPES = ([("greedy", ()), ("leap", ()), ("nw", ())]
                 + [("greedy", (3, L)) for L in (160, 384)]
                 + [("leap", (3, L, (1, 1, 1))) for L in (160, 384)]
                 + [("nw", (L,)) for L in (160, 384, 1024, 2048)])
-_KERNEL_AT = re.compile(r"\d+((?:greedy|leap|nw)(?:_long)?_kernelI.*)")
+_KERNEL_AT = re.compile(
+    r"\d+((?:greedy|leap|nw|band)(?:_long|_wide)?_kernelI.*)")
 # kernels of those libraries that are not held: the long-row NW trace
-# kernel, redesigned after the pin's sources
-UNPINNED = re.compile(r"^nw_long_kernelILi\d+ELb1E")
+# kernel and the band's wide path, redesigned after the pin's sources
+UNPINNED = re.compile(r"^(?:nw_long_kernelILi\d+ELb1E|band_wide_kernelI)")
 _ANON = re.compile(r"\S*_GLOBAL__N_\S*")
 
 
 def _module(kernel: str):
-    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_cuda
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band, nw_cuda
 
-    return dict(greedy=greedy_cuda, leap=leap_cuda, nw=nw_cuda)[kernel]
+    return dict(greedy=greedy_cuda, leap=leap_cuda, nw=nw_cuda,
+                nw_band=nw_band)[kernel]
 
 
 def stem(kernel: str, args: tuple) -> str:

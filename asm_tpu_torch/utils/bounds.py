@@ -11,12 +11,13 @@ the FMA pipe (the issue chain, PERF.md section 3); the INT32 pipe alone
 beat.
 HBM_BYTES_PER_S is the card's 3.35 TB/s. Bytes count each input read once
 and each output written once. Operations are counted on one basis for every
-kernel: the fewest integer operations the recurrence itself needs per
-unit of the work the data needs (the *_work functions: steps a pair
-takes, band and DP cells, energy levels), with no index clamps, borders,
-address math or float operations, and not the most the data could need.
-No single PyTorch call computes any of these functions, so there is no
-library time to set beside them.
+kernel: the fewest integer instructions the recurrence itself needs (one
+that fuses two operations, such as Hopper's DPX add-min, counted once: it
+takes one issue slot) per unit of the work the data needs (the *_work
+functions: steps a pair takes, band and DP cells, energy levels), with no
+index clamps, borders, address math or float operations, and not the most
+the data could need. No single PyTorch call computes any of these
+functions, so there is no library time to set beside them.
 """
 
 from __future__ import annotations
@@ -26,10 +27,13 @@ import numpy as np
 INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 
-# per Gotoh cell: E = max(E - e, H - o - e) and F likewise (3 each), the
-# substitution (compare the codes, select x or 0, add: 3), H = max of three
-# (2)
-GOTOH_CELL_OPS = 11
+# per Gotoh cell, in issue slots of Hopper's instructions (penalties, so
+# mins): H + o + e once (IADD), serving the E of the cell to its right and
+# the F of the cell below; E = min(E + e, that) and F likewise (one DPX
+# VIADDMNMX each); the substitution (compare the codes, select x or 0:
+# ISETP + SEL); H = min(H_diag + sub, E, F) (VIADDMNMX + VIMNMX). The C
+# operations are 11, but a fused add-min issues once.
+GOTOH_CELL_OPS = 7
 
 
 def bound_entry(ops: float, nbytes: float) -> dict:

@@ -147,7 +147,10 @@ line:
      penalty pass with both penalty sets, NW full and trace (also on the
      walk-edge pairs of data/walk_edges.py, whose tracebacks cross the
      long trace kernel's walk tiles at their edges and corners), the band
-     at BW 8-128 (BW 128 also at max_len 128 and 256); (b) the long-sequence
+     at BW 4-128 (BW 128 also at max_len 128 and 256), also on the
+     band-edge pairs of data/band_edges.py (destinations at the band's
+     edges, the wide path's first thread boundary and just off the band;
+     BW 128 also at 128, 256 and 512); (b) the long-sequence
      flow at max_len 1024 on 262,144 pairs and 2048 on 65,536, pinned from
      asm_tpu, the plain versions equal on 16,384 pairs of each; (c) the
      harness at max_len 1024 on 8,192 pairs, its counts pinned from
@@ -156,13 +159,13 @@ line:
      band, full and trace kernels timed at 1024 and 2048 against their
      plain versions and bounds, with their SASS per step; each of the
      five kernels must have launched at max_len >= 1024 in (b)-(d); (e)
-     the greedy, LEAP and NW long-row kernels' registers, spill bytes
-     (threads per pair) and warps per SM at each max_len, and the SASS of
-     the kernels the long-row redesigns left alone (greedy's, LEAP's and
-     NW's W <= 16 instantiations in the tuned tables and phase 17's
-     libraries, the long NW full kernel) against the pin taken from the
-     sources before the redesigns (tools/sass_pin.py): no kernel may have
-     moved.
+     the greedy, LEAP, NW and band long-row kernels' registers, spill
+     bytes (threads per pair) and warps per SM at each max_len, and the
+     SASS of the kernels the long-row redesigns left alone (greedy's,
+     LEAP's, NW's and the band's W <= 16 instantiations in the tuned
+     tables and phase 17's libraries, the long NW full kernel) against
+     the pin taken from the sources before the redesigns
+     (tools/sass_pin.py): no kernel may have moved.
 Prints a JSON line of per-kernel results (time, plain version's time,
 bound, launches; the W = 16 instantiations and phases 17's and 18's
 shapes as entries of their own), the card line, and last {"ok": true, "device":
@@ -2087,6 +2090,7 @@ def row_corpora(L):
 def row_kernels_vs_plain(dev, name) -> dict:
     """Phase 18a; returns the max abs error per kernel (all 0)."""
     from asm_tpu_torch.config import AlignConfig
+    from asm_tpu_torch.data.band_edges import band_edge_pairs
     from asm_tpu_torch.data.walk_edges import walk_edge_pairs
     from asm_tpu_torch.kernels import nw
     from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
@@ -2096,7 +2100,7 @@ def row_kernels_vs_plain(dev, name) -> dict:
     t0 = time.perf_counter()
     err = dict(greedy=0, leap=0, nw_band=0, nw=0, nw_trace=0)
     n = dict(err)
-    bws = (8, 16, 32, 64, 128)
+    bws = (4, 8, 16, 32, 64, 128)
 
     def band(corpus, what, x=1, o=1, e=1, widths=bws):
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -2168,7 +2172,14 @@ def row_kernels_vs_plain(dev, name) -> dict:
                     g, w, f"L{L}/walk_edges/x{x}o{o}e{e}/nw_trace: {key}"))
             n["nw"] += 1
             n["nw_trace"] += 1
-    # BW 128 at max_len 128 and 256, on the corpora of 544 cut to them
+        # the band's layout edges (data/band_edges): destinations at the
+        # band's edges, the first threads' boundary and just off it
+        for bw in bws:
+            edges = band_edge_pairs(L, bw)
+            band(edges, f"L{L}/band_edges", widths=(bw,))
+            band(edges, f"L{L}/band_edges/x1o4e2", 1, 4, 2, widths=(bw,))
+    # BW 128 at max_len 128 and 256, on the corpora of 544 cut to them,
+    # and on the band-edge pairs at 128, 256 and 512
     for L in (128, 256):
         for label, corpus in row_corpora(544)[:2]:
             cut = (np.ascontiguousarray(corpus[0][:, :L]),
@@ -2177,13 +2188,19 @@ def row_kernels_vs_plain(dev, name) -> dict:
                    np.minimum(corpus[3], L))
             band(cut, f"L{L}/{label}", widths=(128,))
             band(cut, f"L{L}/{label}/x2o3e1", 2, 3, 1, widths=(128,))
+    for L in (128, 256, 512):
+        edges = band_edge_pairs(L, 128)
+        band(edges, f"L{L}/band_edges", widths=(128,))
+        band(edges, f"L{L}/band_edges/x2o3e1", 2, 3, 1, widths=(128,))
     phase(f"[18a row kernels vs plain] max_len {ROW_LENGTHS} on {name}: "
           f"cases {n} (greedy k = 3, 4 in both forms with records, trips "
           f"and CIGARs; LEAP penalty pass (simd_ed_affine), gated filter and "
           f"fused CIGAR (lv_bag, both penalty sets) in both forms; NW band "
-          f"BW {bws} in both forms, BW 128 also at max_len 128 and 256; "
-          f"full; trace with ops and mask; x/o/e 1/1/1 and 2/3/1; lengths "
-          f"0, 1, 31, L/2, L - 1 and L; NW also the walk-edge pairs) "
+          f"BW {bws} in both forms, BW 128 also at max_len 128 and 256 "
+          f"(and 512 on the band-edge pairs); full; trace with ops and "
+          f"mask; x/o/e 1/1/1 and 2/3/1 (1/4/2 on the band-edge pairs); "
+          f"lengths 0, 1, 31, L/2, L - 1 and L; NW also the walk-edge "
+          f"pairs, the band also the band-edge pairs) "
           f"exactly equal (max abs err "
           f"{max(err.values())}); {time.perf_counter() - t0:.1f} s")
     return err
@@ -2315,10 +2332,11 @@ def long_row_resources(name) -> None:
     """Phase 18e: the greedy and LEAP long-row kernels' registers, spill
     bytes, threads per pair and warps per SM (k = 3 and 4; LEAP at k = 3,
     penalty pass and fused CIGAR, unit penalties) and the NW full and
-    trace long kernels' at each of ROW_LENGTHS; then the SASS of the
-    kernels the long-row redesigns leave alone against the pin (greedy's,
-    LEAP's and NW's W <= 16 instantiations, the long NW full kernel)."""
-    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda
+    trace long kernels' and the band's wide path's (band_wide_kernel, at
+    each BW) at each of ROW_LENGTHS; then the SASS of the kernels the
+    long-row redesigns leave alone against the pin (greedy's, LEAP's, NW's
+    and the band's W <= 16 instantiations, the long NW full kernel)."""
+    from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band, shapes
     from asm_tpu_torch.tools import roofline as rl
     from asm_tpu_torch.tools import sass_pin
 
@@ -2341,6 +2359,14 @@ def long_row_resources(name) -> None:
             parts.append(f"nw{'_trace' if trace else ''} L{L}: "
                          f"{got['registers']} regs, {got['spill_stores']} B "
                          f"spill, {got['warps_per_sm']} warps/SM")
+        report = open(nw_band.ptxas_report(L)).read()
+        for bw in shapes.BAND_WIDTHS:
+            got = rl.ptxas_entry(nw_band, rl.wide_function(bw, L), report)
+            parts.append(f"band_wide BW{bw} L{L}: {got['registers']} regs, "
+                         f"{got['spill_stores']} B spill, "
+                         f"{shapes.band_wide_np(bw, L)} offset pairs a "
+                         f"thread, "
+                         f"{nw_band.occupancy(bw, L)} warps/SM")
     phase("[18e long-row kernels] " + "; ".join(parts) + f" on {name}")
     res = sass_pin.check()
     if not res["compared"]:

@@ -1145,9 +1145,9 @@ def test_leap_k0_longest_rows(dev, L):
 
 @pytest.mark.parametrize("L", [128, 256, 512])
 def test_band_bw128_matches_plain(dev, L):
-    """BW 128 at the tuned table's max_lens (four offsets a thread, one
-    warp a pair) equals the plain version in both input forms, INF and
-    uncertified upper bounds included."""
+    """BW 128 at the tuned table's max_lens (the wide path: shapes.
+    band_wide_np offset pairs a thread) equals the plain version in both
+    input forms, INF and uncertified upper bounds included."""
     rc, rl, fc, fl = (torch.from_numpy(a).to(dev)
                       for a in shape_corpus(L, 11 * L))
     planes = [torch.from_numpy(greedy_cuda.stage_planes_t(
@@ -1159,6 +1159,77 @@ def test_band_bw128_matches_plain(dev, L):
                                             e=e, pre_staged=pre)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (x, o, e, pre)
+
+
+@pytest.mark.parametrize("L", [128, 256, 512, 544, 1024, 2048])
+def test_band_edges_match_plain(dev, L):
+    """The band at the edges of its layout (data/band_edges: destinations
+    at both band edges, at the first two threads' boundary, on the main
+    diagonal and just off the band; m+n of both parities, empty and
+    one-base sequences, the border trips' end) equals the plain version
+    at every BW in both input forms, x/o/e (1,1,1), (2,3,1) and (1,4,2):
+    the wide path at every BW above max_len 512 and at BW 128 from 128
+    on, band_kernel at BW 4-64 up to 512."""
+    from asm_tpu_torch.kernels.shapes import BAND_WIDTHS
+
+    for bw in BAND_WIDTHS:
+        _band_edges_against_plain(dev, L, bw)
+
+
+def _band_edges_against_plain(dev, L, bw):
+    """The band kernel at (L, bw) on data/band_edges' pairs against the
+    plain version: both input forms, x/o/e (1,1,1), (2,3,1) and (1,4,2),
+    one launch each."""
+    from asm_tpu_torch.data.band_edges import band_edge_pairs
+
+    stem = nw_band.plan(L).stem
+    rc, rl, fc, fl = (torch.from_numpy(a).to(dev)
+                      for a in band_edge_pairs(L, bw))
+    planes = [torch.from_numpy(greedy_cuda.stage_planes_t(
+        a.cpu().numpy()).view(np.int32)).to(dev) for a in (rc, fc)]
+    for x, o, e in [(1, 1, 1), (2, 3, 1), (1, 4, 2)]:
+        want = nw_band.banded_plain(rc, rl, fc, fl, bw, x, o, e)
+        for pre, (a, b) in ((False, (rc, fc)), (True, planes)):
+            before = nw_band.LIB_LAUNCHES[stem]
+            got = nw_band.nw_penalty_banded(a, rl, b, fl, bw=bw, x=x,
+                                            o=o, e=e, pre_staged=pre)
+            torch.cuda.synchronize()
+            assert nw_band.LIB_LAUNCHES[stem] == before + 1
+            assert torch.equal(got, want), (L, bw, x, o, e, pre)
+
+
+# max_lens on both sides of each point where shapes.band_wide_np halves a
+# BW's offset pairs a thread, and the longest each BW takes
+BAND_HALVING_LENS = (544, 2048, 3616, 3648, 4096, 7232, 14496, 14528,
+                     29024, 29056, 58048, 58080)
+
+
+def test_band_wide_np_export_matches_the_mirror(dev):
+    """The compiled wide_np (asm_nw_band_wide_np, any W) equals its Python
+    mirror shapes.band_wide_np at every BW, on both sides of each halving
+    (BW 4 at 3,648; 16 and 32 at 14,528; 32 and 64 at 29,056; 64 at
+    58,080; 128 at 58,048)."""
+    from asm_tpu_torch.kernels import shapes
+
+    lib = nw_band._load(128)
+    got = {(bw, L): lib.asm_nw_band_wide_np(bw, L // 32)
+           for bw in shapes.BAND_WIDTHS for L in BAND_HALVING_LENS}
+    assert got == {(bw, L): shapes.band_wide_np(bw, L)
+                   for bw, L in got}
+    assert {v for (bw, _), v in got.items() if bw == 4} == {1, 2}
+
+
+@pytest.mark.parametrize("bw, L", [(4, 4096), (4, 7232), (16, 14528),
+                                   (32, 14528)])
+def test_band_halved_layouts_match_plain(dev, bw, L):
+    """Where one warp's code rows would pass a block's shared memory, the
+    wide path holds fewer offset pairs a thread (BW 4 NP 1 from max_len
+    3,648 to its limit 7,232; BW 16 NP 1 and BW 32 NP 2 at 14,528): the
+    band-edge pairs there equal the plain version."""
+    from asm_tpu_torch.kernels import shapes
+
+    assert shapes.band_wide_np(bw, L) < shapes.BAND_WIDE_NP[bw]
+    _band_edges_against_plain(dev, L, bw)
 
 
 def test_mapper_refuses_unbuilt_k(dev, shape_libs):

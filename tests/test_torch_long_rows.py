@@ -332,6 +332,37 @@ def test_band_long_rows_certify_the_xla_penalty(L):
             assert cert[:12].all()
 
 
+@pytest.mark.parametrize("L", [544, 1024, 2048])
+def test_band_edges_certify_the_xla_penalty(L):
+    """The band-edge pairs (data/band_edges: destinations at both band
+    edges, at the first two threads' boundary, on the main diagonal and
+    just off the band, m+n of both parities, empty and one-base
+    sequences, the border trips' end) at BW 4-128: where the band
+    certifies, its penalty is asm_tpu's XLA nw_penalty; off the band it
+    is INF (an empty read takes the closed form); elsewhere an upper
+    bound. Every width's pairs go through nw_penalty in one batch."""
+    from asm_tpu_torch.data.band_edges import band_edge_pairs
+
+    sets = {bw: band_edge_pairs(L, bw) for bw in shapes.BAND_WIDTHS}
+    exact = np.asarray(jax_nw_penalty(*(
+        jnp.asarray(np.concatenate([c[i] for c in sets.values()]))
+        for i in range(4))))
+    at = 0
+    for bw, c in sets.items():
+        want = exact[at:at + c[1].size]
+        at += c[1].size
+        got = nw_penalty_banded(*map(torch.from_numpy, c), bw=bw).numpy()
+        dk = c[1] - c[3]
+        off = (dk < 1 - bw // 2) | (dk > bw // 2)
+        assert off.sum() >= 4 and (~off).sum() >= 8
+        np.testing.assert_array_equal(got[off & (c[1] > 0)], nw_band.INF)
+        np.testing.assert_array_equal(got[off & (c[1] == 0)],
+                                      want[off & (c[1] == 0)])
+        cert = nw_band.band_certified(got, bw)
+        np.testing.assert_array_equal(got[cert], want[cert])
+        assert (got >= want).all()
+
+
 def test_harness_at_max_len_1024():
     """The harness (impl torch on the CPU) at max_len 1024 on 64 pairs
     of 998 bases: the greedy == NW and LEAP == NW counts equal asm_tpu's
@@ -546,11 +577,15 @@ def test_sass_pin_keys_and_compares(monkeypatch):
     assert sorted(pin["libraries"]) == sorted(
         sass_pin.stem(*s) for s in sass_pin.SHORT_SHAPES)
     assert pin["nvcc"].startswith("Build cuda_")
-    # the tuned tables: greedy 3 k x 3 W x 2 forms, LEAP 144, NW 3 W x 2;
-    # at W 32 and 64 the long NW full kernel alone (the trace not held)
+    # the tuned tables: greedy 3 k x 3 W x 2 forms, LEAP 144, NW 3 W x 2,
+    # the band's short path 3 W x BW 4-64 (its wide path not held); at W
+    # 32 and 64 the long NW full kernel alone (the trace not held)
     assert len(pin["libraries"]["greedy"]) == 18
     assert len(pin["libraries"]["leap"]) == 144
     assert len(pin["libraries"]["nw"]) == 6
+    assert sorted(k[:k.index("EE") + 2] for k in pin["libraries"][
+        "nw_band"]) == sorted(f"band_kernelILi{bw}ELi{W}EE"
+                              for W in (4, 8, 16) for bw in (4, 8, 16, 32, 64))
     for W in (32, 64):
         assert list(pin["libraries"][f"nw_w{W}"]) == [
             next(k for k in pin["libraries"][f"nw_w{W}"])]
@@ -564,6 +599,15 @@ def test_sass_pin_keys_and_compares(monkeypatch):
     monkeypatch.setattr(roofline, "sass_listing", lambda path: nw_listing)
     assert [k[:25] for k in sass_pin.digests("nw")] == [
         "nw_long_kernelILi32ELb0EE"]
+    band_listing = (_listing("_GLOBAL__N__1a2b3c4d_10_nw_band_cu_5e6f7a8b",
+                             "NOP")
+                    .replace("13greedy_kernelILi3ELi4ELb1EsE",
+                             "11band_kernelILi4ELi4EE")
+                    .replace("11leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1EE",
+                             "16band_wide_kernelILi128ELi4EE"))
+    monkeypatch.setattr(roofline, "sass_listing", lambda path: band_listing)
+    assert [k[:21] for k in sass_pin.digests("nw_band")] == [
+        "band_kernelILi4ELi4EE"]
     res = sass_pin.check(got=pin["libraries"], version=pin["nvcc"])
     assert res["compared"] and res["moved"] == res["missing"] == []
     bad = dict(pin["libraries"], greedy=dict(pin["libraries"]["greedy"]))

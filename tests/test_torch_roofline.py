@@ -12,7 +12,8 @@ counter (tools/roofline.py) on a listing in cuobjdump's format.
 - count_sass: the counterpart of test_count_jaxpr_on_synthetic_kernel: a
   loop body charged at the given weight, memory counted per instruction,
   nothing left uncategorised; and the NW band kernel's loop count
-  (nw_band_loop) and instantiation at the plan's max_len.
+  (nw_band_loop, on band_kernel's layout and the wide path's) and
+  instantiation at the plan's max_len.
 
 Tolerance: exact (integer words and counts)."""
 
@@ -311,6 +312,75 @@ def test_nw_band_loop_on_synthetic_listing(bw):
         rl.warp_max_mean(mn, 64 // bw) / mn.mean())
     with pytest.raises(ValueError, match="shuffles"):
         rl.nw_band_loop(LISTING, bw, mn)
+
+
+def _band_listing(second_loop_shuffles: int) -> str:
+    """LISTING with two shuffles in its first loop (6 instructions) and
+    `second_loop_shuffles` (1 or 2) in its second loop's own body (5)."""
+    listing = LISTING.replace(
+        "LDS R3, [R0] ;                         /* 0x0",
+        "SHFL.UP PT, R3, R3, 0x1, RZ ;          /* 0x0", 1).replace(
+        "STS [R0], R3 ;                         /* 0x0",
+        "SHFL.DOWN PT, R3, R3, 0x1, 0x1f ;      /* 0x0", 1).replace(
+        "SHF.L.U32 R10, R9, 0x2, RZ ;           /* 0x0",
+        "SHFL.UP PT, R10, R9, 0x1, RZ ;         /* 0x0", 1)
+    if second_loop_shuffles == 2:
+        listing = listing.replace(
+            "IADD3 R9, R9, 0x1, RZ ;                /* 0x0",
+            "SHFL.DOWN PT, R9, R9, 0x1, 0x1f ;      /* 0x0", 1)
+    return listing
+
+
+@pytest.mark.parametrize("bw,np_", [(64, 1), (64, 2), (128, 2), (128, 4)])
+def test_nw_band_loop_counts_the_wide_layout(bw, np_):
+    """The wide path (band_wide_kernel): np_ offset pairs a thread (1 and
+    2, and 4, the layout kept at BW 128), one shuffle a diagonal, so a
+    trip's existing cells are np_ x its shuffles; with two shuffles a
+    diagonal (band_kernel's layout, widened) np_ x half of them. A pair takes
+    bw / (2 np_) threads, so a warp holds 32 / that. Of several loops that
+    hold shuffles (the wide kernel's border, main and destination loops)
+    the count reads the one with the fewest instructions per shuffle."""
+    mn = np.array([200, 10, 10, 10, 150, 150, 150, 20, 4])
+    ppw = 32 // (bw // (2 * np_))
+    one = _band_listing(1)  # the first loop: 6 instructions, 2 shuffles
+    got = rl.nw_band_loop(one, bw, mn, np_, rl.WIDE_SHFL_PER_DIAGONAL)
+    assert got["diagonal_loops"] == 2 and got["loop_insts"] == 6
+    assert got["loop_shuffles"] == 2
+    assert got["existing_cells_per_trip"] == 2 * np_
+    assert got["loop_insts_per_existing_cell"] == 6 / (2 * np_)
+    assert got["pairs_per_warp"] == ppw
+    assert got["offset_pairs_per_thread"] == np_
+    assert got["mn_warp_max_mean"] == rl.warp_max_mean(mn, ppw)
+    old = rl.nw_band_loop(one, bw, mn, np_)
+    assert old["existing_cells_per_trip"] == np_
+    assert old["loop_insts_per_existing_cell"] == 6 / np_
+    # two shuffles in the second loop's 5 instructions: now the main one
+    got = rl.nw_band_loop(_band_listing(2), bw, mn, np_,
+                          rl.WIDE_SHFL_PER_DIAGONAL)
+    assert got["loop_insts"] == 5 and got["loop_shuffles"] == 2
+    assert got["loop_body"]["other"] == 2
+    assert rl.wide_function(bw, 2048) == f"band_wide_kernelILi{bw}ELi64E"
+    with pytest.raises(ValueError, match="threads a pair"):
+        rl.nw_band_loop(one, bw, mn, bw)  # a pair on half a thread
+
+
+def test_nw_band_loop_on_one_thread_a_pair():
+    """Where a pair is one thread (BW = 2 NP: BW 4 at NP 2) its loop holds
+    no shuffles: a trip is its two code loads (LDS.U8), 2 NP cells; a
+    warp holds 32 pairs."""
+    listing = LISTING.replace(
+        "LDS R3, [R0] ;                         /* 0x0",
+        "LDS.U8 R3, [R0] ;                      /* 0x0", 1).replace(
+        "STS [R0], R3 ;                         /* 0x0",
+        "LDS.U8 R3, [R0+0x1] ;                  /* 0x0", 1)
+    mn = np.array([200, 10, 10, 10, 150, 150, 150, 20, 4])
+    got = rl.nw_band_loop(listing, 4, mn, 2)
+    assert got["diagonal_loops"] == 1 and got["loop_shuffles"] == 0
+    assert got["existing_cells_per_trip"] == 4 and got["loop_insts"] == 6
+    assert got["loop_insts_per_existing_cell"] == 1.5
+    assert got["pairs_per_warp"] == 32
+    with pytest.raises(ValueError, match="code loads"):
+        rl.nw_band_loop(LISTING, 4, mn, 2)
 
 
 @pytest.mark.parametrize("L", [128, 256])

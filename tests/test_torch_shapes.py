@@ -347,6 +347,95 @@ def test_nw_and_band_plans():
     assert "-DASM_SHAPE_W=5" not in nvcc_command("x.cu", "lib.so")
 
 
+def _wide_np_table() -> dict:
+    """BW -> NP of csrc/nw_band.cu's wide_np_table line (BW == a ? b : ...
+    : c), as tools/longseq_sweep's bandnp sweep finds and replaces it."""
+    import re
+
+    from asm_tpu_torch.tools.longseq_sweep import WIDE_NP_LINE
+
+    with open(nw_band.SOURCE) as f:
+        line = re.findall(WIDE_NP_LINE, f.read())
+    assert len(line) == 1
+    table = {int(a): int(b) for a, b in re.findall(
+        r"BW == (\d+) \? (\d+)", line[0])}
+    rest = int(re.search(r": (\d+); \}$", line[0])[1])
+    return {bw: table.get(bw, rest) for bw in shapes.BAND_WIDTHS}
+
+
+@pytest.mark.parametrize("L", [128, 544, 1024, 2048, 4096, 8192])
+def test_band_wide_layout_mirrors_the_source(L):
+    """kernels/shapes.band_wide_launch mirrors csrc/nw_band.cu's wide path:
+    NP offset pairs a thread from the source's wide_np_table line (2 at BW
+    4 and 16, 4 at 32-128, 1 at 8; shapes.BAND_WIDE_NP), halved while the
+    code rows of one warp's pairs (32 / (BW / (2 NP)), two rows each)
+    pass a block's shared memory (BW 4 takes 1 from max_len 3,648 on);
+    BW / (2 NP) threads a pair, 32 / that pairs a warp; a block takes the
+    largest of 128, 64 and 32 threads whose rows fit BAND_WIDE_SMEM, else
+    32."""
+    assert _wide_np_table() == shapes.BAND_WIDE_NP == {
+        4: 2, 8: 1, 16: 2, 32: 4, 64: 4, 128: 4}
+    for bw in shapes.BAND_WIDTHS:
+        row = shapes.band_row_words(bw, L)
+        assert row % 2 == 1 and 4 * row >= L + 2 * max(4, bw // 4)
+        np_ = shapes.BAND_WIDE_NP[bw]
+        while (np_ > max(1, bw // 64) and 32 // (bw // (2 * np_)) * 2 * row
+               * 4 > shapes.SMEM_BLOCK_LIMIT):
+            np_ //= 2
+        got = shapes.band_wide_launch(bw, L)
+        seg = bw // (2 * np_)
+        assert (got["np"], got["seg"], got["pairs_per_warp"]) == (
+            np_, seg, 32 // seg) == (shapes.band_wide_np(bw, L), seg,
+                                     32 // seg)
+        per_warp = 32 // seg * 2 * row * 4
+        fits = [nt for nt in (128, 64, 32)
+                if nt // 32 * per_warp <= shapes.BAND_WIDE_SMEM]
+        assert got["threads"] == (fits[0] if fits else 32)
+        assert got["smem_bytes"] == got["threads"] // 32 * per_warp
+    assert shapes.band_wide_np(4, 3616) == 2
+    assert shapes.band_wide_np(4, 3648) == 1
+
+
+def test_band_variants_replace_the_table_line():
+    """tools/longseq_sweep's bandnp variants each replace the source's one
+    wide_np_table line and its kWideUnroll line; a variant's table is the
+    checked-in one with its own entries over it."""
+    import re
+
+    from asm_tpu_torch.tools import longseq_sweep as ls
+
+    with open(nw_band.SOURCE) as f:
+        src = f.read()
+    for nps, unroll in ls.BAND_VARIANTS.values():
+        out = src
+        for pattern, line in ls.band_variant_subs(nps, unroll):
+            out, n = re.subn(pattern, line, out)
+            assert n == 1, pattern
+        table = {int(a): int(b) for a, b in re.findall(
+            r"BW == (\d+) \? (\d+)", re.findall(ls.WIDE_NP_LINE, out)[0])}
+        assert table == {**shapes.BAND_WIDE_NP, **nps}
+        assert f"constexpr int kWideUnroll = {unroll};" in out
+
+
+def test_band_wide_limit_is_named():
+    """At 32 threads a block the wide path's shared memory is one warp's
+    pairs' rows, NP halved to fit down to one offset pair a thread (two at
+    BW 128), so the band takes every max_len it took before its wide path
+    held more offsets a thread (BW 4 to 7,232): every max_len whose rows
+    fit has a plan, the next one raises naming shared memory."""
+    for bw in shapes.BAND_WIDTHS:
+        seg = bw // (2 * max(1, bw // 64))
+        top = max(L for L in range(544, 1 << 17, 32)
+                  if 32 // seg * 2 * shapes.band_row_words(bw, L) * 4
+                  <= shapes.SMEM_BLOCK_LIMIT)
+        assert shapes.band_plan(top, bw).stem == f"nw_band_w{top // 32}"
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            shapes.band_plan(top + 32, bw)
+        if bw == 4:
+            assert top == 7232
+    assert shapes.band_plan(8192, 128).stem == "nw_band_w256"
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda: shapes.greedy_plan(32, 128), "7 bits"),
     (lambda: shapes.greedy_plan(25, 512), "shared memory"),
@@ -369,8 +458,8 @@ def test_nw_and_band_plans():
         "leap-544", "greedy-544", "nw-544", "band-128"])
 def test_plan_limits_raise_naming_them(call, match):
     """Each limit raises NotImplementedError naming it. max_len 544 and
-    BW 128 have plans now (the long-row path, the band's four offsets a
-    thread): their cases check the plan, then the computed limit past
+    BW 128 have plans now (the long-row path, the band's wide path):
+    their cases check the plan, then the computed limit past
     it (the LEAP long path's one-word lane shift, greedy's rows in shared
     memory)."""
     with pytest.raises(NotImplementedError, match=match):
