@@ -39,15 +39,41 @@
 // '='-run match mask is kept as an L-bit mask in registers and flushed by
 // the pair's G threads at the end.
 //
-// Long rows (L > 512: nw_long_kernel below, its own template, so the
-// tuned instantiations are the code they were). G <= 32 and R <= 32 rows
-// a thread in registers cover L <= 1024 in one sweep; above it the matrix
-// is swept in horizontal blocks of 32 x R rows (two at L = 2048), each
-// block's bottom row of H and E (8 L bytes a pair) parked in shared memory
-// for the next, rather than a pair on more than one warp, which would
-// trade its edge rows through shared memory and a barrier every step. One
-// pair a warp, 32-thread blocks; 122 registers for the penalty, 16 warps
-// per SM at L = 1024 and 12 at 2048.
+// Long rows (L > 512: their own kernels below, so the tuned instantiations
+// are the code they were). G <= 32 and R <= 32 rows a thread in registers
+// cover L <= 1024 in one sweep; above it the matrix is swept in horizontal
+// blocks of 32 x R rows (two at L = 2048), each block's bottom row (8 L
+// bytes a pair) parked in shared memory for the next, rather than a pair
+// on more than one warp, which would trade its edge rows through shared
+// memory and a barrier every step. One pair a warp, 32-thread blocks.
+//
+// The long full kernel (nw_long_full_kernel) is built for what bounds it
+// on Hopper, integer issue: 2L + 12 bytes a pair are nothing beside its L
+// x L cells, and a min-plus recurrence has no use for tensor cores.
+// - The cell in 7 issue slots, the fewest the recurrence needs (utils/
+//   bounds.py GOTOH_CELL_OPS): each row keeps P = H + o, which is both the
+//   "up" input of the row below and the "left" input of the next column,
+//   so E = min(E_up + e, P_up) and F = min(F_left + e, P_left) are one DPX
+//   add-min (VIADDMNMX) each and H = min(P_diag + s', E, F) one add and
+//   one three-way DPX min, with s' in {x - o, -o} chosen by one compare
+//   and one select, and P = H + o one add. The card issues add-min, min,
+//   compare and select on one ALU pipe at half its issue rate (csrc/
+//   roofline.cu op_chain), so the cell is 5 slots there, 10 cycles a
+//   warp's row, and the two adds issue off it (full_column). The
+//   borders, the parked row and the read-out of H(m, n) are kept in P.
+// - The step loop in three: its head (the first 31 steps, in which thread
+//   t waits for column 1), a steady loop in which every thread has a
+//   column of 1..n (no column test, no branch), and its tail. Thread 0's
+//   top input (the top border in closed form in one block; above, the
+//   parked row, which block 0 finds holding the top border) and thread
+//   31's park store are selects and predicated stores, not branches.
+// - The read codes 4 to a register (8 registers for 32 rows, not 32): a
+//   cell's mismatch is one test of its byte of (codes ^ the ref code in
+//   every byte).
+// So the ALU pipe bounds it: its 5 slots a cell allow 70% of the 7-slot
+// bound (an H100 80GB HBM3 at 700 W ran it with that pipe 92% busy, 59%
+// of the bound; PERF.md section 6). The parked row's shared memory leaves
+// 12 warps per SM at L = 2048, which cost about 1% there.
 //
 // The long trace kernel (nw_long_kernel<W, true>) is built for what a
 // pair's L x L / 2 pointer bytes cost on Hopper: they live in device
@@ -372,14 +398,16 @@ __device__ __forceinline__ void cp_async_wait() {
 // ---- the long-row path (W > kShortW): 32 threads, one warp, a pair ----
 // A pair's rows are swept in NB horizontal blocks of RB = 32 * R rows
 // (NB = ceil(L / 1024), so R <= 32 rows a thread stay in registers):
-// block b is the strip sweep above with the top border taken from H and E
-// of block b-1's bottom row, which its last thread parks in shared memory
-// column by column (8 bytes a column) and the next block's thread 0 reads
-// at the same column. Thread 31 writes column j at step j + 31 and thread
-// 0 read it at step j, so one row buffer serves every block; a block ends
-// with __syncwarp. A pair runs only the blocks down to its row m. The
-// trace kernel's pointer planes go to the global scratch, each column RP
-// / 2 bytes (RP = NB * RB rows, >= L); the walk (long_walk) follows.
+// block b is the strip sweep above with the top border taken from block
+// b-1's bottom row, which its last thread parks in shared memory column by
+// column (8 bytes a column) and the next block's thread 0 reads at the
+// same column. Thread 31 writes column j at step j + 31 and thread 0 read
+// it at step j, so one row buffer serves every block; a block ends with
+// __syncwarp. A pair runs only the blocks down to its row m. The penalty
+// is nw_long_full_kernel; the trace kernel (nw_long_kernel<W, true>)
+// parks H and E, and its pointer planes go to the global scratch, each
+// column RP / 2 bytes (RP = NB * RB rows, >= L); the walk (long_walk)
+// follows.
 constexpr int kShortW = 16;
 constexpr int kLongG = 32;  // threads a pair on the long path
 constexpr int kBlockRows = 1024;  // rows of a block at most: 32 x 32
@@ -532,6 +560,8 @@ __device__ __forceinline__ void long_walk(const uint8_t* __restrict__ ptr,
         for (int w = lane; w < L / 16; w += kLongG) ((uint4*)mk)[w] = ((const uint4*)s_mask)[w];
 }
 
+// The long trace kernel (TRACE is true: the penalty alone is
+// nw_long_full_kernel below)
 template <int W, bool TRACE>
 __global__ void __launch_bounds__(kLongG)
 nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
@@ -539,6 +569,7 @@ nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
                Params P, int* __restrict__ pen_out,
                int8_t* __restrict__ ops_out, int8_t* __restrict__ mask_out,
                uint8_t* __restrict__ scratch) {
+    static_assert(TRACE, "the long penalty is nw_long_full_kernel");
     constexpr int L = 32 * W;
     constexpr int G = kLongG;
     constexpr int NB = long_blocks(L);
@@ -555,17 +586,17 @@ nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
     const int m = min(rl[p], L), n = min(fl[p], L);
     int8_t* const s_ref = (int8_t*)smem;
     int8_t* const s_read = s_ref + L;
-    int* const park_h = (int*)(smem + (TRACE ? 2 * L : L));
+    int* const park_h = (int*)(smem + 2 * L);
     int* const park_e = park_h + L;
     {
         const uint32_t* ref = (const uint32_t*)(fc + p * L);
         const uint32_t* src = (const uint32_t*)(rc + p * L);
         for (int w = t; w < L / 4; w += G) {
             ((uint32_t*)s_ref)[w] = ref[w];
-            if (TRACE) ((uint32_t*)s_read)[w] = src[w];
+            ((uint32_t*)s_read)[w] = src[w];
         }
     }
-    uint8_t* const ptr = TRACE ? scratch + p * ((int64_t)L * COL) : nullptr;
+    uint8_t* const ptr = scratch + p * ((int64_t)L * COL);
     __syncwarp();
 
     const int nb = (m > 0 && n > 0) ? (m - 1) / RB + 1 : 0;
@@ -625,19 +656,17 @@ nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
                     const int f_open = h[r] + o, f_ext = f[r] + e;
                     const int ev = min(e_open, e_ext);
                     const int fv = min(f_open, f_ext);
-                    // the trace's three-way min (one DPX instruction): the
-                    // flags below need the sum sub apart, so the full
-                    // kernel's fused add-min does not apply
-                    const int hv = TRACE ? __vimin3_s32(sub, ev, fv) : min(sub, min(ev, fv));
-                    if (TRACE) {
-                        // ties: sub, then E, then F (the E flag is read
-                        // only where H is not sub); a gap opens on a tie
-                        const uint32_t bit = 1u << (16 * ((r >> 2) & 1) + (r & 3));
-                        if (hv == sub) nib[r / 8] |= bit;
-                        if (hv == ev) nib[r / 8] |= bit << 4;
-                        if (e_open <= e_ext) nib[r / 8] |= bit << 8;
-                        if (f_open <= f_ext) nib[r / 8] |= bit << 12;
-                    }
+                    // the three-way min (one DPX instruction): the flags
+                    // below need the sum sub apart, so the full kernel's
+                    // fused add-min does not apply
+                    const int hv = __vimin3_s32(sub, ev, fv);
+                    // ties: sub, then E, then F (the E flag is read only
+                    // where H is not sub); a gap opens on a tie
+                    const uint32_t bit = 1u << (16 * ((r >> 2) & 1) + (r & 3));
+                    if (hv == sub) nib[r / 8] |= bit;
+                    if (hv == ev) nib[r / 8] |= bit << 4;
+                    if (e_open <= e_ext) nib[r / 8] |= bit << 8;
+                    if (f_open <= f_ext) nib[r / 8] |= bit << 12;
                     hd = h[r];
                     h[r] = hv;
                     f[r] = fv;
@@ -650,8 +679,7 @@ nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
                     park_h[j - 1] = hb;
                     park_e[j - 1] = eb;
                 }
-                if (TRACE)
-                    store_nibbles<R>(ptr + (j - 1) * COL + (row0 >> 1), nib);
+                store_nibbles<R>(ptr + (j - 1) * COL + (row0 >> 1), nib);
             }
             dg = top;
         }
@@ -665,9 +693,165 @@ nw_long_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
     }
     if (nb == 0 && t == 0)  // an empty side: the border's closed form
         pen_out[p] = m + n == 0 ? 0 : o + (m + n - 1) * e;
-    if (!TRACE) return;
     long_walk<L, COL>(ptr, s_read, s_ref, smem + 2 * L, m, n, P.thr, ops_out + p * 2 * L,
                       mask_out == nullptr ? nullptr : mask_out + p * L);
+}
+
+// One column of a long full kernel's strip (the head of the file: 7 issue
+// slots a cell): the thread's R rows at one column, top to bottom, from
+// the row above's P and E at this column (up, ue) and its P at the column
+// before (dp); pv and f hold each row's P and F of the column before and
+// take this column's; up and ue leave as the strip's bottom row's. A row's
+// diagonal sum P_diag + s' is formed for the row below before its own P is
+// overwritten, so no register is copied. Both adds of a cell issue off
+// the ALU pipe, which takes add-min, min, compare and select at half the
+// card's rate (csrc/roofline.cu op_chain): P = H + o as VIADD, and
+// P_diag + s' as a multiply-add by `one` (1, a kernel argument ptxas
+// cannot see): a plain add there it fuses with the three-way min into an
+// add-min and a min, both on the ALU pipe.
+template <int R>
+__device__ __forceinline__ void full_column(int (&pv)[R], int (&f)[R], const uint32_t (&a4)[R / 4],
+                                            int bc, int& up, int& ue, int dp, int o, int e,
+                                            int xo, int mo, int one) {
+    const uint32_t b4 = (uint32_t)(uint8_t)bc * 0x01010101u;  // the ref code in every byte
+    // s' of row r: x - o where its read code differs from the ref code, else -o
+    const auto sub = [&](int r) {
+        return ((a4[r / 4] ^ b4) & (0xFFu << (8 * (r % 4)))) != 0u ? xo : mo;
+    };
+    int ds = dp * one + sub(0);  // P_diag + s' of row 0
+#pragma unroll
+    for (int r = 0; r < R; r++) {
+        const int ev = __viaddmin_s32(ue, e, up);       // min(E_up + e, P_up)
+        const int fv = __viaddmin_s32(f[r], e, pv[r]);  // min(F_left + e, P_left)
+        const int dn = r + 1 < R ? pv[r] * one + sub(r + 1) : 0;  // the row below's
+        const int hv = __vimin3_s32(ds, ev, fv);         // min(P_diag + s', E, F)
+        pv[r] = hv + o;
+        f[r] = fv;
+        up = pv[r];
+        ue = ev;
+        ds = dn;
+    }
+}
+
+// One step s of a long full kernel's block: the row above from thread t-1
+// (thread 0: the top border in closed form in one block, else the parked
+// row) and, where GUARD, the test that the thread's column j = s - t is in
+// 1..n; thread 31 parks its bottom row where `parks`. bp and be carry the
+// strip's bottom row (P, E), dg the row above's P at the column before.
+template <int R, int NB, bool GUARD>
+__device__ __forceinline__ void full_step(int s, int t, int n, int o, int e, int xo, int mo,
+                                          int one, const int8_t* s_ref, int2* park, bool parks,
+                                          int (&pv)[R], int (&f)[R], const uint32_t (&a4)[R / 4],
+                                          int& bp, int& be, int& dg) {
+    int up = __shfl_up_sync(kFull, bp, 1);
+    int ue = __shfl_up_sync(kFull, be, 1);
+    int top_p, top_e;
+    if constexpr (NB > 1) {
+        // past column n (the tail) thread 0 reads a column it does not use
+        const int2 v = park[(GUARD ? min(s, n) : s) - 1];
+        top_p = v.x;
+        top_e = v.y;
+    } else {
+        top_p = 2 * o + (s - 1) * e;
+        top_e = kInf;
+    }
+    up = t == 0 ? top_p : up;
+    ue = t == 0 ? top_e : ue;
+    const int j = s - t;
+    const int dp = dg;
+    dg = up;
+    if (!GUARD || (j >= 1 && j <= n)) {
+        full_column<R>(pv, f, a4, s_ref[j - 1], up, ue, dp, o, e, xo, mo, one);
+        bp = up;
+        be = ue;
+        if (parks) park[j - 1] = make_int2(bp, be);
+    }
+}
+
+// The long full kernel: the Gotoh penalty above max_len 512 (the head of
+// the file), one pair a 32-thread block, the blocks of rows of the long
+// path. Shared memory: the ref codes (L bytes) and, with more than one
+// block, the parked row (P, E) by column, which block 0 finds holding the
+// top border. `one` is 1 (full_column says why).
+template <int W>
+__global__ void __launch_bounds__(kLongG)
+nw_long_full_kernel(const int8_t* __restrict__ rc, const int8_t* __restrict__ fc,
+                    const int* __restrict__ rl, const int* __restrict__ fl, Params P,
+                    int* __restrict__ pen_out, int one) {
+    constexpr int L = 32 * W;
+    constexpr int G = kLongG;
+    constexpr int NB = long_blocks(L);
+    constexpr int R = long_rows(L);
+    constexpr int RB = R * G;  // rows of a block
+    static_assert(R % 4 == 0 && R <= 32, "rows per thread");
+    extern __shared__ __align__(16) uint8_t smem[];
+
+    const int t = threadIdx.x;  // the thread's strip in every block
+    const int64_t p = blockIdx.x;
+    const int o = P.o, e = P.e;
+    const int xo = P.x - o, mo = -o;  // s' of a mismatch and of a match
+    const int m = min(rl[p], L), n = min(fl[p], L);
+    int8_t* const s_ref = (int8_t*)smem;
+    int2* const park = (int2*)(smem + L);  // (P, E) of a block's bottom row, by column
+    {
+        const uint32_t* ref = (const uint32_t*)(fc + p * L);
+        for (int w = t; w < L / 4; w += G) ((uint32_t*)s_ref)[w] = ref[w];
+    }
+    if constexpr (NB > 1) {  // the top border, P(0, j) = 2o + (j-1)e, E infinite
+        for (int j = t; j < n; j += G) park[j] = make_int2(2 * o + j * e, kInf);
+    }
+    __syncwarp();
+
+    const int nb = (m > 0 && n > 0) ? (m - 1) / RB + 1 : 0;
+    for (int b = 0; b < nb; b++) {
+        const int row0 = b * RB + R * t;  // rows row0 + 1 .. row0 + R
+        const bool parks = t == G - 1 && b < nb - 1;
+        uint32_t a4[R / 4];
+        {
+            const uint32_t* src = (const uint32_t*)(rc + p * L) + row0 / 4;
+#pragma unroll
+            for (int w = 0; w < R / 4; w++)
+                // words past the row read as code 0; their rows feed no
+                // cell of the pair
+                a4[w] = row0 / 4 + w < L / 4 ? src[w] : 0u;
+        }
+        // column 0 (the left border): H = o + (i-1)*e, so P = 2o + (i-1)*e;
+        // F infinite
+        int pv[R], f[R];
+#pragma unroll
+        for (int r = 0; r < R; r++) {
+            pv[r] = 2 * o + (row0 + r) * e;
+            f[r] = kInf;
+        }
+        int bp = pv[R - 1], be = kInf;  // the bottom row's P and E, last column
+        // thread 0's diagonal input at column 1: P(b * RB, 0)
+        int dg = b == 0 ? o : 2 * o + (b * RB - 1) * e;
+        // the last block runs until the thread holding row m reaches
+        // column n; the others until their last thread does
+        const int steps = b < nb - 1 ? n + G - 1 : n + (m - 1 - b * RB) / R;
+        int s = 1;
+        // the head: thread t waits for column 1 until step t + 1
+        for (const int end = min(G - 1, steps); s <= end; s++)
+            full_step<R, NB, true>(s, t, n, o, e, xo, mo, one, s_ref, park, parks, pv, f, a4,
+                                   bp, be, dg);
+        // the steady loop: every thread's column is in 1..n
+        for (; s <= n; s++)
+            full_step<R, NB, false>(s, t, n, o, e, xo, mo, one, s_ref, park, parks, pv, f, a4,
+                                    bp, be, dg);
+        // the tail: thread t has passed column n from step n + t + 1
+        for (; s <= steps; s++)
+            full_step<R, NB, true>(s, t, n, o, e, xo, mo, one, s_ref, park, parks, pv, f, a4,
+                                   bp, be, dg);
+        if (b == nb - 1 && t == (m - 1 - b * RB) / R) {
+            int v = 0;
+#pragma unroll
+            for (int r = 0; r < R; r++) v = r == (m - 1 - b * RB) % R ? pv[r] : v;
+            pen_out[p] = v - o;
+        }
+        __syncwarp();
+    }
+    if (nb == 0 && t == 0)  // an empty side: the border's closed form
+        pen_out[p] = m + n == 0 ? 0 : o + (m + n - 1) * e;
 }
 
 // The instantiations the wrappers launch, by W = L / 32 and kernel: G
@@ -704,11 +888,13 @@ struct Launch {
     cudaStream_t stream;
 };
 
-// the long path's launch: one 32-thread block a pair, the pointers (with
-// TRACE) in the global scratch
+// the long path's launch: one 32-thread block a pair; the penalty from
+// nw_long_full_kernel, the trace from nw_long_kernel with its pointers in
+// the global scratch
 template <int W, bool TRACE>
 cudaError_t run_long(const Launch* L, int* warps) {
-    auto* kernel = nw_long_kernel<W, TRACE>;
+    const void* kernel = TRACE ? (const void*)nw_long_kernel<W, true>
+                               : (const void*)nw_long_full_kernel<W>;
     constexpr size_t smem = long_slot_bytes(32 * W, TRACE);
     static const cudaError_t prepared = [&] {
         cudaError_t err = cudaFuncSetAttribute(
@@ -725,11 +911,17 @@ cudaError_t run_long(const Launch* L, int* warps) {
         *warps = blocks;
         return err;
     }
-    if (TRACE && L->scratch == nullptr) return cudaErrorInvalidValue;
-    kernel<<<L->P.B, kLongG, smem, L->stream>>>(
-        (const int8_t*)L->rc, (const int8_t*)L->fc, (const int*)L->rl,
-        (const int*)L->fl, L->P, (int*)L->pen, (int8_t*)L->ops,
-        (int8_t*)L->mask, (uint8_t*)L->scratch);
+    if constexpr (TRACE) {
+        if (L->scratch == nullptr) return cudaErrorInvalidValue;
+        nw_long_kernel<W, true><<<L->P.B, kLongG, smem, L->stream>>>(
+            (const int8_t*)L->rc, (const int8_t*)L->fc, (const int*)L->rl,
+            (const int*)L->fl, L->P, (int*)L->pen, (int8_t*)L->ops,
+            (int8_t*)L->mask, (uint8_t*)L->scratch);
+    } else {
+        nw_long_full_kernel<W><<<L->P.B, kLongG, smem, L->stream>>>(
+            (const int8_t*)L->rc, (const int8_t*)L->fc, (const int*)L->rl,
+            (const int*)L->fl, L->P, (int*)L->pen, 1);
+    }
     return cudaGetLastError();
 }
 

@@ -11,6 +11,13 @@
 //   probe_kernel <- the synthetic kernel of tests/test_roofline_counts.py:
 //                   load, +1, ^3, store to scratch, a data-dependent loop
 //                   of scratch += 1 (x[0] trips), store.
+//   op_chain     <- none: added to measure the issue rate of the opcodes a
+//                   Gotoh cell is made of (a DPX add-min, a min / max, a
+//                   compare and select, a multiply-add, an add, add-min and
+//                   multiply-add side by side, a DPX three-way min / max,
+//                   an add of a uniform operand beside a xor), to tell
+//                   whether they share a pipe that issues at half the
+//                   card's rate.
 //
 // What bounds each on Hopper, and what the design does about it:
 //   issue_chain is bound by integer issue. The chains are independent, so
@@ -25,6 +32,11 @@
 //   neighbouring threads on neighbouring addresses, a grid-stride loop
 //   with four loads in flight per thread, a warp shuffle reduction and one
 //   atomicXor per block into the single output word.
+//   op_chain is bound by the issue of its one opcode (or its pipe): the
+//   same grid, chains and rolled loop as issue_chain, each step of a chain
+//   one operation of the opcode on its own value and its neighbour chain's
+//   value of the step before (so that no two steps fold into one), kUnroll
+//   steps a trip.
 //   probe_kernel is bound by nothing that matters (1024 words); its
 //   scratch is `volatile` shared memory so that ptxas keeps the load and
 //   the store of every loop trip, as the Pallas kernel's ref get and swap
@@ -53,6 +65,65 @@ issue_chain(const uint32_t* __restrict__ seed, uint32_t* __restrict__ out,
         for (int s = 0; s < kStreams; s++) {
 #pragma unroll
             for (int u = 0; u < kUnroll; u++) v[s] = (v[s] + 1u) ^ 12345u;
+        }
+    }
+    uint32_t acc = v[0];
+#pragma unroll
+    for (int s = 1; s < kStreams; s++) acc ^= v[s];
+    out[t] = acc;
+}
+
+// op_chain's operations: one step of a chain from its value v and its
+// neighbour's w (step u of the trip), with the runtime operand a
+enum { OP_VIADDMIN = 0, OP_MINMAX = 1, OP_SETP_SEL = 2, OP_IMAD = 3, OP_IADD = 4,
+       OP_MIX = 5, OP_MINMAX3 = 6, OP_ADD_XOR = 7 };
+
+template <int OP>
+__device__ __forceinline__ uint32_t op_step(uint32_t v, uint32_t w, uint32_t z, int a, int s,
+                                            int u) {
+    const int vi = (int)v, wi = (int)w, zi = (int)z;
+    if constexpr (OP == OP_VIADDMIN) {
+        return (uint32_t)__viaddmin_s32(vi, a, wi);  // min(v + a, w)
+    } else if constexpr (OP == OP_MINMAX) {
+        return (uint32_t)(u % 2 ? max(vi, wi) : min(vi, wi));
+    } else if constexpr (OP == OP_SETP_SEL) {
+        return vi < wi ? (uint32_t)a : w;
+    } else if constexpr (OP == OP_IMAD) {
+        return v * w + (uint32_t)a;
+    } else if constexpr (OP == OP_IADD) {
+        return v + w;
+    } else if constexpr (OP == OP_MIX) {  // add-min on half the chains, multiply-add
+        return s < kStreams / 2 ? op_step<OP_VIADDMIN>(v, w, z, a, s, u)
+                                : op_step<OP_IMAD>(v, w, z, a, s, u);
+    } else if constexpr (OP == OP_MINMAX3) {  // z: the chain after the neighbour
+        return (uint32_t)(u % 2 ? __vimax3_s32(vi, wi, zi) : __vimin3_s32(vi, wi, zi));
+    } else {  // an add of the operand, then a xor with it: the two cannot fold
+        return u % 2 ? w ^ (uint32_t)a : w + (uint32_t)a;
+    }
+}
+
+template <int OP>
+__global__ void __launch_bounds__(kThreads)
+op_chain(const uint32_t* __restrict__ seed, uint32_t* __restrict__ out, int iters, int a) {
+    const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+    uint32_t v[kStreams];
+#pragma unroll
+    for (int s = 0; s < kStreams; s++) {
+        // the add-min's values stay far from overflow: seeds of 24 bits
+        const uint32_t x = seed[t * kStreams + s];
+        v[s] = OP == OP_VIADDMIN || OP == OP_MIX ? (uint32_t)((int)x >> 8) : x;
+    }
+#pragma unroll 1
+    for (int i = 0; i < iters; i++) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; u++) {
+            uint32_t w[kStreams];
+#pragma unroll
+            for (int s = 0; s < kStreams; s++)
+                w[s] = op_step<OP>(v[s], v[(s + 1) % kStreams], v[(s + 2) % kStreams], a,
+                                   s, u);
+#pragma unroll
+            for (int s = 0; s < kStreams; s++) v[s] = w[s];
         }
     }
     uint32_t acc = v[0];
@@ -126,6 +197,37 @@ extern "C" int asm_roofline_issue_chain(const void* seed, void* out,
     issue_chain<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)seed, (uint32_t*)out, iters);
     return (int)cudaGetLastError();
+}
+
+template <int OP>
+cudaError_t launch_op_chain(const void* seed, void* out, int blocks, int iters, int a,
+                            cudaStream_t stream) {
+    op_chain<OP><<<blocks, kThreads, 0, stream>>>((const uint32_t*)seed, (uint32_t*)out,
+                                                   iters, a);
+    return cudaGetLastError();
+}
+
+// seed: uint32[blocks * 256, kStreams]; out: uint32[blocks * 256]; op: one
+// of OP_* (0 add-min, 1 min / max, 2 compare and select, 3 multiply-add,
+// 4 add, 5 add-min and multiply-add, 6 three-way min / max, 7 an add of a
+// and a xor with a in turns); a: the operand of add-min, select,
+// multiply-add and 7.
+extern "C" int asm_roofline_op_chain(const void* seed, void* out, int blocks, int iters,
+                                     int a, int op, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (op) {
+        case OP_VIADDMIN: return (int)launch_op_chain<OP_VIADDMIN>(seed, out, blocks, iters, a, st);
+        case OP_MINMAX: return (int)launch_op_chain<OP_MINMAX>(seed, out, blocks, iters, a, st);
+        case OP_SETP_SEL: return (int)launch_op_chain<OP_SETP_SEL>(seed, out, blocks, iters, a, st);
+        case OP_IMAD: return (int)launch_op_chain<OP_IMAD>(seed, out, blocks, iters, a, st);
+        case OP_IADD: return (int)launch_op_chain<OP_IADD>(seed, out, blocks, iters, a, st);
+        case OP_MIX: return (int)launch_op_chain<OP_MIX>(seed, out, blocks, iters, a, st);
+        case OP_MINMAX3: return (int)launch_op_chain<OP_MINMAX3>(seed, out, blocks, iters, a, st);
+        case OP_ADD_XOR: return (int)launch_op_chain<OP_ADD_XOR>(seed, out, blocks, iters, a, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // x: uint32[4 * n4], 16-byte aligned; out: uint32[1], zeroed by the caller.

@@ -25,10 +25,12 @@ L * L / 2 bytes per pair, its launches cut at TRACE_SCRATCH_BYTES
 another L, G and the route follow the table's rule
 (`shapes.nw_instance`), and the G strips may cover a few rows past L
 (`shapes.nw_rows`), which the scratch holds too. Above max_len 512 both
-kernels take csrc/nw.cu's long path (`nw_long_kernel`): one pair a warp,
-swept in blocks of up to 1,024 rows (`shapes.nw_long_rows`,
-`shapes.nw_blocks`), the trace's pointer planes in the global scratch,
-its walk on shared-memory tiles of them.
+kernels take csrc/nw.cu's long path: one pair a warp, swept in blocks of
+up to 1,024 rows (`shapes.nw_long_rows`, `shapes.nw_blocks`); the
+penalty from `nw_long_full_kernel` (a 7-slot cell, its step loop in a
+head, a steady loop and a tail: `loop_steps`), the trace from
+`nw_long_kernel` with its pointer planes in the global scratch and its
+walk on shared-memory tiles of them.
 """
 
 from __future__ import annotations
@@ -87,9 +89,12 @@ def instance(trace: bool, L: int) -> tuple[int, int]:
 
 def function_name(trace: bool, L: int) -> str:
     """The mangled name of the instantiation: nw_kernel<L/32, G, ROUTE>,
-    or above max_len 512 nw_long_kernel<L/32, trace>."""
+    or above max_len 512 nw_long_full_kernel<L/32> (the penalty) and
+    nw_long_kernel<L/32, true> (the trace)."""
     if L // 32 > LONG_W:
-        return f"nw_long_kernelILi{L // 32}ELb{int(trace)}E"
+        if not trace:
+            return f"nw_long_full_kernelILi{L // 32}E"
+        return f"nw_long_kernelILi{L // 32}ELb1E"
     G, route = instance(trace, L)
     return f"nw_kernelILi{L // 32}ELi{G}ELi{route}E"
 
@@ -115,6 +120,30 @@ def warp_steps(m, n, L: int, G: int) -> np.ndarray:
     pad = -steps.size % ppw
     return np.concatenate([steps, np.zeros(pad, np.int64)]).reshape(
         -1, ppw).max(1)
+
+
+def loop_steps(m, n, L: int) -> np.ndarray:
+    """The steps the long full kernel's three step loops run over all its
+    pairs (one pair a warp; lengths clamped to L): [head, steady, tail].
+    In each block of a pair the head runs its first min(31, steps) steps,
+    the steady loop steps 32..n and the tail the rest (`warp_steps`
+    gives a block's steps); their sum is warp_steps'."""
+    m = np.minimum(np.asarray(m, np.int64), L)
+    n = np.minimum(np.asarray(n, np.int64), L)
+    live = (m > 0) & (n > 0)
+    R = nw_long_rows(L)
+    RB = R * NW_LONG_G
+    last = np.where(live, (m - 1) // RB, 0)
+    lag = NW_LONG_G - 1
+    # per block: steady n - 31 where n > 31; the head 31 unless the block's
+    # steps are fewer; the tail what is left
+    blocks = np.where(live, last + 1, 0)
+    steady = np.maximum(n - lag, 0) * blocks
+    head = np.where(live, last * lag
+                    + np.minimum(lag, n + (m - 1 - last * RB) // R), 0)
+    total = warp_steps(m, n, L, NW_LONG_G)
+    return np.array([head.sum(), steady.sum(), (total - head - steady).sum()],
+                    np.int64)
 
 
 def plan(max_len: int = 128) -> Plan:

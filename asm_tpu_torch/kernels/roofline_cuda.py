@@ -7,6 +7,12 @@ kernels of tools/roofline.py and tests/test_roofline_counts.py:
                 (`hbm_stream_measure`)
   probe         load, +1, ^3, a data-dependent loop of +1 (x[0] trips),
                 store (the counter test's synthetic kernel)
+  op_chain      STREAMS chains per thread of one opcode of a Gotoh cell
+                (OPS: DPX add-min, min / max, compare and select,
+                multiply-add, add, add-min beside multiply-add, DPX
+                three-way min / max, an add of the operand beside a xor),
+                each step on its own value and its neighbours'; no TPU
+                kernel: the pipe rates the NW kernels are read against
   noop          an empty launch (the dispatch floor; not counted)
 
 Each has a plain PyTorch version beside it. On a CUDA tensor the wrapper
@@ -29,7 +35,7 @@ from asm_tpu_torch.kernels.greedy_cuda import check_tensor
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 
 # kernel launches since import (or since a caller reset them)
-LAUNCHES = {"issue_chain": 0, "stream_fold": 0, "probe": 0}
+LAUNCHES = {"issue_chain": 0, "stream_fold": 0, "probe": 0, "op_chain": 0}
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "roofline.cu")
 STREAMS = 8  # independent chains per thread (kStreams)
@@ -37,6 +43,18 @@ UNROLL = 4  # chain steps per chain and iteration (kUnroll)
 THREADS = 256  # threads per block of every kernel (kThreads)
 CHAIN_XOR = 12345
 MASK32 = 0xFFFFFFFF
+# op_chain's operations (csrc/roofline.cu OP_*), in its order, with the
+# instructions one step of one chain issues, and the SASS opcodes they are
+# meant to compile to (by stem)
+OPS = ("viaddmin", "minmax", "setp_sel", "imad", "iadd", "mix", "minmax3",
+       "add_xor")
+OP_INSTS = {"viaddmin": 1, "minmax": 1, "setp_sel": 2, "imad": 1,
+            "iadd": 1, "mix": 1, "minmax3": 1, "add_xor": 1}
+OP_SASS = {"viaddmin": ("VIADDMNMX",), "minmax": ("IMNMX", "VIMNMX"),
+           "setp_sel": ("ISETP", "SEL"), "imad": ("IMAD",),
+           "iadd": ("IADD3", "IMAD", "VIADD"),
+           "mix": ("VIADDMNMX", "IMAD"), "minmax3": ("VIMNMX3", "IMNMX3"),
+           "add_xor": ("VIADD", "IADD3", "IMAD", "LOP3")}
 _lib = None
 
 
@@ -66,6 +84,9 @@ def _load():
         lib.asm_roofline_probe.restype = c.c_int
         lib.asm_roofline_probe.argtypes = (
             [c.c_void_p] * 2 + [c.c_int] * 2 + [c.c_void_p])
+        lib.asm_roofline_op_chain.restype = c.c_int
+        lib.asm_roofline_op_chain.argtypes = (
+            [c.c_void_p] * 2 + [c.c_int] * 5 + [c.c_void_p])
         lib.asm_roofline_noop.restype = c.c_int
         lib.asm_roofline_noop.argtypes = [c.c_int, c.c_void_p]
         _lib = lib
@@ -126,6 +147,86 @@ def issue_chain(seed: torch.Tensor, iters: int) -> torch.Tensor:
         seed.data_ptr(), out.data_ptr(), threads // THREADS, iters,
         device.index, _stream(device)), "issue_chain")
     LAUNCHES["issue_chain"] += 1
+    return out
+
+
+# ---- op_chain --------------------------------------------------------------
+
+def _signed(v: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) -> their int32 values, as int64."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v)
+
+
+def op_chain_ops(threads: int, iters: int, op: str) -> int:
+    """Instructions one op_chain launch issues in its chains."""
+    return threads * iters * STREAMS * UNROLL * OP_INSTS[op]
+
+
+def _op_step(op: str, v, w, z, a: int, u: int):
+    """csrc/roofline.cu op_step on int64 words in [0, 2^32), every chain
+    at once (columns: chains; w and z the neighbours' values)."""
+    vi, wi, zi = _signed(v), _signed(w), _signed(z)
+    if op == "mix":
+        half = STREAMS // 2
+        return torch.cat([_op_step("viaddmin", v, w, z, a, u)[:, :half],
+                          _op_step("imad", v, w, z, a, u)[:, half:]], 1)
+    if op == "viaddmin":
+        return ((vi + a).minimum(wi)) & MASK32
+    if op == "minmax":
+        return (vi.maximum(wi) if u % 2 else vi.minimum(wi)) & MASK32
+    if op == "setp_sel":
+        return torch.where(vi < wi, torch.full_like(v, a & MASK32), w)
+    if op == "imad":
+        return (v * w + a) & MASK32
+    if op == "minmax3":
+        f = torch.maximum if u % 2 else torch.minimum
+        return f(vi, f(wi, zi)) & MASK32
+    if op == "add_xor":
+        return w ^ (a & MASK32) if u % 2 else (w + a) & MASK32
+    return (v + w) & MASK32
+
+
+def op_chain_plain(seed: torch.Tensor, iters: int, a: int,
+                   op: str) -> torch.Tensor:
+    """int32[threads, STREAMS] seeds -> int32[threads]: op_chain's chains
+    (the add-min's seeds arithmetic-shifted right by 8) stepped iters *
+    UNROLL times, xor-folded."""
+    v = seed.to(torch.int64) & MASK32
+    if op in ("viaddmin", "mix"):
+        v = (_signed(v) >> 8) & MASK32
+    for _ in range(iters):
+        for u in range(UNROLL):
+            v = _op_step(op, v, v.roll(-1, 1), v.roll(-2, 1), a, u)
+    out = v[:, 0]
+    for s in range(1, STREAMS):
+        out = out ^ v[:, s]
+    return _to_i32(out)
+
+
+def op_chain(seed: torch.Tensor, iters: int, op: str,
+             a: int = 3) -> torch.Tensor:
+    """The chain kernel of `op` (one of OPS) over int32[threads, STREAMS]
+    seeds, one thread per row (threads a multiple of THREADS on a card),
+    with the operand `a` (a small positive int keeps the add-min exact)."""
+    if op not in OPS:
+        raise ValueError(f"op must be one of {OPS}, got {op!r}")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    device = seed.device
+    threads = seed.shape[0]
+    check_tensor(seed, "seed", (torch.int32,), (threads, STREAMS), device)
+    if device.type == "cpu":
+        return op_chain_plain(seed, iters, a, op)
+    if device.type != "cuda":
+        raise NotImplementedError(f"no op_chain route for {device}")
+    if threads == 0 or threads % THREADS:
+        raise ValueError(f"threads must be a positive multiple of {THREADS}, "
+                         f"got {threads}")
+    out = torch.empty(threads, dtype=torch.int32, device=device)
+    _raise_on(_load().asm_roofline_op_chain(
+        seed.data_ptr(), out.data_ptr(), threads // THREADS, iters, a,
+        OPS.index(op), device.index, _stream(device)), f"op_chain {op}")
+    LAUNCHES["op_chain"] += 1
     return out
 
 

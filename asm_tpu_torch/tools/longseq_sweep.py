@@ -36,18 +36,27 @@ equal to the checked-in build's.
           each queued behind a spin as in cigar, each output held against
           its plain version on --sample pairs; per kernel and L: ms,
           pairs, launches, bound (utils/bounds) and share, registers,
-          spills, warps per SM, and for the band its diagonal loop's SASS
-          (roofline.nw_band_loop: per existing cell, by opcode); then the
+          spills, warps per SM, for the full kernel its step loops' SASS
+          (roofline.nw_loop_counts: per step, per cell slot and per
+          existing cell, by opcode; each of the split loop's parts
+          weighted by its steps) and for the band its diagonal loop's
+          (roofline.nw_band_loop); at L = 1024 the full kernel also
+          built with the shared memory a pair takes at 2048 (OCC_LINE:
+          2048's warps per SM on 1024's pairs), in turns; then the
           harness's measuring pass (nw_penalty_partitioned over
           nw_band.BWS, the residue to the full kernel) on the same
           corpus: its wall, its band launches and their summed ms, the
           full kernel's ms; then the band at NWLONG_SMALL's widths on
           the corpus's first NWLONG_SMALL pairs, a launch under one wave
           of warps (chip_smoke 18d's size at 2048). With --parent DIR the
-          kernels of DIR's csrc/nw.cu (its launch pieces:
-          PARENT_SCRATCH_BYTES of scratch) and csrc/nw_band.cu run in
-          turns beside this checkout's (parent, checked-in, checked-in,
-          parent), outputs equal
+          kernels of DIR's csrc/nw.cu and csrc/nw_band.cu (the pass:
+          both) run in turns beside this checkout's (parent, checked-in,
+          checked-in, parent), outputs equal; the trace's launch pieces
+          are this checkout's (nw_cuda.TRACE_SCRATCH_BYTES) for both
+  nwcount the long full kernel's step loops counted (nw_loop_counts over
+          the nwlong corpus's lengths), its registers, spills and warps
+          per SM, at L = 1024 and 2048, without timing; with --parent
+          DIR, DIR's beside
   bandnp  the band's wide path at L = 1024 and 2048 (the nwlong corpus)
           with csrc/nw_band.cu's layout table replaced: the offset pairs
           a thread holds (wide_np_table) at some BW, or the main loop's
@@ -56,7 +65,8 @@ equal to the checked-in build's.
           its loop's SASS per existing cell, registers and warps per SM
 
     python -m asm_tpu_torch.tools.longseq_sweep [greedy nw piece cigar
-        nwlong bandnp] [--pairs N] [--nw-pairs N] [--cigar-pairs N]
+        nwlong nwcount bandnp] [--pairs N] [--nw-pairs N]
+        [--cigar-pairs N]
         [--parent DIR] [--reps N] [--sample N]
 
 The corpus is the long-sequence headline's at L = 512 (496-base reads,
@@ -86,7 +96,7 @@ from asm_tpu_torch.utils.build import BUILD_DIR, nvcc_library, ptxas_report_path
 from asm_tpu_torch.utils.timing import log, time_reps
 
 L = 512
-SWEEPS = ("greedy", "nw", "piece", "cigar", "nwlong", "bandnp")
+SWEEPS = ("greedy", "nw", "piece", "cigar", "nwlong", "nwcount", "bandnp")
 # the variants, and the patterns of the source lines that set them
 GREEDY_THREADS = (128, 64, 32)
 GREEDY_LINE = r"return W == 16 \? \d+ : 128;"
@@ -100,13 +110,18 @@ CIGAR_L = 1024
 CIGAR_THREADS = (64, 32)
 CIGAR_SIZES = (2048, 4096, 8192, 16384, 32768, 65536, 131072)
 SPIN_CYCLES = 40_000_000  # ~20 ms at 1.98 GHz
-# the nwlong sweep: pairs per max_len (several waves of each kernel), the
-# band widths, and the parent's trace launch pieces (a fixed scratch cap)
+# the nwlong sweep: pairs per max_len (several waves of each kernel) and
+# the band widths
 NWLONG_PAIRS = {1024: 16384, 2048: 8192}
 NWLONG_BWS = (4, 8, 16, 32, 64, 128)
 # a small band launch: its pairs and widths
 NWLONG_SMALL = (512, (64, 128))
-PARENT_SCRATCH_BYTES = 2 << 30
+# the full kernel at L = 1024 with the shared memory a pair takes at 2048
+# (the parked row): csrc/nw.cu's long launch's line, and its replacement
+OCC_L, OCC_OF = 1024, 2048
+OCC_LINE = r"    constexpr size_t smem = long_slot_bytes\(32 \* W, TRACE\);"
+OCC_TEXT = ("    constexpr size_t smem = long_slot_bytes(TRACE ? 32 * W : "
+            f"{OCC_OF}, TRACE);")
 # the bandnp sweep: csrc/nw_band.cu's layout lines, and per variant the
 # offset pairs a thread at each BW it changes (the others the checked-in
 # table's) and the main loop's trips a pass
@@ -470,18 +485,6 @@ def cigar_sweep(pairs: int, parent: str | None, reps: int,
                                     for n, t in threads.items()})
 
 
-@contextlib.contextmanager
-def parent_pieces():
-    """nw_cuda's trace launches cut as the parent cut them inside: at most
-    PARENT_SCRATCH_BYTES of pointer scratch a launch."""
-    saved = nw_cuda.TRACE_SCRATCH_BYTES
-    nw_cuda.TRACE_SCRATCH_BYTES = PARENT_SCRATCH_BYTES
-    try:
-        yield
-    finally:
-        nw_cuda.TRACE_SCRATCH_BYTES = saved
-
-
 def band_libs(Lr: int, parent: str | None) -> dict:
     """name -> (bound library, its path, its ptxas report) of the band at
     max_len Lr: with `parent`, DIR's csrc/nw_band.cu built first, then the
@@ -548,13 +551,15 @@ def timed_calls(module, name: str, marks: list):
         setattr(module, name, fn)
 
 
-def measuring_pass(Lr: int, planes, t, libs: dict, reps: int) -> dict:
+def measuring_pass(Lr: int, planes, t, libs: dict, nw_libs: dict,
+                   reps: int) -> dict:
     """The harness's NW measuring pass (nw_penalty_partitioned over
     nw_band.BWS on pre-staged planes, its residue to the full kernel) on
-    the corpus, with each band library of `libs` in turns (forward, then
-    reversed), outputs equal: per library the best rep's wall (host clock
-    to the pass's numpy result) and, in that rep, the band launches, their
-    summed device ms and the full kernel's."""
+    the corpus, with each band library of `libs` and the NW library of
+    `nw_libs` under the same name in turns (forward, then reversed),
+    outputs equal: per name the best rep's wall (host clock to the pass's
+    numpy result) and, in that rep, the band launches, their summed device
+    ms and the full kernel's."""
     from asm_tpu_torch.kernels import nw_band
 
     out, first = {}, None
@@ -566,6 +571,7 @@ def measuring_pass(Lr: int, planes, t, libs: dict, reps: int) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with using(nw_band, libs[name][0], Lr), \
+                    using(nw_cuda, nw_libs[name], Lr), \
                     timed_calls(nw_band, "nw_penalty_banded", marks), \
                     timed_calls(nw_cuda, "nw_penalty_cuda", marks):
                 pen = nw_band.nw_penalty_partitioned(
@@ -647,12 +653,92 @@ def band_turns(Lr, planes, t, ts, m, n, libs, bws, reps, sample) -> dict:
     return out
 
 
+def full_function(listing: str, Lr: int) -> str:
+    """The mangled name of the long full kernel at max_len Lr in a library's
+    SASS listing: nw_long_full_kernel<W> (this checkout's), or the
+    nw_long_kernel<W, false> of a parent before it."""
+    from asm_tpu_torch.tools.roofline import find_kernels
+
+    W = Lr // 32
+    names = [k for k in find_kernels(listing)
+             if f"nw_long_full_kernelILi{W}E" in k
+             or f"nw_long_kernelILi{W}ELb0E" in k]
+    if len(names) != 1:
+        raise ValueError(f"{len(names)} long full kernels at W = {W}: "
+                         f"{find_kernels(listing)}")
+    return names[0]
+
+
+def full_info(path: str, report: str, Lr: int, m, n, lib) -> dict:
+    """The long full kernel of the library at `path` (its ptxas report at
+    `report`, bound as `lib`) at max_len Lr on pairs of lengths m, n: its
+    step loops' SASS (roofline.nw_loop_counts; a kernel that splits its
+    step loop, each part weighted by nw_cuda.loop_steps), registers,
+    spills and warps per SM."""
+    from asm_tpu_torch.kernels.shapes import nw_long_rows
+    from asm_tpu_torch.tools.roofline import (
+        _sections,
+        nw_loop_counts,
+        ptxas_entry,
+        sass_listing,
+    )
+
+    listing = sass_listing(path)
+    fn = full_function(listing, Lr)
+    one = next(text for name, text in _sections(listing) if name == fn)
+    m = np.minimum(np.asarray(m, np.int64), Lr)
+    n = np.minimum(np.asarray(n, np.int64), Lr)
+    split = "nw_long_full_kernel" in fn
+    counts = nw_loop_counts(
+        one, nw_cuda.warp_steps(m, n, Lr, 32), float(np.sum(m * n)), 32,
+        nw_long_rows(Lr),
+        loop_steps=nw_cuda.loop_steps(m, n, Lr) if split else None)
+    with using(nw_cuda, lib, Lr):
+        warps = nw_cuda.occupancy(False, Lr)
+    keep = ("insts_per_step", "insts_per_slot", "insts_per_existing_cell",
+            "existing_share", "loop_insts", "steps_per_trip", "loop_body",
+            "loop_opcodes", "loop_parts", "loop_copies")
+    with open(report) as f:
+        usage = ptxas_entry(nw_cuda, re.search(
+            r"nw_long(?:_full)?_kernelILi\d+E(?:Lb0E)?", fn)[0], f.read())
+    return dict(function=fn, **usage, warps_per_sm=warps,
+                loop={k: counts[k] for k in keep if k in counts})
+
+
+def full_libs(Lr: int, parent: str | None) -> dict:
+    """name -> (bound library, its path, its ptxas report) of NW at max_len
+    Lr: with `parent`, DIR's csrc/nw.cu built first, then the checked-in
+    build."""
+    p = nw_cuda.plan(Lr)
+    out = {}
+    if parent:
+        path, rep = variant(nw_cuda, f"parent_{p.stem}", [], p.defines,
+                            os.path.join(parent, "asm_tpu_torch", "csrc",
+                                         "nw.cu"))
+        out["parent"] = (nw_cuda.bind(path), path, rep)
+    path, _ = nw_cuda.build_kernel(Lr)
+    out["checked-in"] = (nw_cuda._load(Lr), path, nw_cuda.ptxas_report(Lr))
+    return out
+
+
+def nwcount_sweep(parent: str | None) -> list[dict]:
+    """The nwcount sweep (module docstring): one line per max_len."""
+    lines = []
+    for Lr, pairs in NWLONG_PAIRS.items():
+        corpus = lh.long_corpus(Lr, pairs)
+        libs = full_libs(Lr, parent)
+        lines.append(dict(sweep="nwcount", L=Lr, pairs=pairs, kernels={
+            name: full_info(path, rep, Lr, corpus[1], corpus[3], lib)
+            for name, (lib, path, rep) in libs.items()}))
+    return lines
+
+
 def nwlong_sweep(parent: str | None, reps: int, sample: int) -> list[dict]:
     """The nwlong sweep (module docstring): per max_len one line of the
     kernels, one of the measuring pass and one of the small band launch."""
     from asm_tpu_torch.kernels import nw
     from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
-    from asm_tpu_torch.tools.roofline import nw_resources, ptxas_entry
+    from asm_tpu_torch.tools.roofline import ptxas_entry
     from asm_tpu_torch.utils.bounds import bound_entry, nw_full_work
 
     lines = []
@@ -666,25 +752,23 @@ def nwlong_sweep(parent: str | None, reps: int, sample: int) -> list[dict]:
         ts = [a[:sample] for a in t]
         line = dict(sweep="nwlong", L=Lr, pairs=pairs, sample=sample,
                     kernels={})
-        libs = {"checked-in": nw_cuda._load(Lr)}
-        built = None
-        if parent:  # in turns: parent, checked-in, checked-in, parent
-            p = nw_cuda.plan(Lr)
-            built = variant(nw_cuda, f"parent_{p.stem}", [], p.defines,
-                            os.path.join(parent, "asm_tpu_torch", "csrc",
-                                         "nw.cu"))
-            libs = {"parent": nw_cuda.bind(built[0]), **libs}
+        # in turns: parent, checked-in, checked-in, parent
+        flibs = full_libs(Lr, parent)
         for kernel in ("nw", "nw_trace"):
             trace = kernel == "nw_trace"
+            libs = {k: v[0] for k, v in flibs.items()}
+            if Lr == OCC_L and not trace:
+                p = nw_cuda.plan(Lr)
+                occ = variant(nw_cuda, f"{p.stem}_smem{OCC_OF}",
+                              [(OCC_LINE, OCC_TEXT)], p.defines)
+                libs[f"smem_of_{OCC_OF}"] = nw_cuda.bind(occ[0])
 
             def call(trace=trace):
                 return (nw_cuda.nw_align_cuda(*t, match_mask_threshold=3)
                         if trace else (nw_cuda.nw_penalty_cuda(*t),))
 
-            def run(name, call=call):
-                with using(nw_cuda, libs[name], Lr), (
-                        parent_pieces() if name == "parent"
-                        else contextlib.nullcontext()):
+            def run(name, call=call, libs=libs):
+                with using(nw_cuda, libs[name], Lr):
                     return queued([call], reps)
 
             want = (nw.nw_align(*ts, match_mask_threshold=3) if trace
@@ -704,15 +788,19 @@ def nwlong_sweep(parent: str | None, reps: int, sample: int) -> list[dict]:
             for name, lib in libs.items():
                 with using(nw_cuda, lib, Lr):
                     before = nw_cuda.LAUNCHES[kernel]
-                    with (parent_pieces() if name == "parent"
-                          else contextlib.nullcontext()):
-                        call()
+                    call()
                     launches = nw_cuda.LAUNCHES[kernel] - before
-                    res = (nw_resources(trace, Lr) if name == "checked-in"
-                           else dict(ptxas_entry(
-                               nw_cuda, nw_cuda.function_name(trace, Lr),
-                               open(built[1]).read()),
-                               warps_per_sm=nw_cuda.occupancy(trace, Lr)))
+                    if name not in flibs:  # the shared-memory variant
+                        res = dict(warps_per_sm=nw_cuda.occupancy(trace, Lr))
+                    elif trace:  # the trace kernel: one name in both
+                        with open(flibs[name][2]) as f:
+                            res = dict(ptxas_entry(
+                                nw_cuda, nw_cuda.function_name(True, Lr),
+                                f.read()),
+                                warps_per_sm=nw_cuda.occupancy(True, Lr))
+                    else:
+                        res = full_info(flibs[name][1], flibs[name][2], Lr,
+                                        m, n, lib)
                 info[name] = dict(res, launches=launches)
             b = bound_entry(*nw_full_work(m, n, Lr, trace=trace))
             line["kernels"][kernel] = dict(
@@ -723,7 +811,9 @@ def nwlong_sweep(parent: str | None, reps: int, sample: int) -> list[dict]:
         line["kernels"].update(band_turns(Lr, planes, t, ts, m, n, blibs,
                                           NWLONG_BWS, reps, sample))
         lines.append(line)
-        lines.append(measuring_pass(Lr, planes, t, blibs, reps))
+        lines.append(measuring_pass(Lr, planes, t, blibs,
+                                    {k: v[0] for k, v in flibs.items()},
+                                    reps))
         k, bws = NWLONG_SMALL
         small = [a[:k] for a in t]
         lines.append(dict(sweep="nwlong_small", L=Lr, pairs=k, sample=sample,
@@ -809,11 +899,14 @@ def main(argv=None) -> None:
 
     card = card_line()
     corpus = (lh.long_corpus(L, args.pairs)
-              if set(args.sweeps) - {"cigar", "nwlong", "bandnp"} else None)
+              if set(args.sweeps) - {"cigar", "nwlong", "nwcount", "bandnp"}
+              else None)
     lines = []
     for s in args.sweeps:
         if s == "nwlong":
             lines = nwlong_sweep(args.parent, args.reps, args.sample)
+        elif s == "nwcount":
+            lines = nwcount_sweep(args.parent)
         elif s == "bandnp":
             lines = bandnp_sweep(args.reps, args.sample)
         elif s == "cigar":

@@ -8,6 +8,11 @@ Three measurements, one report:
    v = (v + 1) ^ 12345 on every thread of a grid that fills the card) at
    `iters` and 2 * iters iterations; the rate is the slope, so launch and
    tail costs cancel.
+   `chain_measure` does the same for each of op_chain's opcodes (a DPX
+   add-min, a min / max, a compare and select, a multiply-add, an add,
+   add-min beside multiply-add, a DPX three-way min / max, an add beside
+   a xor): its lanes per cycle per SM at the sampled clock, 128 at the
+   full issue rate, 64 on a half-rate pipe.
 2. The card's device-memory read rate, measured: `stream_measure` times
    the stream_fold kernel (the xor of every word of an array) on 4096 and
    8192 MiB of seeded random words; the rate is the slope.
@@ -111,6 +116,51 @@ def issue_peak_measure(seeds: torch.Tensor, iters: int = 8192,
     ops = roofline_cuda.issue_chain_ops(seeds.shape[0], iters)
     return dict(rate=ops / max(walls[1] - walls[0], 1e-12), walls=walls,
                 ops=ops, iters=iters, out=outs[0])
+
+
+def chain_measure(seeds: torch.Tensor, op: str, iters: int = 8192,
+                  reps: int = 10) -> dict:
+    """Measured issue rate of op_chain's `op` (thread instructions per
+    second in its chains): the slope of its best time from `iters` to 2 *
+    iters. Returns rate, walls (seconds), ops (in the slope region), iters
+    and the launch's output at `iters`."""
+    dev = seeds.device
+    walls, outs = [], []
+    for n in (iters, 2 * iters):
+        t, out = _best_seconds(
+            lambda n=n: roofline_cuda.op_chain(seeds, n, op), reps, dev)
+        walls.append(t)
+        outs.append(out)
+    ops = roofline_cuda.op_chain_ops(seeds.shape[0], iters, op)
+    return dict(rate=ops / max(walls[1] - walls[0], 1e-12), walls=walls,
+                ops=ops, iters=iters, out=outs[0])
+
+
+def chain_census(lib_path: str, op: str) -> dict:
+    """The loop of op_chain<op>'s SASS: its opcodes, and the instructions
+    of the op's opcodes (roofline_cuda.OP_SASS, by stem) outside its trip
+    control (`loop_control`) beside the STREAMS x UNROLL x OP_INSTS the
+    rate divides by."""
+    sass = sass_listing(lib_path, f"op_chainILi{roofline_cuda.OPS.index(op)}E")
+    loops = [lp for lp in count_sass(sass)["loops"] if lp["depth"] == 0]
+    if len(loops) != 1:
+        raise ValueError(f"op_chain {op}: expected one loop, got {loops}")
+    ops = loops[0]["opcodes"]
+    stems = roofline_cuda.OP_SASS[op]
+    control = [o for _, o in loop_control(sass, loops[0])]
+    return dict(opcodes=ops, chain_insts=sum(
+        v for k, v in ops.items() if k.split(".")[0] in stems) - sum(
+        o.split(".")[0] in stems for o in control),
+        expected=roofline_cuda.STREAMS * roofline_cuda.UNROLL
+        * roofline_cuda.OP_INSTS[op])
+
+
+def lanes_per_cycle_per_sm(rate: float, device, sm_clock_mhz: float) -> float:
+    """A rate of thread instructions per second as lanes a cycle on each
+    SM at the sampled clock: 128 is the full issue rate (4 schedulers x 32
+    lanes), 64 a half-rate pipe."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return rate / (sms * sm_clock_mhz * 1e6)
 
 
 def stream_measure(words: torch.Tensor, reps: int = 10) -> dict:
@@ -663,51 +713,82 @@ NW_SHFL_PER_STEP = 2
 
 def nw_loop_counts(listing: str, warp_steps, cells: float,
                    lanes_per_pair: int, rows_per_thread: int,
-                   walk_steps=None) -> dict:
-    """The main loop of one NW full or trace instantiation (the one loop of
-    its SASS that holds shuffles) and, with `walk_steps` (the traceback's
-    steps per pair, launch order), the walk loop (the largest other
-    outermost loop that stores: to global memory on the short path, to
-    the shared ops row on the long one, whose body also holds its tile
-    switch, run once every ~64 steps). `warp_steps`: the main loop's steps
-    each warp ran (csrc/nw.cu: `nw_cuda.warp_steps`; the one-warp-per-pair layout,
-    one pair per warp: m + n); `cells`: the run's existing cells, sum of
-    m * n; each step a thread computes `rows_per_thread` cell slots.
+                   walk_steps=None, loop_steps=None) -> dict:
+    """The step loop of one NW full or trace instantiation (the loop of its
+    SASS that holds shuffles, or with `loop_steps` each of them) and, with
+    `walk_steps` (the traceback's steps per pair, launch order), the walk
+    loop (the largest other outermost loop that stores: to global memory
+    on the short path, to the shared ops row on the long one, whose body
+    also holds its tile switch, run once every ~64 steps). `warp_steps`:
+    the steps each warp ran (csrc/nw.cu: `nw_cuda.warp_steps`; the
+    one-warp-per-pair layout, one pair per warp: m + n); `cells`: the
+    run's existing cells, sum of m * n; each step a thread computes
+    `rows_per_thread` cell slots. `loop_steps`: where the step loop is
+    split (the long full kernel's head, steady loop and tail:
+    `nw_cuda.loop_steps`), the steps each part ran over the run, in the
+    parts' address order; the SASS must hold that many loops with
+    shuffles, and each is weighted by its own steps.
 
-    Returns the loop's instructions per trip (by category and opcode), the
-    steps a trip covers (its shuffles over NW_SHFL_PER_STEP: an unrolled
-    loop counts right), instructions per step and per cell slot, the
-    share of the slots that are existing cells, and the thread
-    instructions the main loop issues per existing cell (32 lanes x the
-    warps' steps x instructions per step / cells); with the walk, its
-    instructions per step and the steps per pair (mean, and the mean of
-    the warp maximum over the 32 / lanes_per_pair walkers of a warp)."""
+    Returns the loop's instructions per trip (by category and opcode; of
+    a split loop, its most-run part's), the steps a trip covers (its
+    shuffles over NW_SHFL_PER_STEP: an unrolled loop counts right),
+    instructions per step (a split loop's mean over the steps) and per
+    cell slot, the share of the slots that are existing cells, and the
+    thread instructions the step loops issue per existing cell (32 lanes
+    x the steps x instructions per step / cells); of a split loop also
+    each part's steps and instructions; with the walk, its instructions
+    per step and the steps per pair (mean, and the mean of the warp
+    maximum over the 32 / lanes_per_pair walkers of a warp)."""
     loops = count_sass(listing)["loops"]
     main = [lp for lp in loops
             if any(op.startswith("SHFL") for op in lp["opcodes"])]
     if not main:
         raise ValueError("expected a loop with shuffles, got none")
-    # the long path's step loop may be compiled twice (its first block and
-    # the later ones): count the longer copy
-    lp = max(main, key=lambda x: sum(x["body"].values()))
-    shfl = sum(v for op, v in lp["opcodes"].items() if op.startswith("SHFL"))
-    steps_per_trip = shfl / NW_SHFL_PER_STEP
-    insts = sum(lp["body"].values())
-    per_step = insts / steps_per_trip
+
+    def per_step(lp):
+        shfl = sum(v for op, v in lp["opcodes"].items()
+                   if op.startswith("SHFL"))
+        insts = sum(lp["body"].values())
+        return insts, shfl / NW_SHFL_PER_STEP, insts * NW_SHFL_PER_STEP / shfl
+
     total = float(np.sum(np.asarray(warp_steps, dtype=np.float64)))
+    parts = None
+    if loop_steps is None:
+        # the long trace kernel's step loop may be compiled twice (its
+        # first block and the later ones): count the longer copy
+        lp = max(main, key=lambda x: sum(x["body"].values()))
+        insts, steps_per_trip, mean_step = per_step(lp)
+    else:
+        weights = [float(w) for w in loop_steps]
+        if len(main) != len(weights):
+            raise ValueError(f"expected {len(weights)} step loops with "
+                             f"shuffles, got {len(main)}: "
+                             f"{[x['start'] for x in main]}")
+        if abs(sum(weights) - total) > 1e-6 * max(total, 1.0):
+            raise ValueError(f"the loops' steps {weights} do not sum to the "
+                             f"warps' {total}")
+        parts = [dict(start=x["start"], steps=w, insts_per_step=per_step(x)[2],
+                      body={k: v for k, v in x["body"].items() if v})
+                 for x, w in zip(main, weights)]
+        lp = main[int(np.argmax(weights))]
+        insts, steps_per_trip, _ = per_step(lp)
+        mean_step = (sum(p["steps"] * p["insts_per_step"] for p in parts)
+                     / total if total else 0.0)
     slots = 32 * rows_per_thread * total
     out = dict(function=find_kernels(listing)[0],
                lanes_per_pair=lanes_per_pair,
                rows_per_thread=rows_per_thread,
                loop_insts=insts, steps_per_trip=steps_per_trip,
                loop_body={k: v for k, v in lp["body"].items() if v},
-               loop_opcodes=lp["opcodes"], insts_per_step=per_step,
-               insts_per_slot=per_step / rows_per_thread,
+               loop_opcodes=lp["opcodes"], insts_per_step=mean_step,
+               insts_per_slot=mean_step / rows_per_thread,
                warp_steps=total, existing_cells=float(cells),
                existing_share=float(cells) / slots if slots else 0.0,
-               insts_per_existing_cell=32 * total * per_step / cells
+               insts_per_existing_cell=32 * total * mean_step / cells
                if cells else 0.0)
-    if len(main) > 1:
+    if parts is not None:
+        out["loop_parts"] = parts
+    elif len(main) > 1:
         out["loop_copies"] = len(main)
     if walk_steps is None:
         return out
@@ -750,7 +831,9 @@ def nw_line(name: str, m, n, ms: float, bound: dict, ops=None,
     on one launch's pairs: lengths m, n (launch order, max_len L read from
     ops, else `max_len`), its measured ms and its bound (`utils.bounds.
     bound_entry`): `nw_loop_counts` of the instantiation the wrapper
-    launches, `nw_resources`, and the time over the bound."""
+    launches (above max_len 512 the full kernel's three step loops each
+    weighted by `nw_cuda.loop_steps`), `nw_resources`, and the time over
+    the bound."""
     from asm_tpu_torch.kernels import nw_cuda
 
     trace = name == "nw_trace"
@@ -759,12 +842,13 @@ def nw_line(name: str, m, n, ms: float, bound: dict, ops=None,
     m = np.minimum(np.asarray(m, np.int64), L)
     n = np.minimum(np.asarray(n, np.int64), L)
     walk = (np.asarray(ops) != 0).sum(1) if trace else None
+    long = L // 32 > LONG_W
     counts = nw_loop_counts(
         sass_listing(nw_cuda.build_kernel(L)[0],
                      nw_cuda.function_name(trace, L)),
         nw_cuda.warp_steps(m, n, L, G), float(np.sum(m * n)), G,
-        nw_long_rows(L) if L // 32 > LONG_W else nw_rows(L, G),
-        walk)
+        nw_long_rows(L) if long else nw_rows(L, G), walk,
+        nw_cuda.loop_steps(m, n, L) if long and not trace else None)
     line = dict(kernel=name, max_len=L, G=G, route=route, pairs=int(m.size),
                 **counts, **nw_resources(trace, L), ms=ms,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
@@ -869,14 +953,19 @@ def card_line() -> str:
 
 def micro(device, iters: int = 8192, stream_mib: int = 4096,
           reps: int = 10, keep_words: bool = False) -> tuple[dict, dict]:
-    """The three microbenchmarks, with the issue rate's clock sampled
-    while it runs. Returns the report line (rates, walls, the limits and
-    utils.bounds' rates) and the raw measurements: issue and stream
-    (`issue_peak_measure`, `stream_measure`), the issue seeds and, with
-    keep_words, the 2 * stream_mib MiB of words streamed."""
+    """The microbenchmarks, with the clock sampled while the issue rate and
+    while the chains run. Returns the report line (rates, walls, the
+    limits, utils.bounds' rates, and per op_chain opcode its rate and lanes
+    per cycle per SM) and the raw measurements: issue, chains and stream
+    (`issue_peak_measure`, `chain_measure` per op, `stream_measure`), the
+    issue seeds (the chains' too) and, with keep_words, the 2 * stream_mib
+    MiB of words streamed."""
     seeds = issue_seeds(device)
     issue, clock = sampled_sm_clock_mhz(
         lambda: issue_peak_measure(seeds, iters, reps))
+    chains, chain_clock = sampled_sm_clock_mhz(
+        lambda: {op: chain_measure(seeds, op, iters, reps)
+                 for op in roofline_cuda.OPS})
     words = seeded_words(2 * stream_mib * (1 << 20) // 4, device, seed=1)
     stream = stream_measure(words, reps)
     if not keep_words:
@@ -887,12 +976,19 @@ def micro(device, iters: int = 8192, stream_mib: int = 4096,
         issue_iters=iters, issue_threads=seeds.shape[0],
         sm_clock_mhz=clock, issue_limit_ops_per_sec=issue_limit(device, clock),
         bounds_int32_ops_per_sec=INT32_OPS_PER_S,
+        chain_sm_clock_mhz=chain_clock,
+        chains={op: dict(ops_per_sec=c["rate"],
+                         lanes_per_cycle_per_sm=lanes_per_cycle_per_sm(
+                             c["rate"], device, chain_clock),
+                         walls_ms=[w * 1e3 for w in c["walls"]])
+                for op, c in chains.items()},
         stream_bytes_per_sec=stream["rate"],
         stream_walls_ms=[w * 1e3 for w in stream["walls"]],
         stream_mib=[stream_mib, 2 * stream_mib],
         published_bytes_per_sec=HBM_BYTES_PER_S,
         dispatch_floor_us=dispatch_floor(device) * 1e6)
-    return line, dict(issue=issue, stream=stream, seeds=seeds, words=words)
+    return line, dict(issue=issue, chains=chains, stream=stream, seeds=seeds,
+                      words=words)
 
 
 def main(argv=None) -> None:
@@ -915,6 +1011,12 @@ def main(argv=None) -> None:
     log(f"issue {m['issue_ops_per_sec'] / 1e12:.3f} T ops/s, stream "
         f"{m['stream_bytes_per_sec'] / 1e12:.3f} TB/s on {card}")
     if "micro" in args.rows:
+        lib = roofline_cuda.build_kernel()[0]
+        for op, c in m["chains"].items():
+            c.update(census=chain_census(lib, op))
+        log("lanes a cycle per SM: " + ", ".join(
+            f"{op} {c['lanes_per_cycle_per_sm']:.1f}"
+            for op, c in m["chains"].items()))
         print(json.dumps(dict(m, device=torch.cuda.get_device_name(0),
                               card=card)), flush=True)
     if "greedy" in args.rows:

@@ -1,16 +1,17 @@
 """The SASS of the kernels a long-row redesign leaves alone, pinned: the
 greedy and LEAP kernels' short-row instantiations, the NW full and trace
-kernels' (nw_kernel), the long-row NW full kernel
-(nw_long_kernel<W, false>) and the NW band's short path (band_kernel<BW,
-W>, W 4/8/16, BW 4-64: the 67.1M NW headline's kernel).
+kernels' (nw_kernel), the long-row NW trace kernel
+(nw_long_kernel<W, true>) and the NW band's short and wide paths
+(band_kernel<BW, W>, W 4/8/16, BW 4-64: the 67.1M NW headline's kernel;
+band_wide_kernel<128, W>).
 
 csrc/greedy.cu, csrc/leap.cu, csrc/nw.cu and csrc/nw_band.cu hold a
 long-row path (max_len above 512; the band's also serves BW 128) beside
-the short one; every instantiation at max_len <= 512, and the long NW
-full kernel, must compile to the SASS it had before the long-row kernels
-beside them were redesigned (UNPINNED: the long NW trace kernel and the
-band's wide path, band_wide_kernel, which were). `digests` hashes each
-kernel of a built library (`cuobjdump -sass`, the function's own name
+the short one; every instantiation at max_len <= 512, the long NW trace
+kernel and the band's wide path must compile to the SASS they had before
+the long NW full kernel was redesigned (UNPINNED: that kernel,
+nw_long_kernel<W, false> before, nw_long_full_kernel<W> since).
+`digests` hashes each kernel of a built library (`cuobjdump -sass`, the function's own name
 line dropped and the anonymous namespace's per-source hash taken out of
 every symbol), keyed by the mangled name from the kernel's own name on.
 SHORT_SHAPES names the libraries held: the tuned tables, the W <= 16
@@ -21,7 +22,7 @@ of the commit before the redesign; `check` builds (or finds built) this
 checkout's libraries and compares them with it, where this nvcc is the
 pin's: another nvcc compiles other SASS from the same source, so there
 `check` compares nothing and says so. The pin was taken from the csrc of
-commit c551e60, before band_wide_kernel's redesign.
+commit d1a0d02, before the long NW full kernel's redesign.
 
 The pin holds while no change is meant to reach the short-row kernels.
 A change that does (a new short-row design, a new tuned shape), or a new
@@ -64,10 +65,10 @@ SHORT_SHAPES = ([("greedy", ()), ("leap", ()), ("nw", ()), ("nw_band", ())]
                 + [("leap", (3, L, (1, 1, 1))) for L in (160, 384)]
                 + [("nw", (L,)) for L in (160, 384, 1024, 2048)])
 _KERNEL_AT = re.compile(
-    r"\d+((?:greedy|leap|nw|band)(?:_long|_wide)?_kernelI.*)")
-# kernels of those libraries that are not held: the long-row NW trace
-# kernel and the band's wide path, redesigned after the pin's sources
-UNPINNED = re.compile(r"^(?:nw_long_kernelILi\d+ELb1E|band_wide_kernelI)")
+    r"\d+((?:greedy|leap|nw|band)(?:_long|_wide|_long_full)?_kernelI.*)")
+# kernels of those libraries that are not held: the long-row NW full
+# kernel, redesigned after the pin's sources (its name then and now)
+UNPINNED = re.compile(r"^(?:nw_long_kernelILi\d+ELb0E|nw_long_full_kernelI)")
 _ANON = re.compile(r"\S*_GLOBAL__N_\S*")
 
 

@@ -72,7 +72,11 @@ line:
      the SASS counter on the probe's real SASS (the loop body charged at
      the given weight) and on issue_chain's (its loop body holds
      STREAMS x UNROLL x 2 integer instructions besides its trip control);
-     then the measured issue rate, stream rate and dispatch floor, none
+     op_chain (each of the Gotoh cell's opcodes in chains: add-min, min /
+     max, compare and select, multiply-add, add, add-min beside
+     multiply-add) against its plain version, its loop holding its
+     opcodes; then the measured issue rate, each op_chain opcode's lanes
+     per cycle per SM, stream rate and dispatch floor, none
      above 105% of its published limit, the greedy and LEAP roofline
      lines of phases 4 and 9's runs, and the NW band kernel's diagonal
      loop (SASS instructions per existing cell, the warp maximum of m+n
@@ -150,7 +154,11 @@ line:
      at BW 4-128 (BW 128 also at max_len 128 and 256), also on the
      band-edge pairs of data/band_edges.py (destinations at the band's
      edges, the wide path's first thread boundary and just off the band;
-     BW 128 also at 128, 256 and 512); (b) the long-sequence
+     BW 128 also at 128, 256 and 512); NW full also on the block-edge
+     pairs of data/block_edges.py (read lengths at the long full
+     kernel's strip and block edges, ref lengths where its step loop's
+     parts meet) at those max_lens and at 3072 (three blocks of rows);
+     (b) the long-sequence
      flow at max_len 1024 on 262,144 pairs and 2048 on 65,536, pinned from
      asm_tpu, the plain versions equal on 16,384 pairs of each; (c) the
      harness at max_len 1024 on 8,192 pairs, its counts pinned from
@@ -163,8 +171,9 @@ line:
      bytes (threads per pair) and warps per SM at each max_len, and the
      SASS of the kernels the long-row redesigns left alone (greedy's,
      LEAP's, NW's and the band's W <= 16 instantiations in the tuned
-     tables and phase 17's libraries, the long NW full kernel) against
-     the pin taken from the sources before the redesigns
+     tables and phase 17's libraries, the long NW trace kernel and the
+     band's wide path) against the pin taken from the sources before the
+     long NW full kernel's redesign
      (tools/sass_pin.py): no kernel may have moved.
 Prints a JSON line of per-kernel results (time, plain version's time,
 bound, launches; the W = 16 instantiations and phases 17's and 18's
@@ -357,6 +366,8 @@ ROW_HARNESS = (2778, 7667, 5861)
 ROW_HARNESS_2048_PAIRS = 512
 ROW_HARNESS_2048 = (50, 434, 249)
 ROW_LENGTHS = (544, 800, 1024, 2048)
+# (a)'s block-edge pairs also at three blocks of rows (NW full only)
+BLOCK_EDGE_LENGTHS = ROW_LENGTHS + (3072,)
 ROW_CASE_PAIRS = 200  # (a)'s generated err 0.05 pairs per max_len below 2048
 # (a)'s LEAP cases: the fused CIGAR (lv_bag, both penalty sets), the gated
 # filter and the penalty pass (simd_ed_affine)
@@ -376,9 +387,11 @@ MSA_LEN = 128
 MSA_SCORE_SUM = -4431405.58830452
 MSA_OPS_DIGEST = (
     "8772fac0e055dff1f14c0d6395b43f41b2d356469b81a6bae1e479aae542fd87")
-# phase 12: the check's issue_chain iterations and stream size (the
-# measurement takes tools/roofline.micro's) and the probe's loop trips
+# phase 12: the check's issue_chain and op_chain iterations and stream
+# size (the measurement takes tools/roofline.micro's) and the probe's loop
+# trips
 ISSUE_CHECK_ITERS = 16
+CHAIN_CHECK_ITERS = 3
 STREAM_CHECK_MIB = 256
 PROBE_TRIPS = 7
 
@@ -412,9 +425,12 @@ def _instance_name(name: str) -> str | None:
     m = re.search(r"band_wide_kernelILi(\d+)ELi(\d+)E", name)
     if m:
         return f"nw_band wide BW{m[1]}/W{m[2]}"
-    m = re.search(r"nw_long_kernelILi(\d+)ELb(\d)E", name)
+    m = re.search(r"nw_long_full_kernelILi(\d+)E", name)
     if m:
-        return f"{'nw_trace' if m[2] == '1' else 'nw'} long W{m[1]}"
+        return f"nw long W{m[1]}"
+    m = re.search(r"nw_long_kernelILi(\d+)ELb1E", name)
+    if m:
+        return f"nw_trace long W{m[1]}"
     m = re.search(r"nw_kernelILi(\d+)ELi(\d+)ELi(\d)E", name)
     if m:
         route = ("", "/global", "/shared")[int(m[3])]
@@ -2047,7 +2063,8 @@ def shapes_path(dev, name, card) -> list[dict]:
 def row_builds() -> list[tuple]:
     """(module, build_kernel arguments) of every per-shape library phase
     18 launches: greedy at k = 3 and 4, LEAP at k = 3 with both penalty
-    sets, NW and the band, at each of ROW_LENGTHS."""
+    sets, NW and the band, at each of ROW_LENGTHS; NW also at the other
+    BLOCK_EDGE_LENGTHS."""
     from asm_tpu_torch.kernels import greedy_cuda, leap_cuda, nw_band, nw_cuda
 
     jobs = []
@@ -2055,6 +2072,8 @@ def row_builds() -> list[tuple]:
         jobs += [(greedy_cuda, (k, L)) for k in (3, 4)]
         jobs += [(leap_cuda, (3, L, pens)) for pens in ((1, 1, 1), (2, 3, 1))]
         jobs += [(nw_cuda, (L,)), (nw_band, (L,))]
+    jobs += [(nw_cuda, (L,)) for L in BLOCK_EDGE_LENGTHS
+             if L not in ROW_LENGTHS]
     return jobs
 
 
@@ -2091,6 +2110,7 @@ def row_kernels_vs_plain(dev, name) -> dict:
     """Phase 18a; returns the max abs error per kernel (all 0)."""
     from asm_tpu_torch.config import AlignConfig
     from asm_tpu_torch.data.band_edges import band_edge_pairs
+    from asm_tpu_torch.data.block_edges import block_edge_pairs
     from asm_tpu_torch.data.walk_edges import walk_edge_pairs
     from asm_tpu_torch.kernels import nw
     from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
@@ -2178,6 +2198,17 @@ def row_kernels_vs_plain(dev, name) -> dict:
             edges = band_edge_pairs(L, bw)
             band(edges, f"L{L}/band_edges", widths=(bw,))
             band(edges, f"L{L}/band_edges/x1o4e2", 1, 4, 2, widths=(bw,))
+    # the long full kernel's layout edges (data/block_edges): read lengths
+    # at its strip and block edges, ref lengths where its step loop's
+    # head, steady loop and tail meet; one to three blocks of rows
+    for L in BLOCK_EDGE_LENGTHS:
+        edges = [torch.from_numpy(a).to(dev) for a in block_edge_pairs(L)]
+        for x, o, e in ((1, 1, 1), (2, 3, 1), (1, 4, 2)):
+            err["nw"] = max(err["nw"], max_diff(
+                nw_penalty_cuda(*edges, x, o, e),
+                nw.nw_penalty(*edges, x, o, e),
+                f"L{L}/block_edges/x{x}o{o}e{e}/nw: pen"))
+            n["nw"] += 1
     # BW 128 at max_len 128 and 256, on the corpora of 544 cut to them,
     # and on the band-edge pairs at 128, 256 and 512
     for L in (128, 256):
@@ -2200,7 +2231,8 @@ def row_kernels_vs_plain(dev, name) -> dict:
           f"(and 512 on the band-edge pairs); full; trace with ops and "
           f"mask; x/o/e 1/1/1 and 2/3/1 (1/4/2 on the band-edge pairs); "
           f"lengths 0, 1, 31, L/2, L - 1 and L; NW also the walk-edge "
-          f"pairs, the band also the band-edge pairs) "
+          f"pairs, NW full the block-edge pairs also at 3072, x/o/e 1/4/2 "
+          f"too, the band also the band-edge pairs) "
           f"exactly equal (max abs err "
           f"{max(err.values())}); {time.perf_counter() - t0:.1f} s")
     return err
@@ -2660,7 +2692,7 @@ def roofline_counter_checks(lib: str) -> str:
 
 def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
                    nw_rows) -> list[dict]:
-    """Phase 12; returns the three roofline kernels' JSON entries."""
+    """Phase 12; returns the four roofline kernels' JSON entries."""
     import contextlib
     import io
 
@@ -2687,7 +2719,13 @@ def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
     x = rl.seeded_words(1024, dev, seed=3)
     x[0] = PROBE_TRIPS
     err["probe"] = max_diff(rc.probe(x), rc.probe_plain(x), "probe")
+    err["op_chain"] = max(max_diff(
+        rc.op_chain(seeds, CHAIN_CHECK_ITERS, op),
+        rc.op_chain_plain(seeds, CHAIN_CHECK_ITERS, 3, op), f"op_chain {op}")
+        for op in rc.OPS)
     counter = roofline_counter_checks(rc.build_kernel()[0])
+    census = {op: rl.chain_census(rc.build_kernel()[0], op)
+              for op in rc.OPS}
 
     # ---- the measurement: the phase's main path, the CLI's own ----
     for k in rc.LAUNCHES:
@@ -2699,6 +2737,7 @@ def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
         raise AssertionError(f"the roofline never launched a kernel: "
                              f"{launches}")
     issue, stream, words = raw["issue"], raw["stream"], raw["words"]
+    chains = raw["chains"]
     iters, mib = line["issue_iters"], line["stream_mib"]
     limit = line["issue_limit_ops_per_sec"]
     if issue["rate"] > 1.05 * limit:
@@ -2714,6 +2753,11 @@ def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
         lambda: rc.issue_chain_plain(seeds, iters), 1)
     err["issue_chain"] = max(err["issue_chain"], max_diff(
         issue["out"], want, f"issue_chain at {iters} iterations"))
+    chain_plain_ms, want = cuda_ms(
+        lambda: rc.op_chain_plain(seeds, iters, 3, "viaddmin"), 1)
+    err["op_chain"] = max(err["op_chain"], max_diff(
+        chains["viaddmin"]["out"], want,
+        f"op_chain viaddmin at {iters} iterations"))
     stream_plain_ms, want = cuda_ms(lambda: rc.stream_fold_plain(words), 1)
     err["stream_fold"] = max(err["stream_fold"], max_diff(
         stream["out"], want, f"stream_fold {mib[1]} MiB"))
@@ -2722,9 +2766,15 @@ def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
     probe_plain_ms, _ = cuda_ms(lambda: rc.probe_plain(x), 3)
 
     phase(f"[12a roofline kernels] issue chain ({ISSUE_CHECK_ITERS} and "
-          f"{iters} iterations), stream fold ({STREAM_CHECK_MIB} and "
-          f"{mib[1]} MiB), probe (x[0] = {PROBE_TRIPS}) exactly equal "
-          f"to their plain versions; counter: {counter}")
+          f"{iters} iterations), op_chain (each op at {CHAIN_CHECK_ITERS}, "
+          f"viaddmin at {iters} iterations), stream fold "
+          f"({STREAM_CHECK_MIB} and {mib[1]} MiB), probe (x[0] = "
+          f"{PROBE_TRIPS}) exactly equal to their plain versions; counter: "
+          f"{counter}; op_chain loops: " + "; ".join(
+              f"{op} {c['chain_insts']} of {c['expected']} chain "
+              f"instructions, opcodes {c['opcodes']}"
+              for op, c in census.items()))
+    lanes = line["chains"]
     phase(f"[12b roofline rates] issue {issue['rate'] / 1e12:.3f} T int ops/s"
           f" (walls {[round(w * 1e3, 4) for w in issue['walls']]} ms at "
           f"{iters}/{2 * iters} iterations, "
@@ -2738,6 +2788,13 @@ def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
           f"{stream['rate'] / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; dispatch "
           f"floor {line['dispatch_floor_us']:.2f} us; launches {launches}; "
           f"on {card}")
+    per_sass = {op: c["lanes_per_cycle_per_sm"] * census[op]["chain_insts"]
+                / census[op]["expected"] for op, c in lanes.items()}
+    phase("[12b op_chain rates] lanes a cycle per SM at the sampled "
+          f"{line['chain_sm_clock_mhz']:.0f} MHz (128: the issue limit; "
+          "per SASS instruction of the op, census): " + ", ".join(
+              f"{op} {c['lanes_per_cycle_per_sm']:.1f} ({per_sass[op]:.1f})"
+              for op, c in lanes.items()) + f" on {card}")
     for name, rows in (("greedy", greedy_rows), ("leap", leap_rows)):
         with contextlib.redirect_stdout(io.StringIO()):
             got = rl.report(name, rows["counts"], rows["bytes"] / rows["n"],
@@ -2764,6 +2821,13 @@ def roofline_phase(dev, card, greedy_rows, leap_rows, nw_res,
              ms=issue["walls"][0] * 1e3, plain_ms=issue_plain_ms,
              **common, **bound_entry(
                  rc.issue_chain_ops(threads, iters),
+                 4 * threads * (rc.STREAMS + 1))),
+        dict(name="op_chain", replaces="tools/roofline.py:49",
+             launches=launches["op_chain"],
+             max_abs_err=float(err["op_chain"]),
+             ms=chains["viaddmin"]["walls"][0] * 1e3, plain_ms=chain_plain_ms,
+             **common, **bound_entry(
+                 rc.op_chain_ops(threads, iters, "viaddmin"),
                  4 * threads * (rc.STREAMS + 1))),
         dict(name="stream_fold", replaces="tools/roofline.py:119",
              launches=launches["stream_fold"],

@@ -813,11 +813,27 @@ def test_roofline_kernels_match_plain(dev):
     for trips in (7, 0, -5):
         x[0] = trips
         assert torch.equal(rc.probe(x), rc.probe_plain(x)), trips
+    for op in rc.OPS:
+        assert torch.equal(rc.op_chain(seeds, 3, op),
+                           rc.op_chain_plain(seeds, 3, 3, op)), op
     assert rc.LAUNCHES == dict(issue_chain=before["issue_chain"] + 1,
                                stream_fold=before["stream_fold"] + 3,
-                               probe=before["probe"] + 3)
+                               probe=before["probe"] + 3,
+                               op_chain=before["op_chain"] + len(rc.OPS))
     with pytest.raises(ValueError):
         rc.stream_fold(x[1:7])  # not a multiple of 4 words
+
+
+def test_op_chain_sass_holds_its_opcodes(dev):
+    """Each op_chain loop holds its STREAMS x UNROLL chain steps as the
+    opcodes it is meant to measure (roofline.chain_census)."""
+    from asm_tpu_torch.kernels import roofline_cuda as rc
+    from asm_tpu_torch.tools import roofline as rl
+
+    lib = rc.build_kernel()[0]
+    for op in rc.OPS:
+        got = rl.chain_census(lib, op)
+        assert got["chain_insts"] == got["expected"], (op, got["opcodes"])
 
 
 def test_counter_on_probe_sass(dev):
@@ -1045,10 +1061,33 @@ def test_long_rows_match_plain(dev, row_libs, L):
                 assert torch.equal(got, want), (x, o, e, bw, pre)
     assert nw_cuda.LIB_LAUNCHES[nw_cuda.plan(L).stem, "nw_trace"] >= 2
     assert nw_cuda.function_name(True, L).startswith("nw_long_kernel")
+    assert nw_cuda.function_name(False, L).startswith("nw_long_full_kernel")
     for trace in (False, True):
         assert nw_cuda.occupancy(trace, L) >= 1
     assert greedy_cuda.occupancy(3, L) >= 1
     assert leap_cuda.occupancy(3, L, True) >= 1
+
+
+@pytest.mark.parametrize("L", [544, 800, 1024, 2048, 3072])
+def test_nw_block_edges_match_plain(dev, L):
+    """The long full kernel (nw_long_full_kernel) at the edges of its
+    layout (data/block_edges: the read length at strip and block edges,
+    the ref length where the step loop's head, steady loop and tail meet,
+    empty and one-base sides, equal sequences, sequences that differ
+    everywhere) equals the plain version, x/o/e (1,1,1), (2,3,1) and
+    (1,4,2), one launch each on the shape's library; one to three blocks
+    of rows."""
+    from asm_tpu_torch.data.block_edges import block_edge_pairs
+
+    stem = nw_cuda.plan(L).stem
+    t = [torch.from_numpy(a).to(dev) for a in block_edge_pairs(L)]
+    for x, o, e in [(1, 1, 1), (2, 3, 1), (1, 4, 2)]:
+        want = nw.nw_penalty(*t, x, o, e)
+        before = nw_cuda.LIB_LAUNCHES[stem, "nw"]
+        got = nw_cuda.nw_penalty_cuda(*t, x, o, e)
+        torch.cuda.synchronize()
+        assert nw_cuda.LIB_LAUNCHES[stem, "nw"] == before + 1
+        assert torch.equal(got, want), (L, x, o, e)
 
 
 # the long-row plans' top k: greedy's 7-bit record field, LEAP's lane

@@ -258,6 +258,38 @@ def test_nw_walk_tile_edges(L):
     assert {v % 64 for v in m[6:]} >= {63, 0, 1}
 
 
+@pytest.mark.parametrize("L", [544, 2048, 3072])
+def test_nw_block_edges(L):
+    """The block-edge pairs (asm_tpu_torch.data.block_edges: the read
+    length at the long full kernel's strip edges and block edges, e.g.
+    1023, 1024 and 1025 at 2048; the ref length where its step loop's
+    head, steady loop and tail meet, 1 and 30-33, and at L; empty and
+    one-base sides, equal sequences, sequences that differ everywhere):
+    the CPU path of nw_penalty_cuda equals the XLA nw_penalty, x/o/e 1/1/1
+    and 2/3/1, at one block (544), two (2048) and three (3072).
+    chip_smoke 18a and tests/test_torch_cuda.py hold the kernel on the
+    same pairs."""
+    from asm_tpu_torch.data.block_edges import block_edge_pairs
+
+    c = block_edge_pairs(L)
+    a = list(map(jnp.asarray, c))
+    t = list(map(torch.from_numpy, c))
+    for x, o, e in ((1, 1, 1), (2, 3, 1)):
+        np.testing.assert_array_equal(nw_penalty_cuda(*t, x, o, e).numpy(),
+                                      np.asarray(jax_nw_penalty(*a, x, o,
+                                                                e)))
+    # the pairs reach the layout's edges
+    R = shapes.nw_long_rows(L)
+    RB = shapes.NW_LONG_G * R
+    m, n = set(c[1].tolist()), set(c[3].tolist())
+    assert {R - 1, R, R + 1, 0, 1, L} <= m and {0, 1, 30, 31, 32, 33, L} <= n
+    for b in range(1, shapes.nw_blocks(L)):
+        assert {b * RB - 1, b * RB, b * RB + 1} <= m
+    assert np.array_equal(c[0][-2], c[2][-2]) and c[1][-2] == L
+    k = c[1][-1]
+    assert (c[0][-1][:k] != c[2][-1][:k]).all() and c[3][-1] == k
+
+
 def test_trace_pieces_fill_the_card():
     """shapes.trace_piece: a launch of the trace kernel's global route
     holds the pairs whose pointer scratch the cap holds, which at L =
@@ -461,7 +493,8 @@ def test_long_row_plans(L):
         assert got["scratch_per_pair"] == (L * nb * 32 * R // 2 if trace
                                            else 0)
         assert nw_cuda.function_name(trace, L) == (
-            f"nw_long_kernelILi{W}ELb{int(trace)}E")
+            f"nw_long_kernelILi{W}ELb1E" if trace
+            else f"nw_long_full_kernelILi{W}E")
     for bw in shapes.BAND_WIDTHS:
         assert shapes.band_plan(L, bw).stem == f"nw_band_w{W}"
         got = shapes.band_wide_launch(bw, L)
@@ -578,27 +611,30 @@ def test_sass_pin_keys_and_compares(monkeypatch):
         sass_pin.stem(*s) for s in sass_pin.SHORT_SHAPES)
     assert pin["nvcc"].startswith("Build cuda_")
     # the tuned tables: greedy 3 k x 3 W x 2 forms, LEAP 144, NW 3 W x 2,
-    # the band's short path 3 W x BW 4-64 (its wide path not held); at W
-    # 32 and 64 the long NW full kernel alone (the trace not held)
+    # the band's short path 3 W x BW 4-64 and its wide path at BW 128; at
+    # W 32 and 64 the long NW trace kernel alone (the full kernel, which
+    # the pin's sources predate, not held)
     assert len(pin["libraries"]["greedy"]) == 18
     assert len(pin["libraries"]["leap"]) == 144
     assert len(pin["libraries"]["nw"]) == 6
     assert sorted(k[:k.index("EE") + 2] for k in pin["libraries"][
-        "nw_band"]) == sorted(f"band_kernelILi{bw}ELi{W}EE"
-                              for W in (4, 8, 16) for bw in (4, 8, 16, 32, 64))
+        "nw_band"]) == sorted([f"band_kernelILi{bw}ELi{W}EE"
+                               for W in (4, 8, 16) for bw in (4, 8, 16, 32, 64)]
+                              + [f"band_wide_kernelILi128ELi{W}EE"
+                                 for W in (4, 8, 16)])
     for W in (32, 64):
-        assert list(pin["libraries"][f"nw_w{W}"]) == [
-            next(k for k in pin["libraries"][f"nw_w{W}"])]
-        assert next(iter(pin["libraries"][f"nw_w{W}"])).startswith(
-            f"nw_long_kernelILi{W}ELb0E")
-    nw_listing = (_listing("_GLOBAL__N__1a2b3c4d_5_nw_cu_5e6f7a8b", "NOP")
-                  .replace("greedy_kernelILi3ELi4ELb1EsE",
-                           "nw_long_kernelILi32ELb0EE")
-                  .replace("leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1EE",
-                           "nw_long_kernelILi32ELb1EE"))
-    monkeypatch.setattr(roofline, "sass_listing", lambda path: nw_listing)
-    assert [k[:25] for k in sass_pin.digests("nw")] == [
-        "nw_long_kernelILi32ELb0EE"]
+        assert [k[:k.index("EE") + 2] for k in pin["libraries"][
+            f"nw_w{W}"]] == [f"nw_long_kernelILi{W}ELb1EE"]
+    # the full kernel under its name before the redesign and after it
+    for full in ("14nw_long_kernelILi32ELb0EE", "19nw_long_full_kernelILi32EE"):
+        nw_listing = (_listing("_GLOBAL__N__1a2b3c4d_5_nw_cu_5e6f7a8b", "NOP")
+                      .replace("13greedy_kernelILi3ELi4ELb1EsE", full)
+                      .replace("11leap_kernelILi3ELi4ELi1ELi1ELi1ELi0ELb0ELb1EE",
+                               "14nw_long_kernelILi32ELb1EE"))
+        monkeypatch.setattr(roofline, "sass_listing",
+                            lambda path, text=nw_listing: text)
+        assert [k[:25] for k in sass_pin.digests("nw")] == [
+            "nw_long_kernelILi32ELb1EE"]
     band_listing = (_listing("_GLOBAL__N__1a2b3c4d_10_nw_band_cu_5e6f7a8b",
                              "NOP")
                     .replace("13greedy_kernelILi3ELi4ELb1EsE",
@@ -607,7 +643,7 @@ def test_sass_pin_keys_and_compares(monkeypatch):
                              "16band_wide_kernelILi128ELi4EE"))
     monkeypatch.setattr(roofline, "sass_listing", lambda path: band_listing)
     assert [k[:21] for k in sass_pin.digests("nw_band")] == [
-        "band_kernelILi4ELi4EE"]
+        "band_kernelILi4ELi4EE", "band_wide_kernelILi12"]
     res = sass_pin.check(got=pin["libraries"], version=pin["nvcc"])
     assert res["compared"] and res["moved"] == res["missing"] == []
     bad = dict(pin["libraries"], greedy=dict(pin["libraries"]["greedy"]))

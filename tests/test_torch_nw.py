@@ -180,11 +180,13 @@ def test_nw_cu_instance_table(L, trace):
         assert nw_cuda.function_name(trace, L) == (
             f"nw_kernelILi{L // 32}ELi{G}ELi{route}E")
         # past max_len 512 the long path: G32 and the global route (the
-        # trace), a kernel of its own; past its shared memory a refusal
+        # trace), a kernel of its own each; past its shared memory a
+        # refusal
         assert shapes.nw_instance(trace, 544) == (
             32, nw_cuda.ROUTE_GLOBAL if trace else nw_cuda.ROUTE_NONE)
         assert nw_cuda.function_name(trace, 544) == (
-            f"nw_long_kernelILi17ELb{int(trace)}E")
+            "nw_long_kernelILi17ELb1E" if trace
+            else "nw_long_full_kernelILi17E")
         with pytest.raises(NotImplementedError, match="shared memory"):
             nw_cuda.plan(32 * 1024)
     finally:

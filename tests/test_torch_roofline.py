@@ -119,6 +119,69 @@ def test_stream_fold_plain_matches_numpy_statement(rows):
         np.bitwise_xor.reduce(odd.numpy()))
 
 
+@pytest.mark.parametrize("op", rc.OPS)
+def test_op_chain_plain_matches_numpy_statement(op):
+    """csrc/roofline.cu op_chain: at each step every chain s at once, from
+    its value v and its neighbours' w and z (chains (s + 1) and (s + 2) %
+    STREAMS), becomes min(v + a, w) (viaddmin; seeds shifted right by 8),
+    min(v, w) at even and max(v, w) at odd steps (minmax), a if v < w else
+    w (setp_sel), v * w + a (imad), v + w (iadd), for mix viaddmin on the
+    first half of the chains and imad on the second, min(v, w, z) at even
+    and max(v, w, z) at odd steps (minmax3), w + a at even and w ^ a at
+    odd steps (add_xor): 32-bit signed words, wrapping; out is the xor of
+    the chains."""
+    rng = np.random.default_rng(8)
+    seeds = rng.integers(-(1 << 31), 1 << 31, size=(64, rc.STREAMS),
+                         dtype=np.int64)
+    seeds[0] = [(1 << 31) - 1, -(1 << 31), -1, 0, 1, 2, 3, 4]
+    iters, a = 3, 5
+
+    def wrap(x):
+        return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+    v = seeds >> 8 if op in ("viaddmin", "mix") else seeds.copy()
+    for _ in range(iters):
+        for u in range(rc.UNROLL):
+            w, z = np.roll(v, -1, axis=1), np.roll(v, -2, axis=1)
+            new = np.empty_like(v)
+            for s in range(rc.STREAMS):
+                kind = op if op != "mix" else (
+                    "viaddmin" if s < rc.STREAMS // 2 else "imad")
+                vs, ws, zs = v[:, s], w[:, s], z[:, s]
+                f3 = np.maximum if u % 2 else np.minimum
+                new[:, s] = wrap({
+                    "viaddmin": lambda: np.minimum(vs + a, ws),
+                    "minmax": lambda: (np.maximum if u % 2 else np.minimum)(
+                        vs, ws),
+                    "setp_sel": lambda: np.where(vs < ws, a, ws),
+                    "imad": lambda: vs * ws + a,
+                    "iadd": lambda: vs + ws,
+                    "minmax3": lambda: f3(vs, f3(ws, zs)),
+                    "add_xor": lambda: ws ^ a if u % 2 else ws + a}[kind]())
+            v = new
+    want = np.bitwise_xor.reduce(v & 0xFFFFFFFF, axis=1)
+    got = rc.op_chain(torch.from_numpy(seeds.astype(np.int32)), iters, op,
+                      a)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.astype(np.uint32))
+    assert rc.op_chain_ops(256, iters, op) == (
+        256 * iters * rc.STREAMS * rc.UNROLL * rc.OP_INSTS[op])
+
+
+def test_chain_census_leaves_out_the_trip_control(monkeypatch):
+    """roofline.chain_census counts the op's opcodes in op_chain's loop,
+    not the compare that closes the loop (a compare and select chain's
+    ISETP beside the trip's)."""
+    body = ["ISETP.GE.AND P1, PT, R2, R3, PT", "SEL R2, R4, R3, P1"] * 3
+    listing = _split_listing([body + ["UIADD3 UR4, UR4, 0x1, URZ",
+                                      "ISETP.LE.AND P0, PT, R9, UR4, PT"]])
+    monkeypatch.setattr(rl, "sass_listing", lambda lib, fn: listing)
+    got = rl.chain_census("lib.so", "setp_sel")
+    assert got["chain_insts"] == 6
+    assert got["expected"] == rc.STREAMS * rc.UNROLL * 2
+    assert got["opcodes"]["ISETP.GE.AND"] == 3
+
+
 def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError):
         rc.probe(torch.zeros(0, dtype=torch.int32))
@@ -128,6 +191,12 @@ def test_wrappers_refuse_bad_inputs():
         rc.issue_chain(torch.zeros((4, rc.STREAMS + 1), dtype=torch.int32), 1)
     with pytest.raises(ValueError):
         rc.issue_chain(torch.zeros((4, rc.STREAMS), dtype=torch.int32), -1)
+    with pytest.raises(ValueError, match="op must be one of"):
+        rc.op_chain(torch.zeros((4, rc.STREAMS), dtype=torch.int32), 1,
+                    "vimnmx3")
+    with pytest.raises(ValueError):
+        rc.op_chain(torch.zeros((4, rc.STREAMS), dtype=torch.int32), -1,
+                    "imad")
 
 
 # One function in cuobjdump -sass's format: straight-line code, a loop
@@ -588,6 +657,99 @@ def test_nw_loop_counts_on_synthetic_listing(layout):
                           cells, lanes, rows, walk)
 
 
+def _split_listing(bodies) -> str:
+    """One function in cuobjdump -sass's format whose loops, one after
+    another, hold `bodies` (each closed by its backward branch)."""
+    lines = ["\tcode for sm_90a", "\t\tFunction : _ZN12_GLOBAL__N_119"
+             "nw_long_full_kernelILi32EEvPKaS2_PKiS4_NS_6ParamsEPi"]
+    insts = [["S2R R0, SR_TID.X"]] + [
+        [f".L_x_{k}:"] + body + [f"@P0 BRA `(.L_x_{k})"]
+        for k, body in enumerate(bodies)] + [["EXIT"]]
+    addr = 0
+    for text in (t for block in insts for t in block):
+        if text.endswith(":"):
+            lines.append(text)
+            continue
+        lines.append(f"        /*{addr:04x}*/                   {text} ;")
+        addr += 16
+    return "\n".join(lines) + "\n"
+
+
+SHFL = ["SHFL.UP PT, R3, R3, 0x1, RZ", "SHFL.UP PT, R4, R4, 0x1, RZ"]
+CELL = ["VIADDMNMX R5, R5, R6, R7, !PT", "VIADDMNMX R8, R8, R6, R9, !PT",
+        "ISETP.NE.AND P1, PT, R2, RZ, PT", "SEL R10, R11, R12, P1",
+        "VIMNMX R13, R5, R8, PT", "VIADDMNMX R14, R15, R10, R13, PT",
+        "IADD3 R9, R14, R16, RZ"]
+
+
+def test_nw_loop_counts_weight_the_split_step_loop():
+    """The long full kernel's step loop in three (head, steady loop,
+    tail: `nw_cuda.loop_steps`, in address order): each loop with
+    shuffles is weighted by its own steps, its instructions per step read
+    from its shuffles (an unrolled loop counts right); the count refuses
+    another number of such loops or steps that are not the warps'."""
+    # with the branch: 11, 20 (two steps) and 12 instructions a trip
+    head = SHFL + ["ISETP.GE.AND P2, PT, R1, 0x1, PT"] + CELL
+    steady = SHFL + CELL + SHFL + CELL + ["IADD3 R1, R1, 0x2, RZ"]
+    tail = SHFL + ["ISETP.GE.AND P2, PT, R1, R0, PT", "NOP"] + CELL
+    listing = _split_listing([head, steady, tail])
+    steps = np.array([100, 62])  # two warps (pairs)
+    parts = [31, 100, 31]
+    cells = 2000.0
+    got = rl.nw_loop_counts(listing, steps, cells, 32, 32, loop_steps=parts)
+    issued = 31 * 11 + 100 * 10 + 31 * 12
+    assert got["insts_per_step"] == pytest.approx(issued / 162)
+    assert got["insts_per_slot"] == pytest.approx(issued / 162 / 32)
+    assert got["insts_per_existing_cell"] == pytest.approx(
+        32 * issued / cells)
+    assert got["existing_share"] == pytest.approx(cells / (32 * 32 * 162))
+    # the most-run part's loop: the steady one, two steps a trip
+    assert (got["loop_insts"], got["steps_per_trip"]) == (20, 2.0)
+    assert [p["steps"] for p in got["loop_parts"]] == parts
+    assert [p["insts_per_step"] for p in got["loop_parts"]] == [11, 10, 12]
+    assert got["loop_parts"][1]["body"] == dict(arith=11, selcmp=4, other=4,
+                                                skip=1)
+    # without the parts: the longest loop alone (the trace kernel's rule)
+    assert rl.nw_loop_counts(listing, steps, cells, 32, 32)[
+        "insts_per_step"] == 10
+    with pytest.raises(ValueError, match="expected 2 step loops"):
+        rl.nw_loop_counts(listing, steps, cells, 32, 32,
+                          loop_steps=[62, 100])
+    with pytest.raises(ValueError, match="do not sum"):
+        rl.nw_loop_counts(listing, steps, cells, 32, 32,
+                          loop_steps=[31, 90, 31])
+
+
+@pytest.mark.parametrize("L", [544, 2048, 3072])
+def test_nw_loop_steps_against_a_direct_count(L):
+    """The long full kernel's schedule, step by step: in each block of a
+    pair (the blocks above its last run n + 31 steps, the last n + (m-1 -
+    b RB) // R) steps 1..min(31, steps) are the head, steps 32..n the
+    steady loop, the rest the tail; their sum is warp_steps'."""
+    from asm_tpu_torch.kernels import nw_cuda
+    from asm_tpu_torch.kernels.shapes import nw_long_rows
+
+    rng = np.random.default_rng(L)
+    m = np.concatenate([rng.integers(0, L + 9, 40), [0, 5, L, 1, 1024, 1025,
+                                                      L, 40, 33]])
+    n = np.concatenate([rng.integers(0, L + 9, 40), [9, 0, L, 1, 30, 31,
+                                                      32, 33, 1]])
+    R = nw_long_rows(L)
+    RB = 32 * R
+    want = np.zeros(3, np.int64)
+    for mi, ni in zip(np.minimum(m, L), np.minimum(n, L)):
+        if not (mi and ni):
+            continue
+        nb = (mi - 1) // RB + 1
+        for b in range(nb):
+            steps = ni + 31 if b < nb - 1 else ni + (mi - 1 - b * RB) // R
+            for s in range(1, steps + 1):
+                want[0 if s <= min(31, steps) else 1 if s <= ni else 2] += 1
+    got = nw_cuda.loop_steps(m, n, L)
+    assert got.tolist() == want.tolist()
+    assert got.sum() == nw_cuda.warp_steps(m, n, L, 32).sum()
+
+
 def test_nw_warp_steps_against_a_direct_count():
     """A warp of 32/G pairs runs until its last pair's thread holding row
     m has swept column n: max over its pairs of n + (m-1) // (L/G), 0 for
@@ -682,6 +844,13 @@ def test_chip_smoke_names_every_instantiation():
     assert chip_smoke._instance_name(
         "_ZN12_GLOBAL__N_111band_kernelILi8ELi16EEEvPKjS2_PKiS4_NS_6ParamsEPi"
     ) == "nw_band BW8/W16"
+    # the long path: the full kernel and the trace kernel
+    assert chip_smoke._instance_name(
+        "_ZN12_GLOBAL__N_119nw_long_full_kernelILi64EEEvPKaS2_") == (
+        "nw long W64")
+    assert chip_smoke._instance_name(
+        "_ZN12_GLOBAL__N_114nw_long_kernelILi64ELb1EEEvPKaS2_") == (
+        "nw_trace long W64")
     assert chip_smoke._instance_name("_Z11unknown_fnv") is None
 
 
@@ -707,19 +876,21 @@ def test_roofline_cli_parses_and_needs_a_card(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("kernel,trace", [
-    ("greedy", None), ("nw", "false"), ("nw", "true")])
+    ("greedy", None), ("nw", "false"), ("nw", "true"), ("nw", "smem")])
 def test_longseq_sweep_rewrites_one_source_line(kernel, trace):
     """Each layout the sweep tool varies is set by exactly one line of the
-    checked-in source, the line its variants replace; a pattern that
-    matches no line is refused before anything is built."""
+    checked-in source, the line its variants replace (nw's "smem": the
+    long launch's shared bytes, which the nwlong sweep sets to 2048's for
+    the full kernel at 1024); a pattern that matches no line is refused
+    before anything is built."""
     import re
 
     from asm_tpu_torch.kernels import greedy_cuda, nw_cuda
     from asm_tpu_torch.tools import longseq_sweep as ls
 
     module = greedy_cuda if kernel == "greedy" else nw_cuda
-    pattern = ls.GREEDY_LINE if trace is None else ls.NW_LINE.format(
-        trace=trace)
+    pattern = (ls.GREEDY_LINE if trace is None else ls.OCC_LINE
+               if trace == "smem" else ls.NW_LINE.format(trace=trace))
     with open(module.SOURCE) as f:
         assert len(re.findall(pattern, f.read())) == 1
     with pytest.raises(ValueError, match="matches 0 lines"):
