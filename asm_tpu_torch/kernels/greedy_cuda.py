@@ -45,6 +45,7 @@ from asm_tpu_torch.kernels.greedy import (
 from asm_tpu_torch.kernels.shapes import Plan, greedy_plan
 from asm_tpu_torch.native import load_native
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
+from asm_tpu_torch.utils.profiling import span
 
 # kernel launches since import (or since a caller reset it), in all and
 # per library stem
@@ -308,65 +309,73 @@ def greedy_align_cuda(read, read_len, ref, ref_len, cfg: AlignConfig, *,
     on a CUDA device the kernel runs on the current stream, unsynchronised.
     """
     global LAUNCHES
-    if cfg.flip_threshold != 1:
-        raise NotImplementedError(
-            "the greedy kernel implements flip_threshold=1 (the reference's "
-            "value); use kernels.greedy.greedy_align otherwise")
-    if cfg.exact_floats:
-        raise NotImplementedError(
-            "the greedy kernel computes the heuristic in float32; use "
-            "kernels.greedy.greedy_align for exact_floats")
-    if pre_staged not in (False, "planes_tiled"):
-        raise NotImplementedError(f"pre_staged={pre_staged!r}")
-    L = cfg.max_len
-    if L % 32:
-        raise ValueError(f"max_len must be a multiple of 32, got {L}")
-    W = L // 32
-    T = cfg.steps_bound
-    device = read.device
-    B = read_len.shape[0]
-    if pre_staged == "planes_tiled":
-        code_dtypes = (torch.int32, torch.uint32)
-        code_shape = (-(-B // tile), 2 * W, tile)
-    else:
-        code_dtypes = (torch.int8,)
-        code_shape = (B, L)
-    check_tensor(read, "read", code_dtypes, code_shape, device)
-    check_tensor(ref, "ref", code_dtypes, code_shape, device)
-    check_tensor(read_len, "read_len", (torch.int32,), (B,), device)
-    check_tensor(ref_len, "ref_len", (torch.int32,), (B,), device)
+    with span("asm.greedy"):
+        with span("asm.greedy.prep"):
+            if cfg.flip_threshold != 1:
+                raise NotImplementedError(
+                    "the greedy kernel implements flip_threshold=1 (the "
+                    "reference's value); use kernels.greedy.greedy_align "
+                    "otherwise")
+            if cfg.exact_floats:
+                raise NotImplementedError(
+                    "the greedy kernel computes the heuristic in float32; "
+                    "use kernels.greedy.greedy_align for exact_floats")
+            if pre_staged not in (False, "planes_tiled"):
+                raise NotImplementedError(f"pre_staged={pre_staged!r}")
+            L = cfg.max_len
+            if L % 32:
+                raise ValueError(f"max_len must be a multiple of 32, got {L}")
+            W = L // 32
+            T = cfg.steps_bound
+            device = read.device
+            B = read_len.shape[0]
+            if pre_staged == "planes_tiled":
+                code_dtypes = (torch.int32, torch.uint32)
+                code_shape = (-(-B // tile), 2 * W, tile)
+            else:
+                code_dtypes = (torch.int8,)
+                code_shape = (B, L)
+            check_tensor(read, "read", code_dtypes, code_shape, device)
+            check_tensor(ref, "ref", code_dtypes, code_shape, device)
+            check_tensor(read_len, "read_len", (torch.int32,), (B,), device)
+            check_tensor(ref_len, "ref_len", (torch.int32,), (B,), device)
+            if device.type == "cuda":
+                p = plan(cfg.k, L)  # raises for a shape the card cannot hold
+                if read.data_ptr() % 4 or ref.data_ptr() % 4:
+                    raise ValueError("code rows must be 4-byte aligned")
+                cost = torch.empty(B, dtype=torch.int32, device=device)
+                steps = torch.empty(B, dtype=torch.int32, device=device)
+                rec = torch.empty((T + 1, B), dtype=rec_dtype(cfg),
+                                  device=device)
+                sig = [np.float32(s) for s in cfg.significance]
+                stream = torch.cuda.current_stream(device).cuda_stream
 
-    if device.type == "cpu":
-        if pre_staged == "planes_tiled":
-            read = codes_from_planes_tiled(read, read_len, PAD_READ)
-            ref = codes_from_planes_tiled(ref, ref_len, PAD_REF)
-        g = greedy_align(read, read_len, ref, ref_len, cfg, records=True)
-        cost, steps, rec = g["cost"], g["steps"], g["step_rec"]
-    elif device.type == "cuda":
-        p = plan(cfg.k, L)  # raises for a shape the card cannot hold
-        if read.data_ptr() % 4 or ref.data_ptr() % 4:
-            raise ValueError("code rows must be 4-byte aligned")
-        cost = torch.empty(B, dtype=torch.int32, device=device)
-        steps = torch.empty(B, dtype=torch.int32, device=device)
-        rec = torch.empty((T + 1, B), dtype=rec_dtype(cfg), device=device)
-        sig = [np.float32(s) for s in cfg.significance]
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _load(cfg.k, L).asm_greedy_launch(
-            read.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
-            ref_len.data_ptr(), B, tile, int(pre_staged == "planes_tiled"),
-            cfg.k, W, T, cfg.x, cfg.o, cfg.e,
-            int(cfg.alignment_type == AlignmentType.GLOBAL), *sig,
-            cost.data_ptr(), steps.data_ptr(), rec.data_ptr(), device.index,
-            stream)
-        if err != 0:
-            raise RuntimeError(f"greedy kernel launch failed: cudaError {err}")
-        if B > 0:
-            LAUNCHES += 1
-            LIB_LAUNCHES[p.stem] += 1
-    else:
-        raise NotImplementedError(f"no greedy route for device {device}")
+        if device.type == "cpu":
+            if pre_staged == "planes_tiled":
+                read = codes_from_planes_tiled(read, read_len, PAD_READ)
+                ref = codes_from_planes_tiled(ref, ref_len, PAD_REF)
+            g = greedy_align(read, read_len, ref, ref_len, cfg, records=True)
+            cost, steps, rec = g["cost"], g["steps"], g["step_rec"]
+        elif device.type == "cuda":
+            with span("asm.greedy.launch"):
+                err = _load(cfg.k, L).asm_greedy_launch(
+                    read.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
+                    ref_len.data_ptr(), B, tile,
+                    int(pre_staged == "planes_tiled"), cfg.k, W, T, cfg.x,
+                    cfg.o, cfg.e,
+                    int(cfg.alignment_type == AlignmentType.GLOBAL), *sig,
+                    cost.data_ptr(), steps.data_ptr(), rec.data_ptr(),
+                    device.index, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"greedy kernel launch failed: cudaError {err}")
+            if B > 0:
+                LAUNCHES += 1
+                LIB_LAUNCHES[p.stem] += 1
+        else:
+            raise NotImplementedError(f"no greedy route for device {device}")
 
-    out = dict(cost=cost, steps=steps, step_rec=rec)
-    if want_cigar:
-        out.update(expand_records(rec, read_len, ref_len, cfg))
-    return out
+        out = dict(cost=cost, steps=steps, step_rec=rec)
+        if want_cigar:
+            out.update(expand_records(rec, read_len, ref_len, cfg))
+        return out

@@ -42,6 +42,7 @@ from asm_tpu_torch.kernels.leap import check_options, leap_align
 from asm_tpu_torch.kernels.leap_backtrack import edits_to_cigar, leap_edit_records
 from asm_tpu_torch.kernels.shapes import LEAP_PENALTIES, Plan, leap_plan
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
+from asm_tpu_torch.utils.profiling import span
 
 # kernel launches since import (or since a caller reset it), in all and
 # per library stem
@@ -140,22 +141,25 @@ def _launch(read, read_len, ref, ref_len, cfg: AlignConfig, planes: bool,
                            dtype=torch.int32, device=read.device)
     stream = torch.cuda.current_stream(read.device).cuda_stream
     n_launches = 0
-    for lo in range(0, B, piece):
-        # the tuned library's penalty index; a shape's own library holds
-        # one penalty set and ignores it
-        err = _load(cfg.k, cfg.max_len, pens).asm_leap_launch(
-            read.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
-            ref_len.data_ptr(), min(piece, B - lo), lo, B, tile, int(planes),
-            cfg.k, cfg.max_len // 32,
-            LEAP_PENALTIES.index(pens) if p.tuned else 0,
-            _SEMANTICS[semantics], int(use_shd_gate), int(cfg.leap_mode),
-            cfg.leap_af_threshold, cfg.leap_energy_bound, int(rec is not None),
-            passed.data_ptr(), pen.data_ptr(), shift.data_ptr(),
-            0 if rec is None else rec.data_ptr(),
-            0 if hist is None else hist.data_ptr(), read.device.index, stream)
-        if err != 0:
-            raise RuntimeError(f"LEAP kernel launch failed: cudaError {err}")
-        n_launches += 1
+    with span("asm.leap.launch"):
+        for lo in range(0, B, piece):
+            # the tuned library's penalty index; a shape's own library
+            # holds one penalty set and ignores it
+            err = _load(cfg.k, cfg.max_len, pens).asm_leap_launch(
+                read.data_ptr(), ref.data_ptr(), read_len.data_ptr(),
+                ref_len.data_ptr(), min(piece, B - lo), lo, B, tile,
+                int(planes), cfg.k, cfg.max_len // 32,
+                LEAP_PENALTIES.index(pens) if p.tuned else 0,
+                _SEMANTICS[semantics], int(use_shd_gate), int(cfg.leap_mode),
+                cfg.leap_af_threshold, cfg.leap_energy_bound,
+                int(rec is not None), passed.data_ptr(), pen.data_ptr(),
+                shift.data_ptr(), 0 if rec is None else rec.data_ptr(),
+                0 if hist is None else hist.data_ptr(), read.device.index,
+                stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"LEAP kernel launch failed: cudaError {err}")
+            n_launches += 1
     LIB_LAUNCHES[p.stem] += n_launches
     return n_launches
 
@@ -179,70 +183,75 @@ def leap_align_cuda(read, read_len, ref, ref_len, cfg: AlignConfig, *,
     written in place of a new one.
     """
     global LAUNCHES
-    check_options(cfg, semantics, use_shd_gate, lv_bag_only=want_cigar)
-    if pre_staged not in (False, "planes_tiled"):
-        raise NotImplementedError(f"pre_staged={pre_staged!r}")
-    L = cfg.max_len
-    if L % 32:
-        raise ValueError(f"max_len must be a multiple of 32, got {L}")
-    W = L // 32
-    E = cfg.leap_energy_bound
-    device = read.device
-    B = read_len.shape[0]
-    planes = pre_staged == "planes_tiled"
-    if planes:
-        if tile <= 0 or tile % 128:
-            raise ValueError(f"tile must be a positive multiple of 128, got "
-                             f"{tile}")
-        code_dtypes = (torch.int32, torch.uint32)
-        code_shape = (-(-B // tile), 2 * W, tile)
-    else:
-        code_dtypes = (torch.int8,)
-        code_shape = (B, L)
-    check_tensor(read, "read", code_dtypes, code_shape, device)
-    check_tensor(ref, "ref", code_dtypes, code_shape, device)
-    check_tensor(read_len, "read_len", (torch.int32,), (B,), device)
-    check_tensor(ref_len, "ref_len", (torch.int32,), (B,), device)
-    if rec_out is not None:
-        if not want_cigar:
-            raise ValueError("rec_out needs want_cigar=True")
-        check_tensor(rec_out, "rec_out", (torch.int32,), (E + 1, B), device)
-
-    if device.type == "cpu":
-        if planes:
-            read = codes_from_planes_tiled(read, read_len, PAD_READ)
-            ref = codes_from_planes_tiled(ref, ref_len, PAD_REF)
-        out = leap_align(read, read_len, ref, ref_len, cfg,
-                         want_history=want_cigar, semantics=semantics,
-                         use_shd_gate=use_shd_gate)
-        res = dict(passed=out["passed"], penalty=out["penalty"],
-                   lane_shift=out["lane_shift"])
-        if want_cigar:
-            rec = torch.from_numpy(leap_edit_records(out, cfg, E))
+    with span("asm.leap"):
+        with span("asm.leap.prep"):
+            check_options(cfg, semantics, use_shd_gate, lv_bag_only=want_cigar)
+            if pre_staged not in (False, "planes_tiled"):
+                raise NotImplementedError(f"pre_staged={pre_staged!r}")
+            L = cfg.max_len
+            if L % 32:
+                raise ValueError(f"max_len must be a multiple of 32, got {L}")
+            W = L // 32
+            E = cfg.leap_energy_bound
+            device = read.device
+            B = read_len.shape[0]
+            planes = pre_staged == "planes_tiled"
+            if planes:
+                if tile <= 0 or tile % 128:
+                    raise ValueError(f"tile must be a positive multiple of "
+                                     f"128, got {tile}")
+                code_dtypes = (torch.int32, torch.uint32)
+                code_shape = (-(-B // tile), 2 * W, tile)
+            else:
+                code_dtypes = (torch.int8,)
+                code_shape = (B, L)
+            check_tensor(read, "read", code_dtypes, code_shape, device)
+            check_tensor(ref, "ref", code_dtypes, code_shape, device)
+            check_tensor(read_len, "read_len", (torch.int32,), (B,), device)
+            check_tensor(ref_len, "ref_len", (torch.int32,), (B,), device)
             if rec_out is not None:
-                rec = rec_out.copy_(rec)
+                if not want_cigar:
+                    raise ValueError("rec_out needs want_cigar=True")
+                check_tensor(rec_out, "rec_out", (torch.int32,), (E + 1, B),
+                             device)
+            if device.type == "cuda":
+                # raises for a shape the card cannot hold
+                plan(cfg.k, L, (cfg.x, cfg.o, cfg.e))
+                if read.data_ptr() % 4 or ref.data_ptr() % 4:
+                    raise ValueError("code rows must be 4-byte aligned")
+                passed = torch.empty(B, dtype=torch.bool, device=device)
+                pen = torch.empty(B, dtype=torch.int32, device=device)
+                shift = torch.empty(B, dtype=torch.int32, device=device)
+                rec = None
+                if want_cigar:
+                    rec = rec_out if rec_out is not None else torch.empty(
+                        (E + 1, B), dtype=torch.int32, device=device)
+
+        if device.type == "cpu":
+            if planes:
+                read = codes_from_planes_tiled(read, read_len, PAD_READ)
+                ref = codes_from_planes_tiled(ref, ref_len, PAD_REF)
+            out = leap_align(read, read_len, ref, ref_len, cfg,
+                             want_history=want_cigar, semantics=semantics,
+                             use_shd_gate=use_shd_gate)
+            res = dict(passed=out["passed"], penalty=out["penalty"],
+                       lane_shift=out["lane_shift"])
+            if want_cigar:
+                rec = torch.from_numpy(leap_edit_records(out, cfg, E))
+                if rec_out is not None:
+                    rec = rec_out.copy_(rec)
+                res["edit_rec"] = rec
+            return res
+        if device.type != "cuda":
+            raise NotImplementedError(f"no LEAP route for device {device}")
+        if B > 0:
+            LAUNCHES += _launch(read, read_len, ref, ref_len, cfg, planes,
+                                tile, semantics, use_shd_gate,
+                                (passed, pen, shift, rec))
+        res = dict(passed=passed, penalty=pen, lane_shift=shift)
+        if want_cigar:
             res["edit_rec"] = rec
         return res
-    if device.type != "cuda":
-        raise NotImplementedError(f"no LEAP route for device {device}")
-    plan(cfg.k, L, (cfg.x, cfg.o, cfg.e))  # raises for a shape the card
-    # cannot hold
-    if read.data_ptr() % 4 or ref.data_ptr() % 4:
-        raise ValueError("code rows must be 4-byte aligned")
-    passed = torch.empty(B, dtype=torch.bool, device=device)
-    pen = torch.empty(B, dtype=torch.int32, device=device)
-    shift = torch.empty(B, dtype=torch.int32, device=device)
-    rec = None
-    if want_cigar:
-        rec = rec_out if rec_out is not None else torch.empty(
-            (E + 1, B), dtype=torch.int32, device=device)
-    if B > 0:
-        LAUNCHES += _launch(read, read_len, ref, ref_len, cfg, planes, tile,
-                            semantics, use_shd_gate, (passed, pen, shift, rec))
-    res = dict(passed=passed, penalty=pen, lane_shift=shift)
-    if want_cigar:
-        res["edit_rec"] = rec
-    return res
 
 
 _OPCHAR = np.array(["", "M", "I", "D"])

@@ -43,11 +43,16 @@ from asm_tpu_torch.kernels.greedy_cuda import check_tensor, codes_from_planes_ti
 from asm_tpu_torch.kernels.nw import INF, pen_closed_form
 from asm_tpu_torch.kernels.shapes import BAND_WIDTHS, Plan, band_plan
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
+from asm_tpu_torch.utils.profiling import span
 
 # kernel launches since import (or since a caller reset it), in all and
 # per library stem
 LAUNCHES = 0
 LIB_LAUNCHES = collections.Counter()
+# pairs through nw_penalty_partitioned since import: "in" entered,
+# ("band", bw) taken by a band stage, ("certified", bw) certified there,
+# "full" sent to the full kernel
+PAIRS = collections.Counter()
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "nw_band.cu")
 # the band widths of the partitioned dispatch (the harness's and the
@@ -248,13 +253,16 @@ def nw_penalty_banded(read, read_len, ref, ref_len, bw=32, x=1, o=1, e=1,
     if pre_staged:
         rp, fp = read, ref
     else:
-        rp = torch.cat(pack_planes_t(read)[:2]).contiguous()
-        fp = torch.cat(pack_planes_t(ref)[:2]).contiguous()
+        with span("asm.nw.band.pack"):
+            rp = torch.cat(pack_planes_t(read)[:2]).contiguous()
+            fp = torch.cat(pack_planes_t(ref)[:2]).contiguous()
     pen = torch.empty(B, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _load(L).asm_nw_band_launch(
-        rp.data_ptr(), fp.data_ptr(), read_len.data_ptr(), ref_len.data_ptr(),
-        B, bw, W, x, o, e, pen.data_ptr(), device.index, stream)
+    with span("asm.nw.band.launch"):
+        err = _load(L).asm_nw_band_launch(
+            rp.data_ptr(), fp.data_ptr(), read_len.data_ptr(),
+            ref_len.data_ptr(), B, bw, W, x, o, e, pen.data_ptr(),
+            device.index, stream)
     if err != 0:
         raise RuntimeError(f"band kernel launch failed: cudaError {err}")
     if B > 0:
@@ -280,41 +288,54 @@ def nw_penalty_partitioned(read, read_len, ref, ref_len, x=1, o=1, e=1,
 
     Inputs as for `nw_penalty_banded`, all on one device; the index
     bookkeeping runs on the host. Returns int32[B] (numpy), equal to
-    `nw.nw_penalty`."""
-    device = read.device
-    B = read_len.shape[0]
-    ax = 1 if pre_staged else 0
-    pen = np.zeros(B, np.int64)
-    todo = np.arange(B)
-    bands = None if bands is None else np.asarray(bands)
+    `nw.nw_penalty`. Counts its pairs in `PAIRS`."""
+    with span("asm.nw"):
+        device = read.device
+        B = read_len.shape[0]
+        PAIRS["in"] += B
+        ax = 1 if pre_staged else 0
+        pen = np.zeros(B, np.int64)
+        todo = np.arange(B)
+        bands = None if bands is None else np.asarray(bands)
 
-    def take(a, idx):
-        return torch.index_select(a, ax if a.dim() == 2 else 0,
-                                  torch.from_numpy(idx).to(device))
+        def take(idx):
+            return [torch.index_select(a, ax if a.dim() == 2 else 0,
+                                       torch.from_numpy(idx).to(device))
+                    for a in (read, read_len, ref, ref_len)]
 
-    for bw in sorted(bws):
-        if todo.size == 0:
-            break
-        if bands is not None:
-            here = todo[(bands[todo] != 0) & (bands[todo] <= bw)]
-        else:
-            here = todo
-        if here.size == 0:
-            continue
-        p = nw_penalty_banded(take(read, here), take(read_len, here),
-                              take(ref, here), take(ref_len, here), bw=bw,
-                              x=x, o=o, e=e, pre_staged=pre_staged)
-        p = p.cpu().numpy()
-        cert = band_certified(p, bw, o, e)
-        pen[here[cert]] = p[cert]
-        done = np.zeros(B, bool)
-        done[here[cert]] = True
-        todo = todo[~done[todo]]
-    if todo.size:
-        rc, rl = take(read, todo), take(read_len, todo)
-        fc, fl = take(ref, todo), take(ref_len, todo)
-        if pre_staged:
-            rc, fc = codes_from_planes(rc, rl), codes_from_planes(fc, fl)
-        pen[todo] = nw_cuda.nw_penalty_cuda(rc, rl, fc, fl, x=x, o=o,
-                                            e=e).cpu().numpy()
-    return pen.astype(np.int32)
+        for bw in sorted(bws):
+            if todo.size == 0:
+                break
+            if bands is not None:
+                here = todo[(bands[todo] != 0) & (bands[todo] <= bw)]
+            else:
+                here = todo
+            if here.size == 0:
+                continue
+            with span("asm.nw.take"):
+                args = take(here)
+            with span("asm.nw.band"):
+                p = nw_penalty_banded(*args, bw=bw, x=x, o=o, e=e,
+                                      pre_staged=pre_staged)
+            with span("asm.nw.band.wait"):
+                p = p.cpu().numpy()
+            with span("asm.nw.certificate"):
+                cert = band_certified(p, bw, o, e)
+                pen[here[cert]] = p[cert]
+                done = np.zeros(B, bool)
+                done[here[cert]] = True
+                todo = todo[~done[todo]]
+            PAIRS["band", bw] += here.size
+            PAIRS["certified", bw] += int(cert.sum())
+        if todo.size:
+            PAIRS["full"] += todo.size
+            with span("asm.nw.take"):
+                rc, rl, fc, fl = take(todo)
+            with span("asm.nw.full"):
+                if pre_staged:
+                    rc = codes_from_planes(rc, rl)
+                    fc = codes_from_planes(fc, fl)
+                p = nw_cuda.nw_penalty_cuda(rc, rl, fc, fl, x=x, o=o, e=e)
+                with span("asm.nw.full.wait"):
+                    pen[todo] = p.cpu().numpy()
+        return pen.astype(np.int32)

@@ -60,6 +60,7 @@ from asm_tpu_torch.kernels.shapes import (
     trace_piece,
 )
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
+from asm_tpu_torch.utils.profiling import span
 
 # kernel launches since import (or since a caller reset them), per kernel
 # and per (library stem, kernel)
@@ -239,8 +240,9 @@ def nw_penalty_cuda(read, read_len, ref, ref_len, x=1, o=1,
         return nw_penalty(read, read_len, ref, ref_len, x, o, e)
     pen = torch.empty(B, dtype=torch.int32, device=device)
     if B > 0:
-        _launch(read, read_len, ref, ref_len, x, o, e, -1, pen, None, None,
-                None)
+        with span("asm.nw.full.launch"):
+            _launch(read, read_len, ref, ref_len, x, o, e, -1, pen, None,
+                    None, None)
         LAUNCHES["nw"] += 1
     return pen
 
