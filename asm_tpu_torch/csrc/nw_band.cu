@@ -50,9 +50,9 @@
 // pairs into DPX VIADDMNMX; 4 are the band edges' INF selects and 6 the
 // destination's capture (two compares, two selects, two counters). Left
 // for later: those ten, DPX min-plus written out (__viaddmin_s32,
-// __vimin3_s32) where ptxas does not fuse, mismatches from the bit
-// planes without shared memory, and the harness's per-dispatch packing
-// of int8 codes into planes.
+// __vimin3_s32) where ptxas does not fuse, and mismatches from the bit
+// planes without shared memory. Int8 codes reach the band kernels as
+// planes through stage_kernel (the end of this file).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -609,6 +609,46 @@ cudaError_t occupancy_of(int bw, int* warps) {
     }
 }
 
+// ---- staging: int8 codes -> the band kernels' 2-bit planes ----
+// Replaces no TPU kernel: the JAX entry packs planes in XLA
+// (asm_tpu.encoding.pack_planes_t), which the port ran as a chain of
+// int64 ATen ops in every band pass. Codes [B, L] (row-major) become
+// position-major planes [2W, B] of 32-bit words, W = L/32: row w holds
+// bit 0 of positions 32w..32w+31, row W + w bit 1 (the host's
+// asm_stage_planes_t, native/src/hostmem.cpp); codes above 3 keep their
+// low two bits (the band kernels read no position past a length).
+//
+// What bounds it: bytes. A side reads L bytes a pair and writes L/4; at
+// the issue limit a word's ~90 integer instructions for its 32 codes take
+// under a quarter of the time its 40 bytes take. One thread per (pair,
+// word), the pairs fastest across a block (grid: pair blocks x W words x
+// 2 sides), so each plane row's stores are 128 B a warp; a thread reads
+// its word's 32 code bytes as two 16-byte loads, one whole sector, and
+// every sector of the codes is read once; the bits are gathered by the
+// host's carry-free multiply.
+constexpr int kStageThreads = 256;
+
+__global__ void __launch_bounds__(kStageThreads)
+stage_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ ref,
+             int B, int W, uint32_t* __restrict__ out) {
+    const int64_t i = (int64_t)blockIdx.x * kStageThreads + threadIdx.x;
+    if (i >= B) return;
+    const int64_t w = blockIdx.y;
+    const int8_t* codes = blockIdx.z ? ref : read;
+    const uint4* s = reinterpret_cast<const uint4*>(codes + (i * W + w) * 32);
+    const uint4 lo = __ldg(s), hi = __ldg(s + 1);
+    const uint32_t v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    uint32_t p0 = 0, p1 = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {  // byte b of v[j]: position 4j + b
+        p0 |= (((v[j] & 0x01010101u) * 0x01020408u) >> 24) << (4 * j);
+        p1 |= ((((v[j] >> 1) & 0x01010101u) * 0x01020408u) >> 24) << (4 * j);
+    }
+    uint32_t* o = out + (int64_t)blockIdx.z * 2 * W * B;
+    o[w * B + i] = p0;
+    o[(W + w) * B + i] = p1;
+}
+
 }  // namespace
 
 // rp/fp: position-major 2-bit planes uint32[2W, B] of reads and refs;
@@ -654,3 +694,19 @@ extern "C" int asm_nw_band_occupancy(int bw, int W) {
 // offset pairs a thread of the wide path (band_wide_kernel) holds at bw
 // and W: the layout tools/longseq_sweep counts the loop by
 extern "C" int asm_nw_band_wide_np(int bw, int W) { return wide_np(bw, 32 * W); }
+
+// read/ref: int8 codes [B, 32W], row-major, 16-byte aligned; out:
+// uint32[2, 2W, B], the planes of reads then of refs. Returns the
+// launch's cudaError_t (0 on success); does not synchronise.
+extern "C" int asm_nw_stage_planes(const void* read, const void* ref, int B,
+                                   int W, void* out, int device,
+                                   void* stream) {
+    if (B <= 0) return 0;
+    if (W <= 0 || W > 65535) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((B + kStageThreads - 1) / kStageThreads, W, 2);
+    stage_kernel<<<grid, kStageThreads, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)read, (const int8_t*)ref, B, W, (uint32_t*)out);
+    return (int)cudaGetLastError();
+}

@@ -1,6 +1,6 @@
 """Banded NW/Gotoh penalty with an exactness certificate (port of
-`asm_tpu.kernels.nw_band`, host half, plus the wrapper of the CUDA band
-kernel csrc/nw_band.cu).
+`asm_tpu.kernels.nw_band`, host half, plus the wrappers of the CUDA band
+and staging kernels csrc/nw_band.cu).
 
 Band offsets: position u of a pair's band of BW offsets holds the
 diagonal offset k = i - j = u - KB, KB = BW/2 - 1, so k runs over [-KB,
@@ -26,6 +26,10 @@ A of lane t+1. No cell of the wrong parity is computed. The destination
 (d = m+n, k = m-n) lies in lane (k + KB) // 2, slot A where m+n is odd.
 Cells past a pair's lengths never feed its destination, so padding codes
 are don't-care.
+
+Staging: the band kernels read 2-bit planes; `stage_planes` turns int8
+codes into them (the staging kernel on the card, `stage_plain` on the
+CPU), once per call of `nw_penalty_partitioned`.
 """
 
 from __future__ import annotations
@@ -45,13 +49,15 @@ from asm_tpu_torch.kernels.shapes import BAND_WIDTHS, Plan, band_plan
 from asm_tpu_torch.utils.build import PKG_DIR, nvcc_library, ptxas_report_path
 from asm_tpu_torch.utils.profiling import span
 
-# kernel launches since import (or since a caller reset it), in all and
-# per library stem
+# band kernel launches since import (or since a caller reset it), in all
+# and per library stem
 LAUNCHES = 0
 LIB_LAUNCHES = collections.Counter()
+# staging kernel launches (`stage_planes` on the card), counted apart
+STAGE_LAUNCHES = 0
 # pairs through nw_penalty_partitioned since import: "in" entered,
-# ("band", bw) taken by a band stage, ("certified", bw) certified there,
-# "full" sent to the full kernel
+# "staged" staged to planes on the card, ("band", bw) taken by a band
+# stage, ("certified", bw) certified there, "full" sent to the full kernel
 PAIRS = collections.Counter()
 
 SOURCE = os.path.join(PKG_DIR, "csrc", "nw_band.cu")
@@ -83,6 +89,14 @@ def codes_from_planes(planes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     bits; cells past a length never reach a result, so one pad serves
     reads and refs)."""
     return codes_from_planes_tiled(planes[None], lens, PAD_READ)
+
+
+def stage_plain(codes: torch.Tensor) -> torch.Tensor:
+    """The plain version of the staging kernel: int8 codes [B, L] ->
+    position-major 2-bit planes int32[2W, B], W = L/32, row w bit 0 and
+    row W + w bit 1 of positions 32w..32w+31: `encoding.pack_planes_t`'s
+    first two planes (codes above 3 keep their low two bits)."""
+    return torch.cat(pack_planes_t(codes)[:2])
 
 
 def banded_plain(read_codes, read_len, ref_codes, ref_len, bw=32, x=1, o=1,
@@ -185,6 +199,9 @@ def bind(path: str):
     lib.asm_nw_band_occupancy.argtypes = [c.c_int] * 2
     lib.asm_nw_band_wide_np.restype = c.c_int
     lib.asm_nw_band_wide_np.argtypes = [c.c_int] * 2
+    lib.asm_nw_stage_planes.restype = c.c_int
+    lib.asm_nw_stage_planes.argtypes = (
+        [c.c_void_p] * 2 + [c.c_int] * 2 + [c.c_void_p, c.c_int, c.c_void_p])
     return lib
 
 
@@ -209,16 +226,55 @@ def occupancy(bw: int, max_len: int, lib=None) -> int:
     return got
 
 
+def stage_planes(read: torch.Tensor,
+                 ref: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes [B, L] of reads and refs -> their position-major 2-bit
+    planes int32[2W, B] (`stage_plain`'s words), the input of
+    `nw_penalty_banded(..., pre_staged=True)`.
+
+    CUDA tensors launch the staging kernel (csrc/nw_band.cu stage_kernel)
+    once for both sides on the current stream, unsynced, into one
+    [2, 2W, B] tensor; their rows must start 16-byte aligned. CPU tensors
+    run `stage_plain`."""
+    global STAGE_LAUNCHES
+    with span("asm.nw.stage"):
+        device = read.device
+        B, L = read.shape
+        check_tensor(read, "read", (torch.int8,), (B, L), device)
+        check_tensor(ref, "ref", (torch.int8,), (B, L), device)
+        if L % 32:
+            raise ValueError(f"max_len must be a multiple of 32, got {L}")
+        if device.type == "cpu":
+            return stage_plain(read), stage_plain(ref)
+        if device.type != "cuda":
+            raise NotImplementedError(f"no staging route for device {device}")
+        if read.data_ptr() % 16 or ref.data_ptr() % 16:
+            raise ValueError("the staging kernel reads codes 16 bytes at a "
+                             "time: read and ref must start 16-byte aligned")
+        out = torch.empty((2, L // 16, B), dtype=torch.int32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with span("asm.nw.stage.launch"):
+            err = _load(L).asm_nw_stage_planes(
+                read.data_ptr(), ref.data_ptr(), B, L // 32, out.data_ptr(),
+                device.index, stream)
+        if err != 0:
+            raise RuntimeError(f"staging kernel launch failed: cudaError {err}")
+        if B > 0:
+            STAGE_LAUNCHES += 1
+        return out[0], out[1]
+
+
 def nw_penalty_banded(read, read_len, ref, ref_len, bw=32, x=1, o=1, e=1,
                       pre_staged: bool = False) -> torch.Tensor:
     """Banded global-alignment penalty, int32[B]: INF where the
     destination lies off the band; equal to the exact NW penalty wherever
     `band_certified`, an upper bound elsewhere.
 
-    read/ref: int8 codes [B, L] (pre_staged=False; packed to planes with
-    `pack_planes_t` for the kernel), or position-major 2-bit planes
+    read/ref: int8 codes [B, L] (pre_staged=False; staged to planes by
+    `stage_planes` for the kernel), or position-major 2-bit planes
     [L/16, B] of int32 / uint32 words from `stage_planes_t`
-    (pre_staged=True). read_len/ref_len: int32[B].
+    (pre_staged=True). read_len/ref_len: int32[B]. All contiguous; CUDA
+    codes must also start 16-byte aligned (`stage_planes`).
 
     CUDA tensors launch csrc/nw_band.cu on the current stream, unsynced;
     CPU tensors run `banded_plain`."""
@@ -253,9 +309,7 @@ def nw_penalty_banded(read, read_len, ref, ref_len, bw=32, x=1, o=1, e=1,
     if pre_staged:
         rp, fp = read, ref
     else:
-        with span("asm.nw.band.pack"):
-            rp = torch.cat(pack_planes_t(read)[:2]).contiguous()
-            fp = torch.cat(pack_planes_t(ref)[:2]).contiguous()
+        rp, fp = stage_planes(read, ref)
     pen = torch.empty(B, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with span("asm.nw.band.launch"):
@@ -279,29 +333,40 @@ def nw_penalty_partitioned(read, read_len, ref, ref_len, x=1, o=1, e=1,
     """Exact NW penalties by host-side band partitioning: stage bw runs
     on the pairs still to do, keeps the certified results and forwards
     the rest; the final residue goes to the full kernel
-    (`nw_cuda.nw_penalty_cuda`, codes rebuilt from planes on the device).
+    (`nw_cuda.nw_penalty_cuda`, on the caller's codes, or on codes rebuilt
+    from the caller's planes). CUDA codes are staged to planes once
+    (`stage_planes`), before the first band pass that takes a pair, and
+    every pass gathers its pairs' planes.
 
     bands (optional int32[B], from `required_band` over a measuring pass)
     sends each pair straight to its certifying stage (0 = the full
     kernel); a stale too-narrow entry is harmless, its uncertified result
     forwards like in the measuring path.
 
-    Inputs as for `nw_penalty_banded`, all on one device; the index
-    bookkeeping runs on the host. Returns int32[B] (numpy), equal to
+    Inputs as for `nw_penalty_banded`, all on one device (CUDA codes
+    contiguous and 16-byte aligned: `stage_planes` reads them whole); the
+    index bookkeeping runs on the host. Returns int32[B] (numpy), equal to
     `nw.nw_penalty`. Counts its pairs in `PAIRS`."""
     with span("asm.nw"):
         device = read.device
         B = read_len.shape[0]
         PAIRS["in"] += B
-        ax = 1 if pre_staged else 0
         pen = np.zeros(B, np.int64)
         todo = np.arange(B)
         bands = None if bands is None else np.asarray(bands)
+        # the band passes' planes [2W, B], pairs on axis 1: the caller's,
+        # or staged from CUDA codes at the first pass; the CPU route takes
+        # codes
+        planes = (read, ref) if pre_staged else None
 
-        def take(idx):
-            return [torch.index_select(a, ax if a.dim() == 2 else 0,
-                                       torch.from_numpy(idx).to(device))
-                    for a in (read, read_len, ref, ref_len)]
+        def take(idx, rd, fd, ax):
+            """(read, read_len, ref, ref_len) of the pairs idx, rd and fd
+            gathered along axis ax"""
+            i = torch.from_numpy(idx).to(device)
+            return (torch.index_select(rd, ax, i),
+                    torch.index_select(read_len, 0, i),
+                    torch.index_select(fd, ax, i),
+                    torch.index_select(ref_len, 0, i))
 
         for bw in sorted(bws):
             if todo.size == 0:
@@ -312,11 +377,15 @@ def nw_penalty_partitioned(read, read_len, ref, ref_len, x=1, o=1, e=1,
                 here = todo
             if here.size == 0:
                 continue
+            if planes is None and device.type == "cuda":
+                planes = stage_planes(read, ref)
+                PAIRS["staged"] += B
             with span("asm.nw.take"):
-                args = take(here)
+                args = (take(here, read, ref, 0) if planes is None
+                        else take(here, *planes, 1))
             with span("asm.nw.band"):
                 p = nw_penalty_banded(*args, bw=bw, x=x, o=o, e=e,
-                                      pre_staged=pre_staged)
+                                      pre_staged=planes is not None)
             with span("asm.nw.band.wait"):
                 p = p.cpu().numpy()
             with span("asm.nw.certificate"):
@@ -330,7 +399,7 @@ def nw_penalty_partitioned(read, read_len, ref, ref_len, x=1, o=1, e=1,
         if todo.size:
             PAIRS["full"] += todo.size
             with span("asm.nw.take"):
-                rc, rl, fc, fl = take(todo)
+                rc, rl, fc, fl = take(todo, read, ref, 1 if pre_staged else 0)
             with span("asm.nw.full"):
                 if pre_staged:
                     rc = codes_from_planes(rc, rl)

@@ -80,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import os
 import re
@@ -162,6 +163,19 @@ def variant(module, name: str, subs, defines=(),
         f.write(src)
     return (nvcc_library(name, path, defines)[0],
             ptxas_report_path(name, path))
+
+
+def parent_bind(module, parent: str):
+    """`module`'s `bind` as DIR's checkout `parent` has it, so that a
+    library built from the parent's source is typed by the parent's own
+    calls (a later source may export calls the parent's lacks)."""
+    stem = module.__name__.rsplit(".", 1)[1]
+    spec = importlib.util.spec_from_file_location(
+        f"parent_{stem}", os.path.join(parent, "asm_tpu_torch", "kernels",
+                                       f"{stem}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.bind
 
 
 @contextlib.contextmanager
@@ -414,7 +428,8 @@ def cigar_sweep(pairs: int, parent: str | None, reps: int,
             leap_cuda, j[0], j[1], tuple(j[2].items()), j[3]),
             jobs.values())))
     libs = {"checked-in": leap_cuda._load(k, L)}
-    libs.update({n: leap_cuda.bind(path) for n, (path, _) in built.items()})
+    libs.update({n: (parent_bind(leap_cuda, parent) if n == "parent" else
+                     leap_cuda.bind)(path) for n, (path, _) in built.items()})
     info = {}
     for name, lib in libs.items():
         rep = (leap_cuda.ptxas_report(k, L) if name == "checked-in"
@@ -497,7 +512,7 @@ def band_libs(Lr: int, parent: str | None) -> dict:
         path, rep = variant(nw_band, f"parent_{p.stem}", [], p.defines,
                             os.path.join(parent, "asm_tpu_torch", "csrc",
                                          "nw_band.cu"))
-        out["parent"] = (nw_band.bind(path), path, rep)
+        out["parent"] = (parent_bind(nw_band, parent)(path), path, rep)
     path, _ = nw_band.build_kernel(Lr)
     out["checked-in"] = (nw_band._load(Lr), path, nw_band.ptxas_report(Lr))
     return out
@@ -715,7 +730,7 @@ def full_libs(Lr: int, parent: str | None) -> dict:
         path, rep = variant(nw_cuda, f"parent_{p.stem}", [], p.defines,
                             os.path.join(parent, "asm_tpu_torch", "csrc",
                                          "nw.cu"))
-        out["parent"] = (nw_cuda.bind(path), path, rep)
+        out["parent"] = (parent_bind(nw_cuda, parent)(path), path, rep)
     path, _ = nw_cuda.build_kernel(Lr)
     out["checked-in"] = (nw_cuda._load(Lr), path, nw_cuda.ptxas_report(Lr))
     return out

@@ -32,7 +32,12 @@ line:
      kernel must have launched, and the plain version must agree pair by
      pair; then the same flow on a 262,144-pair mixed-error corpus, whose
      band-0 residue must launch the full kernel and whose penalties must
-     equal the plain full NW on every pair;
+     equal the plain full NW on every pair; (6c) the NW staging kernel
+     (nw_band.stage_planes, int8 codes -> the band's 2-bit planes) on
+     card codes at long1k's job (25,000 x 1,056) and at 100 bp
+     (1,048,576 x 128), pads inside and past the lengths, word for word
+     equal to its plain version on the same tensors, timed against its
+     bytes bound, every launch counted in nw_band.STAGE_LAUNCHES;
   7. coverage: the harness's coverage loop (trace kernel + greedy kernel +
      positional certificate + native fallback) on 65,536 native pairs at
      err 0.10; both counts must equal the pinned values and the trace
@@ -442,6 +447,8 @@ def _instance_name(name: str) -> str | None:
                 f"x{m[4]}o{m[5]}e{m[6]}/{LEAP_SEMANTICS[int(m[7])]}"
                 f"{'/cigar' if m[8] == '1' else ''}/"
                 f"{'planes' if m[9] == '1' else 'codes'}")
+    if re.search(r"\d+stage_kernel", name):
+        return "nw_stage"
     m = re.search(r"(issue_chain|stream_fold|probe_kernel|noop_kernel)", name)
     if m:
         return m[1]
@@ -846,6 +853,61 @@ def nw_main_path(dev, card, err) -> tuple[list[dict], dict, dict]:
              ms=full_ms, plain_ms=full_plain_ms, **full_bound),
     ], main_res, dict(m=b.cpu().numpy(), n=d.cpu().numpy(), ms=full_ms,
                       bound=full_bound)
+
+
+def nw_stage_path(dev, card) -> dict:
+    """Phase 6c; returns the staging kernel's JSON entry (long1k's job,
+    with the 100 bp shape under "at_100bp")."""
+    from asm_tpu_torch.encoding import PAD_READ, PAD_REF
+    from asm_tpu_torch.kernels import nw_band
+    from asm_tpu_torch.utils.bounds import bound_entry
+
+    nw_band.STAGE_LAUNCHES = 0
+    band_launches = nw_band.LAUNCHES
+    queued, calls, rows = 20, 0, []
+    for B, L in ((25_000, 1_056), (1_048_576, 128)):
+        g = torch.Generator(device=dev).manual_seed(B + L)
+        pos = torch.arange(L, device=dev)
+        sides = []
+        # reads padded with PAD_READ past a random length, refs with
+        # PAD_REF, and 1% of the codes inside made pads too
+        for pad in (PAD_READ, PAD_REF):
+            codes = torch.randint(0, 4, (B, L), device=dev, generator=g,
+                                  dtype=torch.int8)
+            lens = torch.randint(0, L + 1, (B, 1), device=dev, generator=g)
+            inside = torch.rand((B, L), device=dev, generator=g) < 0.01
+            sides.append(torch.where((pos >= lens) | inside,
+                                     torch.tensor(pad, dtype=torch.int8,
+                                                  device=dev), codes))
+        # queued behind a spin: the wrapper's host time would outlast the
+        # kernel's ~0.03 ms at 25,000 x 1,056
+        ms = queued_ms(lambda: nw_band.stage_planes(*sides), queued)
+        got = nw_band.stage_planes(*sides)
+        calls += 2 + 3 * queued
+        plain_ms, want = cuda_ms(
+            lambda: [nw_band.stage_plain(c) for c in sides], 2)
+        for side, a, b in zip(("reads", "refs"), got, want):
+            max_diff(a, b, f"staging {B} x {L} {side}: planes")
+        # each side's codes read once, its planes written once
+        rows.append(dict(shape=[B, L], ms=ms, plain_ms=plain_ms,
+                         **bound_entry(0, 2 * (B * L + B * L // 4))))
+    launches = nw_band.STAGE_LAUNCHES
+    band = nw_band.LAUNCHES - band_launches
+    if launches != calls or band:
+        raise AssertionError(f"staging: {launches} staging launches for "
+                             f"{calls} calls, {band} band launches "
+                             "(expected none)")
+    phase("[6c NW staging] " + "; ".join(
+        f"{r['shape'][0]} x {r['shape'][1]}: kernel {r['ms']:.4f} ms "
+        f"({r['bound_ms'] / r['ms']:.1%} of its {r['bound_ms']:.4f} ms "
+        f"bytes bound), plain version {r['plain_ms']:.3f} ms, equal word "
+        f"for word" for r in rows)
+        + f"; {launches} staging launches, no band launch; on {card}")
+    main, short = rows
+    return dict(name="nw_stage", route="cuda",
+                source="asm_tpu_torch/csrc/nw_band.cu", replaces=None,
+                shape=main.pop("shape"), launches=launches, max_abs_err=0.0,
+                **main, at_100bp=short)
 
 
 def coverage_path(dev, card, err) -> tuple[dict, dict]:
@@ -2899,6 +2961,7 @@ def main() -> int:
     err = nw_conformance(dev, name)
     got, nw_res, full_row = nw_main_path(dev, card, err)
     entries += got
+    entries.append(nw_stage_path(dev, card))
     entry, trace_row = coverage_path(dev, card, err)
     entries.append(entry)
     leap_err = leap_conformance(dev, name)

@@ -409,6 +409,86 @@ def test_nw_band_kernel_matches_plain(dev, label, kw, bw):
             assert torch.equal(got, want), (x, o, e, pre)
 
 
+# the staging kernel's shapes: B on both sides of its 256-thread blocks,
+# the band's max_lens, and long1k's job (25,000 x 1,056)
+STAGE_SHAPES = [(1, 32), (255, 128), (257, 128), (4099, 512), (3001, 1056),
+                (25000, 1056), (513, 2048)]
+
+
+@pytest.mark.parametrize("B,L", STAGE_SHAPES)
+def test_stage_kernel_matches_plain_and_host(dev, B, L):
+    """stage_planes on the card equals stage_plain and the host's
+    stage_planes_t word for word (codes 0-5, the pads among them), in one
+    staging launch and no band launch; misaligned codes raise."""
+    codes = np.random.default_rng(B + L).integers(0, 6, (2, B, L)).astype(
+        np.int8)
+    t = torch.from_numpy(codes).to(dev)
+    before = (nw_band.STAGE_LAUNCHES, nw_band.LAUNCHES)
+    got = nw_band.stage_planes(t[0], t[1])
+    torch.cuda.synchronize()
+    assert (nw_band.STAGE_LAUNCHES, nw_band.LAUNCHES) == (before[0] + 1,
+                                                          before[1])
+    for c, g in zip(codes, got):
+        assert g.dtype == torch.int32 and g.is_contiguous()
+        assert tuple(g.shape) == (L // 16, B)
+        np.testing.assert_array_equal(
+            g.cpu().numpy(), greedy_cuda.stage_planes_t(c).view(np.int32))
+        assert torch.equal(g.cpu(), nw_band.stage_plain(torch.from_numpy(c)))
+    flat = torch.zeros(B * L + 16, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        nw_band.stage_planes(flat[1:1 + B * L].view(B, L), t[1])
+
+
+def _partition_corpus(dev, label):
+    """(pairs, x, o, e): long1k's 1 kbp pairs at 5% (WFA's penalties as
+    the port's), or 100 bp pairs from err 0.02 to 0.45, which leave pairs
+    at every band and a residue."""
+    if label == "long1k":
+        return _corpus(dev, num_reads=300, length=1000, error_rate=0.05,
+                       mismatch_rate=1 / 3, seed=7, max_len=1056), (4, 8, 2)
+    parts = [generate_dataset_arrays(400, 100, r, seed=30 + i)
+             for i, r in enumerate((0.02, 0.05, 0.1, 0.2, 0.45))]
+    return [torch.from_numpy(np.concatenate(a)).to(dev)
+            for a in zip(*parts)], (1, 1, 1)
+
+
+@pytest.mark.parametrize("label", ["long1k", "mixed100"])
+def test_partitioned_stages_once(dev, monkeypatch, label):
+    """nw_penalty_partitioned on codes equals nw.nw_penalty; it stages
+    once a call (PAIRS["staged"] == PAIRS["in"]) and launches one band
+    kernel a pass that takes pairs; with the bands hint sending every pair
+    to the full kernel it stages nothing and launches no band kernel."""
+    import collections
+
+    t, (x, o, e) = _partition_corpus(dev, label)
+    n = t[1].shape[0]
+    want = nw.nw_penalty(*t, x, o, e).cpu().numpy()
+    monkeypatch.setattr(nw_band, "PAIRS", collections.Counter())
+    before = (nw_band.STAGE_LAUNCHES, nw_band.LAUNCHES)
+    got = nw_band.nw_penalty_partitioned(*t, x=x, o=o, e=e, bws=nw_band.BWS)
+    np.testing.assert_array_equal(got, want)
+    pairs = nw_band.PAIRS
+    passes = sum(pairs["band", bw] > 0 for bw in nw_band.BWS)
+    assert (nw_band.STAGE_LAUNCHES, nw_band.LAUNCHES) == (
+        before[0] + 1, before[1] + passes)
+    assert pairs["staged"] == pairs["in"] == n
+    if label == "long1k":  # no band certifies a pair at WFA's penalties
+        assert passes == len(nw_band.BWS) and pairs["full"] == n
+    else:
+        assert 0 < pairs["full"] < n
+    bands = nw_band.required_band(want, o, e, nw_band.BWS)
+    for hint in (bands, np.zeros(n, np.int32)):
+        before = (nw_band.STAGE_LAUNCHES, nw_band.LAUNCHES)
+        staged = pairs["staged"]
+        got = nw_band.nw_penalty_partitioned(*t, x=x, o=o, e=e,
+                                             bws=nw_band.BWS, bands=hint)
+        np.testing.assert_array_equal(got, want)
+        stages = int(hint.any())
+        assert nw_band.STAGE_LAUNCHES == before[0] + stages
+        assert pairs["staged"] == staged + stages * n
+        assert (nw_band.LAUNCHES > before[1]) == bool(stages)
+
+
 @pytest.mark.parametrize("label,kw", NW_CASES, ids=[c[0] for c in NW_CASES])
 def test_nw_full_and_trace_kernels_match_plain(dev, label, kw):
     rc, rl, fc, fl = _nw_corpus(dev, kw)

@@ -5,7 +5,9 @@ to asm_tpu.kernels.nw_band.nw_penalty_banded (Pallas, interpret mode) in
 both input forms, and the partitioned / dispatch paths equal to the exact
 XLA oracle asm_tpu.kernels.nw.nw_penalty, mirroring tests/test_nw_band.py;
 and utils.bounds.nw_band_work against a brute-force count of the band
-cells that lie in the DP matrix.
+cells that lie in the DP matrix; the staging kernel's plain version
+against the host staging (`greedy_cuda.stage_planes_t`, native and NumPy
+routes).
 
 Tolerance everywhere: exact equality (integer DP, integer counts)."""
 
@@ -20,7 +22,8 @@ from asm_tpu.kernels.greedy_pallas import stage_planes_t as jax_stage
 from asm_tpu.kernels.nw import nw_penalty
 from asm_tpu.kernels.nw_band import nw_penalty_banded as jax_banded
 from asm_tpu.kernels.nw_band import required_band as jax_required_band
-from asm_tpu_torch.kernels import nw_band
+from asm_tpu_torch.encoding import PAD_READ, PAD_REF
+from asm_tpu_torch.kernels import greedy_cuda, nw_band
 from asm_tpu_torch.kernels.greedy_cuda import stage_planes_t
 from asm_tpu_torch.kernels.nw_band import (
     band_certified,
@@ -99,6 +102,40 @@ def test_banded_every_entry_matches_pallas(label, bw):
                                pre_staged=True)
             np.testing.assert_array_equal(got.numpy(), np.asarray(want2))
     assert nw_band.LAUNCHES == 0  # CPU tensors never launch
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+@pytest.mark.parametrize("L,B", [(32, 0), (32, 1), (128, 301), (1056, 0),
+                                 (1056, 33), (2048, 7)])
+def test_stage_plain_matches_host_staging(monkeypatch, route, L, B):
+    """stage_plain's words equal stage_planes_t's and asm_tpu's
+    (greedy_pallas.stage_planes_t) bit for bit, on codes padded past
+    random lengths with PAD_READ (reads) and PAD_REF (refs) and a few
+    pads inside; the CPU wrapper returns them and launches nothing."""
+    rng = np.random.default_rng(L + B)
+    pos = np.arange(L)
+    sides = []
+    for pad in (PAD_READ, PAD_REF):
+        codes = rng.integers(0, 4, (B, L))
+        codes[rng.random((B, L)) < 0.01] = pad
+        lens = rng.integers(0, L + 1, B)
+        sides.append(np.where(pos < lens[:, None], codes, pad).astype(np.int8))
+    if route == "numpy":
+        monkeypatch.setattr(greedy_cuda, "load_native",
+                            lambda required=False: None)
+    else:
+        assert greedy_cuda.load_native() is not None
+    before = nw_band.STAGE_LAUNCHES
+    got = nw_band.stage_planes(*map(torch.from_numpy, sides))
+    for codes, planes in zip(sides, got):
+        want = stage_planes_t(codes).view(np.int32)
+        np.testing.assert_array_equal(jax_stage(codes).view(np.int32), want)
+        plain = nw_band.stage_plain(torch.from_numpy(codes))
+        assert plain.dtype == planes.dtype == torch.int32
+        assert plain.shape == (L // 16, B)
+        np.testing.assert_array_equal(plain.numpy(), want)
+        np.testing.assert_array_equal(planes.numpy(), want)
+    assert nw_band.STAGE_LAUNCHES == before
 
 
 @pytest.mark.parametrize("bw", [8, 16, 32, 64])

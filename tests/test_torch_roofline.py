@@ -851,6 +851,8 @@ def test_chip_smoke_names_every_instantiation():
     assert chip_smoke._instance_name(
         "_ZN12_GLOBAL__N_114nw_long_kernelILi64ELb1EEEvPKaS2_") == (
         "nw_trace long W64")
+    assert chip_smoke._instance_name(
+        "_ZN12_GLOBAL__N_112stage_kernelEPKaS1_iiPj") == "nw_stage"
     assert chip_smoke._instance_name("_Z11unknown_fnv") is None
 
 

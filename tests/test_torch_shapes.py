@@ -417,6 +417,25 @@ def test_band_variants_replace_the_table_line():
         assert f"constexpr int kWideUnroll = {unroll};" in out
 
 
+@pytest.mark.parametrize("stem", ["nw_band", "nw_cuda", "leap_cuda"])
+def test_parent_bind_is_the_parents_own(tmp_path, stem):
+    """tools/longseq_sweep --parent types a parent's library with the
+    parent checkout's own `bind`, not this checkout's: a parent module's
+    bind is the one called."""
+    import importlib
+
+    from asm_tpu_torch.tools import longseq_sweep as ls
+
+    module = importlib.import_module(f"asm_tpu_torch.kernels.{stem}")
+    kernels = tmp_path / "asm_tpu_torch" / "kernels"
+    kernels.mkdir(parents=True)
+    (kernels / f"{stem}.py").write_text(
+        "def bind(path):\n    return ('parent', path)\n")
+    assert ls.parent_bind(module, str(tmp_path))("lib.so") == ("parent",
+                                                              "lib.so")
+    assert module.bind is not ls.parent_bind(module, str(tmp_path))
+
+
 def test_band_wide_limit_is_named():
     """At 32 threads a block the wide path's shared memory is one warp's
     pairs' rows, NP halved to fit down to one offset pair a thread (two at

@@ -172,8 +172,8 @@ def test_launch_and_wait_spans_share_the_kernels_clock(tmp_path, dev):
             issuers.add(inner[2])
             margins.append(start - inner[0])
             assert start >= inner[0] - CLOCK_TOL_US, inner
-    assert issuers == {"asm.greedy.launch", "asm.nw.band.launch",
-                       "asm.nw.full.launch"}
+    assert issuers == {"asm.greedy.launch", "asm.nw.stage.launch",
+                       "asm.nw.band.launch", "asm.nw.full.launch"}
     waits = [s for s in spans if s[2].endswith(".wait")]
     assert {name for _, _, name in waits} == {"asm.nw.band.wait",
                                                "asm.nw.full.wait"}
